@@ -1,0 +1,44 @@
+"""Payload pytrees and devices: the two small helpers every module shares.
+
+A queue item is a pytree of tensors, as in the JAX package: a tensor, a
+dict (leaves in sorted key order, as JAX orders them), or a tuple / list /
+NamedTuple of such.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Callable, List, Optional
+
+import torch
+
+__all__ = ["tree_map", "tree_leaves", "resolve_device"]
+
+
+def tree_leaves(tree: Any) -> List[Any]:
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in tree_leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [leaf for x in tree for leaf in tree_leaves(x)]
+    return [tree]
+
+
+def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:
+    """Apply ``fn`` leaf-wise over ``tree`` and same-structured ``rest``."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def resolve_device(device: Optional[Any] = None) -> torch.device:
+    """An entry point's device: ``None`` means CUDA, and a CUDA device is
+    refused when there is none — the port never carries on quietly on the
+    CPU.  Pass ``"cpu"`` to ask for the CPU."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "CUDA is not available; pass device='cpu' to run on the CPU")
+    return dev

@@ -1,0 +1,176 @@
+"""The port's ring kernels K1-K4.
+
+On the CPU each wrapper runs its kernel's plain PyTorch version; these
+tests hold it against the JAX package's Pallas kernel in interpret mode on
+the same seeded inputs, exactly (bitwise for float and bfloat16 payloads).
+The CUDA kernels themselves are held against their plain versions by
+``tests/test_torch_cuda.py`` on a GPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels.queue_push.kernel import (ring_scatter_supported,
+                                             ring_slice_supported)
+from repro.kernels.queue_push.ops import pop_slice as jax_pop_slice
+from repro.kernels.queue_push.ops import push_scatter as jax_push_scatter
+from repro.kernels.queue_push.ref import ring_scatter_ref as jax_scatter_ref
+from repro.kernels.queue_steal.ops import steal_gather as jax_steal_gather
+from repro.kernels.queue_transfer.ops import \
+    transfer_splice as jax_transfer_splice
+from repro_torch.kernels import _lib
+from repro_torch.kernels import cases as C
+from repro_torch.kernels.queue_push.ops import (pop_slice, push_scatter,
+                                                ring_scatter)
+from repro_torch.kernels.queue_push.ref import ring_scatter_ref
+from repro_torch.kernels.queue_steal.ops import ring_gather, steal_gather
+from repro_torch.kernels.queue_transfer.ops import transfer_splice
+
+from _torch_parity import assert_same, jax_payload
+
+CPU = torch.device("cpu")
+I32 = torch.int32
+
+
+def _vec(*xs):
+    return torch.tensor(xs, dtype=I32)
+
+
+def _both(rng, shape, dtype):
+    a = C.payload(rng, shape, dtype)
+    return jax_payload(a, dtype), C.to_tensor(a, dtype, CPU)
+
+
+@pytest.mark.parametrize("case", C.STEAL_CASES)
+def test_ring_gather_plain_matches_pallas(case):
+    cap, d, max_steal, lo, n, dtype = case
+    jbuf, tbuf = _both(np.random.default_rng(0), (cap, d), dtype)
+    want = jax_steal_gather(jbuf, jnp.int32(lo), jnp.int32(n),
+                            max_steal=max_steal, interpret=True)
+    got = steal_gather(tbuf[None], _vec(lo), _vec(n), max_steal=max_steal)
+    assert_same(want, got[0], f"ring_gather {case}")
+
+
+@pytest.mark.parametrize("case", C.SCATTER_CASES)
+def test_ring_scatter_plain_matches_pallas(case):
+    cap, d, max_push, start, n, dtype = case
+    assert ring_scatter_supported(cap, max_push)
+    rng = np.random.default_rng(1)
+    jbuf, tbuf = _both(rng, (cap, d), dtype)
+    jbatch, tbatch = _both(rng, (max_push, d), dtype)
+    want = jax_push_scatter(jbuf, jbatch, jnp.int32(start), jnp.int32(n),
+                            interpret=True)
+    ring = tbuf[None].clone()
+    out = push_scatter(ring, tbatch[None], _vec(start), _vec(n))
+    assert out is ring  # the splice is in place
+    assert_same(want, ring[0], f"ring_scatter {case}")
+
+
+@pytest.mark.parametrize("case", C.SLICE_CASES)
+def test_ring_slice_plain_matches_pallas(case):
+    cap, d, max_n, lo, size, n, dtype = case
+    assert ring_slice_supported(cap, max_n)
+    jbuf, tbuf = _both(np.random.default_rng(2), (cap, d), dtype)
+    want = jax_pop_slice(jbuf, jnp.int32(lo), jnp.int32(size), jnp.int32(n),
+                         max_n=max_n, interpret=True)
+    got = pop_slice(tbuf[None], _vec(lo), _vec(size), _vec(n), max_n=max_n)
+    assert_same(want, got[0], f"ring_slice {case}")
+
+
+@pytest.mark.parametrize("case", C.TRANSFER_CASES)
+def test_ring_transfer_plain_matches_pallas(case):
+    cap, d, lanes, max_steal, head, src_row, n, dtype = case
+    rng = np.random.default_rng(3)
+    jbuf, tbuf = _both(rng, (cap, d), dtype)
+    jg, tg = _both(rng, (lanes, max_steal, d), dtype)
+    want = jax_transfer_splice(jbuf, jg, jnp.int32(head), jnp.int32(src_row),
+                               jnp.int32(n), max_steal=max_steal,
+                               interpret=True)
+    ring = tbuf[None].clone()
+    transfer_splice(ring, tg, _vec(head), _vec(src_row), _vec(n),
+                    max_steal=max_steal)
+    assert_same(want, ring[0], f"ring_transfer {case}")
+
+
+def test_queue_transfer_equals_select_then_push():
+    """The fused transfer equals the two-step oracle — select the victim's
+    window row, then ring-scatter it at the head — and the JAX kernel."""
+    cap, d, lanes, max_steal = 512, 8, 4, 128
+    rng = np.random.default_rng(4)
+    jbuf, tbuf = _both(rng, (cap, d), "float32")
+    jg, tg = _both(rng, (lanes, max_steal, d), "float32")
+    for head, src_row, n in [(0, 0, 128), (450, 3, 100), (77, 2, 1)]:
+        fused = tbuf[None].clone()
+        transfer_splice(fused, tg, _vec(head), _vec(src_row), _vec(n),
+                        max_steal=max_steal)
+        two_step = ring_scatter_ref(tbuf[None], tg[src_row][None],
+                                    _vec(head), _vec(n))
+        assert torch.equal(fused, two_step)
+        want = jax_transfer_splice(jbuf, jg, jnp.int32(head),
+                                   jnp.int32(src_row), jnp.int32(n),
+                                   max_steal=max_steal, interpret=True)
+        assert_same(want, fused[0])
+        assert_same(jax_scatter_ref(jbuf, jg[src_row], head, n), fused[0])
+
+
+@pytest.mark.parametrize("kernel", ["gather", "scatter", "slice",
+                                    "transfer"])
+def test_one_launch_serves_every_lane(kernel):
+    """Per-lane cursors: a stacked call equals the JAX kernel run lane by
+    lane (wrapped, empty and full lanes mixed)."""
+    rng = np.random.default_rng(5)
+    lanes, cap, d, m = 5, 256, 3, 128
+    jbuf, tbuf = _both(rng, (lanes, cap, d), "int32")
+    lo = rng.integers(0, cap, lanes)
+    n = np.array([0, m, 1, 77, m])
+    if kernel == "gather":
+        got = ring_gather(tbuf, _vec(*lo), _vec(*n), m)
+        want = [jax_steal_gather(jbuf[l], jnp.int32(lo[l]), jnp.int32(n[l]),
+                                 max_steal=m, interpret=True)
+                for l in range(lanes)]
+    elif kernel == "scatter":
+        jb, tb = _both(rng, (lanes, m, d), "int32")
+        got = ring_scatter(tbuf.clone(), tb, _vec(*lo), _vec(*n))
+        want = [jax_push_scatter(jbuf[l], jb[l], jnp.int32(lo[l]),
+                                 jnp.int32(n[l]), interpret=True)
+                for l in range(lanes)]
+    elif kernel == "slice":
+        size = np.maximum(n, rng.integers(0, cap + 1, lanes))
+        got = pop_slice(tbuf, _vec(*lo), _vec(*size), _vec(*n), max_n=m)
+        want = [jax_pop_slice(jbuf[l], jnp.int32(lo[l]), jnp.int32(size[l]),
+                              jnp.int32(n[l]), max_n=m, interpret=True)
+                for l in range(lanes)]
+    else:
+        jg, tg = _both(rng, (lanes, m, d), "int32")
+        src = rng.permutation(lanes)
+        got = tbuf.clone()
+        transfer_splice(got, tg, _vec(*lo), _vec(*src), _vec(*n),
+                        max_steal=m)
+        want = [jax_transfer_splice(jbuf[l], jg, jnp.int32(lo[l]),
+                                    jnp.int32(src[l]), jnp.int32(n[l]),
+                                    max_steal=m, interpret=True)
+                for l in range(lanes)]
+    for l in range(lanes):
+        assert_same(want[l], got[l], f"{kernel} lane {l}")
+
+
+def test_wrappers_refuse_non_cpu_tensors_without_cuda():
+    """A tensor that is not on the CPU never takes the plain version: it
+    goes to the CUDA kernel or raises."""
+    buf = torch.empty((2, 16, 1), dtype=I32, device="meta")
+    cursor = torch.zeros((2,), dtype=I32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ring_gather(buf, cursor, cursor, 8)
+    with pytest.raises(ValueError, match="int32"):
+        ring_gather(buf, cursor.long(), cursor, 8)
+
+
+@pytest.mark.parametrize("extent", [-1, 2 ** 31])
+def test_launch_refuses_extents_past_32_bits(extent):
+    """An extent the kernels' 32-bit ``int`` arguments cannot hold raises
+    before the library is built or loaded, never wraps around."""
+    with pytest.raises(ValueError, match="32-bit"):
+        _lib.launch("rk_ring_gather", 0, 0, 0, 0, 1, extent, 8, 1, 4,
+                    device=torch.device("cuda"))

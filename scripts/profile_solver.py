@@ -26,6 +26,35 @@ RING_KERNELS = ("ring_gather_kernel", "ring_scatter_kernel",
                 "ring_slice_kernel", "ring_transfer_kernel")
 
 
+def device_summary(prof):
+    """``(busy us, window us, {kernel name: [launches, ms]})`` of the
+    device events in a ``torch.profiler`` run: busy is the union of the
+    kernel intervals, window the span from the first start to the last
+    end."""
+    import torch
+    spans, by_name = [], defaultdict(lambda: [0, 0.0])
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        start, end = e.time_range.start, e.time_range.end
+        spans.append((start, end))
+        by_name[e.name][0] += 1
+        by_name[e.name][1] += (end - start) / 1e3  # us -> ms
+    spans.sort()
+    busy_us, cur_s, cur_e = 0.0, None, None
+    for s, e in spans:
+        if cur_e is None or s > cur_e:
+            if cur_e is not None:
+                busy_us += cur_e - cur_s
+            cur_s, cur_e = s, e
+        else:
+            cur_e = max(cur_e, e)
+    if cur_e is not None:
+        busy_us += cur_e - cur_s
+    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    return busy_us, window_us, by_name
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -58,26 +87,8 @@ def main() -> int:
         solve()
         prof_wall = time.perf_counter() - t0
 
-    spans, by_name = [], defaultdict(lambda: [0, 0.0])
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            continue
-        start, end = e.time_range.start, e.time_range.end
-        spans.append((start, end))
-        by_name[e.name][0] += 1
-        by_name[e.name][1] += (end - start) / 1e3  # us -> ms
-    spans.sort()
-    busy_us, cur_s, cur_e = 0.0, None, None
-    for s, e in spans:
-        if cur_e is None or s > cur_e:
-            if cur_e is not None:
-                busy_us += cur_e - cur_s
-            cur_s, cur_e = s, e
-        else:
-            cur_e = max(cur_e, e)
-    if cur_e is not None:
-        busy_us += cur_e - cur_s
-    window_us = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    busy_us, window_us, by_name = device_summary(prof)
+    n_launches = sum(v[0] for v in by_name.values())
     kernel_ms = sum(v[1] for v in by_name.values())
     ring_ms = sum(v[1] for k, v in by_name.items()
                   if any(r in k for r in RING_KERNELS))
@@ -94,8 +105,8 @@ def main() -> int:
         "device_busy_ms": busy_us / 1e3,
         "device_window_ms": window_us / 1e3,
         "device_idle_share": 1 - busy_us / window_us if window_us else None,
-        "kernel_launches": len(spans),
-        "launches_per_superstep": len(spans) / steps,
+        "kernel_launches": n_launches,
+        "launches_per_superstep": n_launches / steps,
         "kernel_ms": kernel_ms,
         "ring_kernel_ms": ring_ms,
         "top_kernels": [{"name": k[:80], "launches": v[0], "ms": v[1]}

@@ -1,0 +1,21 @@
+"""mamba2-2.7b [ssm] — 64L d_model=2560 (attn-free) vocab=50280,
+ssm_state=128 — SSD (state-space duality). [arXiv:2405.21060; unverified]"""
+
+from repro_torch.configs.base import ModelConfig
+
+CONFIG = ModelConfig(
+    name="mamba2-2.7b",
+    family="ssm",
+    n_layers=64,
+    d_model=2560,
+    n_heads=0,
+    n_kv_heads=0,
+    d_ff=0,
+    vocab_size=50280,
+    ssm_state=128,
+    ssm_expand=2,
+    ssm_head_dim=64,
+    ssm_conv_dim=4,
+    ssm_chunk=256,
+    tie_embeddings=True,
+)

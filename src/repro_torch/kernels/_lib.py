@@ -1,4 +1,5 @@
-"""Build and load the hand-written CUDA ring kernels (K1-K4).
+"""Build and load the hand-written CUDA kernels (the ring kernels K1-K4 and
+flash attention K6).
 
 The ``*.cu`` sources beside the kernel packages have a plain C interface.
 At first use, :func:`library` compiles each source with ``nvcc`` for
@@ -35,18 +36,21 @@ SOURCES = (
     _HERE / "queue_steal" / "ring_gather.cu",
     _HERE / "queue_push" / "ring_push.cu",
     _HERE / "queue_transfer" / "ring_transfer.cu",
+    _HERE / "flash_attention" / "flash_attention.cu",
 )
 HEADERS = (_HERE / "ring_rows.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
-_P, _I, _L = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+_P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 _SIGNATURES = {
     # name: argument types after the C prototypes in the .cu sources
     "rk_ring_gather": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
     "rk_ring_scatter": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
     "rk_ring_slice": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
     "rk_ring_transfer": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I, _P),
+    "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
+                           _I, _I, _I, _I, _F, _P),
 }
 
 _LIB = None
@@ -59,7 +63,7 @@ def _nvcc() -> str:
     fallback = Path("/usr/local/cuda/bin/nvcc")
     if fallback.exists():
         return str(fallback)
-    raise RuntimeError("nvcc not found: the CUDA ring kernels cannot be built")
+    raise RuntimeError("nvcc not found: the CUDA kernels cannot be built")
 
 
 def _digest() -> str:
@@ -74,7 +78,7 @@ def build() -> Path:
     """Compile every source (one ``nvcc`` each, started together) and link
     them into one shared library; returns its path.  Reuses an existing
     build of the same sources and flags."""
-    out = BUILD_DIR / _digest() / "libring_kernels.so"
+    out = BUILD_DIR / _digest() / "librepro_kernels.so"
     if out.exists():
         return out
     out.parent.mkdir(parents=True, exist_ok=True)
@@ -158,9 +162,9 @@ def check_cuda(*tensors: torch.Tensor) -> torch.device:
         if t.device != dev:
             raise ValueError(f"tensors on {t.device} and {dev}")
         if not t.is_contiguous():
-            raise ValueError("ring kernels need contiguous tensors")
+            raise ValueError("the CUDA kernels need contiguous tensors")
     if dev.type != "cuda":
-        raise ValueError(f"ring kernels run on CUDA tensors, got {dev}")
+        raise ValueError(f"the CUDA kernels run on CUDA tensors, got {dev}")
     return dev
 
 

@@ -1,12 +1,15 @@
-"""Case tables and seeded inputs for the ring kernels K1-K4, shared by the
-CPU tests (plain versions against the JAX package's Pallas kernels) and
-``chip_smoke.py`` (CUDA kernels against their plain versions on the card).
+"""Case tables and seeded inputs for the ring kernels K1-K4 and flash
+attention K6, shared by the CPU tests (plain versions against the JAX
+package's Pallas kernels) and ``chip_smoke.py`` (CUDA kernels against
+their plain versions on the card).
 
-``STEAL_CASES`` and ``TRANSFER_CASES`` are the JAX package's own tables
-(``tests/test_kernels.py``); the scatter and slice tables cover the same
-ground for K2 and K3: wrapped rings, empty and full moves, int32 and
-bfloat16 payloads.  Payload dtypes are names, so the tables import nothing
-but numpy.
+``STEAL_CASES``, ``TRANSFER_CASES`` and ``FLASH_CASES`` are the JAX
+package's own tables (``tests/test_kernels.py``); the scatter and slice
+tables cover the same ground for K2 and K3: wrapped rings, empty and full
+moves, int32 and bfloat16 payloads.  ``FLASH_EXTRA_CASES`` adds what the
+serving path and the card need beyond them: causal ``S > T`` (rows that
+see no key), windows, head dim 256 and GQA in bfloat16.  Payload dtypes
+are names, so the tables import nothing but numpy.
 """
 
 from __future__ import annotations
@@ -15,6 +18,7 @@ import numpy as np
 import torch
 
 __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
+           "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_TOL",
            "payload", "to_tensor"]
 
 # (cap, D, max_steal, lo, n, dtype)
@@ -58,6 +62,30 @@ SLICE_CASES = [
     (256, 128, 128, 100, 200, 77, "bfloat16"),
     (256, 1, 8, 250, 10, 8, "bfloat16"),      # 2-byte rows, wrap
 ]
+
+# (B, S, T, H, K, hd, causal, window, softcap, dtype)
+FLASH_CASES = [
+    (2, 128, 128, 4, 2, 64, True, None, None, "float32"),
+    (1, 256, 256, 4, 4, 64, True, 128, None, "float32"),
+    (2, 128, 256, 8, 2, 32, True, None, 50.0, "float32"),
+    (1, 128, 128, 2, 1, 128, False, None, None, "float32"),
+    (1, 128, 128, 4, 4, 64, True, None, None, "bfloat16"),
+    (2, 128, 256, 4, 2, 32, True, 64, 30.0, "float32"),
+]
+
+FLASH_EXTRA_CASES = [
+    (2, 256, 128, 4, 2, 64, True, None, None, "float32"),     # S > T
+    (1, 256, 128, 4, 1, 32, True, 16, 50.0, "bfloat16"),      # S > T, window
+    (1, 100, 100, 2, 1, 256, True, 16, 50.0, "float32"),      # hd 256, ragged
+    (2, 256, 256, 8, 2, 256, True, None, None, "bfloat16"),   # hd 256, GQA
+]
+
+# Prefill attention of the serving slice: a wave of 4 prompts of 1,024
+# tokens through one layer of llama3.2-1b (32 heads over 8 KV heads of 64).
+FLASH_SLICE = (4, 1024, 1024, 32, 8, 64, True, None, None, "bfloat16")
+
+# The JAX package's tolerances for the flash kernel (tests/test_kernels.py).
+FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
 
 
 def payload(rng: np.random.Generator, shape, dtype: str) -> np.ndarray:

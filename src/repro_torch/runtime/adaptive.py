@@ -67,9 +67,7 @@ class AdaptiveController:
     """Host-side wrapper: history + the NEXT round's proportion.
 
     Delegates the arithmetic to :func:`adaptive_update` so the host
-    trajectory is bit-identical to the on-device fused one.  (The JAX
-    package's straggler boost belongs to the fault layer, which is not
-    ported yet.)
+    trajectory is bit-identical to the on-device fused one.
     """
 
     def __init__(self, policy: StealPolicy,
@@ -78,6 +76,55 @@ class AdaptiveController:
         self.config = config or AdaptiveConfig()
         self.proportion = float(np.float32(policy.proportion))
         self.history: List[float] = [self.proportion]
+        # Straggler response: while boosted, the proportion HANDED OUT is
+        # scaled up for a bounded number of rounds; the servo state itself
+        # is untouched, so the boost decays to the normal trajectory.
+        self._boost_rounds_left = 0
+        self._boost_factor = 1.0
+        # Lanes the active boost is attributed to, so reviving a lane
+        # clears exactly its penalty.
+        self._boost_lanes: set = set()
+
+    def flag_straggler(self, rounds: int = 4, factor: float = 1.5,
+                       lane: Optional[int] = None) -> None:
+        """A straggler was flagged: boost the emitted steal proportion by
+        ``factor`` (clamped to the config max) for the next ``rounds``
+        controller updates.  ``lane`` attributes the boost so
+        :meth:`clear_straggler` can cancel it."""
+        self._boost_rounds_left = max(self._boost_rounds_left, int(rounds))
+        self._boost_factor = float(factor)
+        if lane is not None:
+            self._boost_lanes.add(int(lane))
+
+    def clear_straggler(self, lane: Optional[int] = None) -> None:
+        """Cancel straggler penalty: for ``lane``, or all of it when
+        ``lane`` is None.  The boost only drops when no attributed lane
+        remains."""
+        if lane is None:
+            self._boost_lanes.clear()
+            self._boost_rounds_left = 0
+            self._boost_factor = 1.0
+            return
+        if int(lane) in self._boost_lanes:
+            self._boost_lanes.discard(int(lane))
+            if not self._boost_lanes:
+                self._boost_rounds_left = 0
+                self._boost_factor = 1.0
+
+    @property
+    def effective_proportion(self) -> float:
+        """What the next round should use: the servo proportion, scaled
+        (in float32) while a straggler boost is active."""
+        if self._boost_rounds_left > 0:
+            return float(np.float32(min(self.proportion * self._boost_factor,
+                                        self.config.max_proportion)))
+        return self.proportion
+
+    def _tick_boost(self, rounds: int) -> None:
+        if self._boost_rounds_left > 0:
+            self._boost_rounds_left = max(0, self._boost_rounds_left - rounds)
+            if self._boost_rounds_left == 0:
+                self._boost_lanes.clear()
 
     def update(self, sizes) -> float:
         """One feedback step from the post-round size vector."""
@@ -87,6 +134,7 @@ class AdaptiveController:
             policy=self.policy, config=self.config))
         self.proportion = p
         self.history.append(p)
+        self._tick_boost(1)
         return p
 
     def absorb(self, proportions_used, final_proportion) -> None:
@@ -97,3 +145,4 @@ class AdaptiveController:
         post = [float(x) for x in np.asarray(proportions_used)[1:]]
         self.proportion = float(final_proportion)
         self.history.extend(post + [self.proportion])
+        self._tick_boost(len(post) + 1)

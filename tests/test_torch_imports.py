@@ -40,7 +40,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "bad = sorted(n for n in sys.modules\n"
         "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(mods), bad)\n"
-        "assert len(mods) >= 20 and not bad, bad\n")
+        "assert len(mods) >= 40 and not bad, bad\n"
+        "for m in ('repro_torch.models.transformer',\n"
+        "          'repro_torch.kernels.flash_attention.ops',\n"
+        "          'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
+        "          'repro_torch.core.host_queue', 'repro_torch.configs'):\n"
+        "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
 
@@ -65,6 +70,7 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.core.dd.parallel import parallel_solve
     from repro_torch.core.ops import make_queue
     from repro_torch.core.sharded_queue import make_sharded_queues
+    from repro_torch.launch.serve import main as serve_main
     from repro_torch.runtime.executor import StealRuntime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -73,7 +79,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: StealRuntime(2, 8, spec),
                  lambda: make_queue(8, spec),
                  lambda: make_sharded_queues(2, 8, spec),
-                 lambda: make_queue(8, spec, device="cuda")):
+                 lambda: make_queue(8, spec, device="cuda"),
+                 lambda: serve_main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -1,8 +1,9 @@
 """``chip_smoke.py``'s phases, rehearsed on the CPU at a small size: the
 kernel checks (there the wrappers run the plain versions), the backlog
-supersteps across backends and exchanges, and the solver phase against the
-JAX package's results for the same configuration.  On the card the script
-runs the same code at full size."""
+supersteps across backends and exchanges, the solver phase against the
+JAX package's results for the same configuration, and the serving phase on
+reduced llama3.2-1b.  On the card the script runs the same code at full
+size."""
 
 import importlib.util
 from pathlib import Path
@@ -15,6 +16,8 @@ from repro.core.policy import StealPolicy as JaxPolicy
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
+# K6 timed at a CPU-sized shape (the card times the serving slice's).
+FLASH_SMALL = (2, 128, 128, 4, 2, 32, True, None, None, "bfloat16")
 
 
 def _chip_smoke():
@@ -27,12 +30,14 @@ def _chip_smoke():
 
 def test_kernel_phase_checks_every_kernel():
     smoke = _chip_smoke()
-    out = smoke.phase_kernels(CPU)
+    out = smoke.phase_kernels(CPU, flash_shape=FLASH_SMALL)
     assert set(out) == {name for name, _, _ in smoke.KERNELS}
     for name, row in out.items():
         assert row["max_abs_err"] == 0.0 and row["parity_cases"] >= 9, name
         assert row["bound_ms"] > 0
         assert row["library_ms"] > 0, name
+    assert out["flash_attention"]["parity_cases"] == 11
+    assert out["flash_attention"]["bound_by"] == "bytes"  # at this tiny size
 
 
 def test_queue_phase_agrees_across_backends_and_conserves():
@@ -63,3 +68,25 @@ def test_solver_phase_matches_reference():
     assert out["supersteps"] == st["supersteps"]
     assert set(out["launches"]) == {"ring_gather", "ring_scatter",
                                     "ring_slice", "ring_transfer"}
+
+
+def test_serve_phase_serves_everything_and_compares_the_first_wave():
+    from repro_torch import configs
+
+    smoke = _chip_smoke()
+    _, counters = smoke._port()
+    out = smoke.phase_serve(CPU, counters["flash_attention"],
+                            cfg=configs.reduced(configs.get("llama3.2-1b")),
+                            n_requests=10, prompt_lens=(8, 24), max_new=4,
+                            max_seq=30, wave_size=4, slow_speed=0.25)
+    assert out["requests"] == 10 and out["tokens"] == 40
+    assert out["stolen"] > 0 and sum(out["completed"]) == 10
+    assert out["decode_steps"] == 4 * out["prefill_waves"]
+    # on the CPU K6's wrapper takes its plain version: nothing launches,
+    # and the two first-wave prefills are the same computation
+    assert out["flash_launches"] == 0
+    assert out["first_wave_f32_max_abs_err"] == 0.0
+    assert out["first_wave_bf16_max_abs_err"] == 0.0
+    dev = out["first_wave_bf16_mean_dev_from_f32"]
+    assert dev["k6"] == dev["plain"] > 0
+    assert out["first_wave_greedy_agreement"] == 1.0

@@ -14,12 +14,17 @@ check that does not hold:
    against its plain PyTorch version bit for bit — on the kernel case
    tables and at the solver's geometry (64 lanes, 16,384-row rings,
    max_steal 8,192, 128-row pushes, 8-row pops) in float32, int32 and
-   bfloat16 — and flash attention (K6) within the JAX package's
-   tolerances (2e-5 float32, 2e-2 bfloat16) on its case tables and at
-   the serving slice's prefill shape (B 4, S = T 1,024, 32 heads over 8
-   KV heads of 64, bfloat16, causal).  Times kernel, plain version and a
-   library yardstick (``index_select`` / ``index_copy_``; SDPA for K6)
-   with CUDA events.
+   bfloat16 — and DD layer expansion (K5) bit for bit on its case table
+   and at the solver's pools (512 x 16 nodes).  Holds flash attention
+   (K6) within the JAX package's tolerances (2e-5 float32, 2e-2 bfloat16)
+   on its case tables (head dims 32 to 256, 112 among them) and at the
+   serving slice's prefill shape (B 4, S = T 1,024, 32 heads over 8 KV
+   heads of 64, bfloat16, causal), and the SSD scan (K7) within atol 5e-5
+   / rtol 5e-4 in float32 (2e-2 in bfloat16) on its case tables (ragged
+   lengths among them) and at the SSM slice's prefill shape (B 4, S
+   1,024, 80 heads of 64, state 128, chunk 256) in bfloat16 and float32.
+   Times kernel, plain version and a library yardstick (``index_select``
+   / ``index_copy_``; SDPA for K6; none for K5 and K7) with CUDA events.
 2. The queue at the paper's backlog.  64 lanes of 16,384 rows, half of
    them holding 10,000 seeded unique items; 8 rebalancing supersteps on the
    kernel backend under the compact and the dense exchange and on the
@@ -27,7 +32,8 @@ check that does not hold:
    the three runs, and every item must survive exactly once.
 3. The DD solver at full size.  ``parallel_solve`` on a 30-item knapsack
    with 64 workers; it must reproduce the JAX package's integer results,
-   and each of the four ring kernels must have launched during that run.
+   and each of the four ring kernels and K5 must have launched during
+   that run.
 4. Serving at full width.  The wave engine (two replicas, one at a
    quarter speed, behind the bulk-steal admission master) serves 24
    requests of 128-1,024 prompt tokens and 16 new tokens each with
@@ -38,6 +44,15 @@ check that does not hold:
    plain version (swapped in for that one call): within 1e-4 in float32
    compute, and in the run's bfloat16 compute as close to the float32
    logits as the plain version's (mean distance at most 1.1x).
+5. SSM serving at full size.  The same setup with mamba2-2.7b at its
+   published widths and depth (64 layers, 2.7 B parameters): K7 must have
+   launched once per layer and prefill wave, and the first wave passes
+   the same two checks against K7's plain version.
+6. The hybrid, one wave.  zamba2-7b at its published widths and depth (81
+   layers, 6.6 B parameters) runs one wave of 4 prompts: K6 must have
+   launched once per shared-block application (13) and K7 once per
+   Mamba2 block (81), every request must get its tokens, and the first
+   wave passes the two checks against both plain versions at once.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
@@ -47,6 +62,7 @@ the card's name and power limit, and the result line
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -86,6 +102,11 @@ PHASE4 = dict(arch="llama3.2-1b", n_requests=24, prompt_lens=(128, 1024),
 # 0.11 from its float32 ones), so there K6 must be as accurate as its
 # plain version: its mean distance from the float32 logits at most 1.1x
 # the plain's.
+# Phase 5: the SSM family's serving path, mamba2-2.7b at full size, in
+# phase 4's setup.  Phase 6: the hybrid, zamba2-7b, one wave of 4.
+PHASE5 = dict(PHASE4, arch="mamba2-2.7b")
+PHASE6 = dict(arch="zamba2-7b", n_prompts=4, prompt_lens=(128, 1024),
+              max_new=8, max_seq=1040)
 SERVE_TOL_F32 = 1e-4
 SERVE_TOL_BF16 = 2e-2  # reported: share of logits outside it
 SERVE_BF16_RATIO = 1.1
@@ -102,19 +123,23 @@ KERNELS = (
     ("ring_transfer",
      "src/repro_torch/kernels/queue_transfer/ring_transfer.cu",
      "src/repro/kernels/queue_transfer/kernel.py:79"),
+    ("dd_expand", "src/repro_torch/kernels/dd_expand/expand.cu",
+     "src/repro/kernels/dd_expand/kernel.py:53"),
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/flash_attention.cu",
      "src/repro/kernels/flash_attention/kernel.py:100"),
+    ("ssd_scan", "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+     "src/repro/kernels/ssd_scan/kernel.py:80"),
 )
-RING_KERNELS = tuple(k[0] for k in KERNELS[:4])
 
 
 def _port():
-    """The port's modules (imported late: the script must fail cleanly
-    where there is no GPU or no checkout around it)."""
+    """The kernel library and the launch counters of the solver path's
+    kernels (imported late: the script must fail cleanly where there is no
+    GPU or no checkout around it)."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels._lib as lib
-    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.dd_expand import ops as expand_ops
     from repro_torch.kernels.queue_push import ops as push_ops
     from repro_torch.kernels.queue_steal import ops as steal_ops
     from repro_torch.kernels.queue_transfer import ops as transfer_ops
@@ -122,7 +147,7 @@ def _port():
                  "ring_scatter": push_ops.push_scatter,
                  "ring_slice": push_ops.pop_slice,
                  "ring_transfer": transfer_ops.transfer_splice,
-                 "flash_attention": flash_ops.mha}
+                 "dd_expand": expand_ops.expand_pool}
 
 
 def check(cond: bool, what: str) -> None:
@@ -399,18 +424,21 @@ def _flash_inputs(device, rng, case):
             for shape in ((B, S, H, hd), (B, T, K, hd), (B, T, K, hd))]
 
 
-def _close(kernel_out, plain_out, tol: float, what: str) -> float:
-    """``|kernel - plain| <= tol + tol * |plain|`` everywhere (the JAX
-    package's assert_allclose); returns the max abs difference."""
+def _close(kernel_out, plain_out, tol: float, what: str,
+           rtol: float | None = None) -> float:
+    """``|kernel - plain| <= tol + rtol * |plain|`` everywhere (the JAX
+    package's assert_allclose; ``rtol`` defaults to ``tol``); returns the
+    max abs difference."""
     import torch
+    rtol = tol if rtol is None else rtol
     check(kernel_out.shape == plain_out.shape
           and kernel_out.dtype == plain_out.dtype, f"{what}: shape/dtype")
     a, b = kernel_out.float(), plain_out.float()
     diff = (a - b).abs()
     err = float(diff.max()) if diff.numel() else 0.0
-    ok = torch.isfinite(a).all() and (diff <= tol + tol * b.abs()).all()
+    ok = torch.isfinite(a).all() and (diff <= tol + rtol * b.abs()).all()
     check(bool(ok), f"{what}: kernel differs from its plain version (max "
-                    f"abs err {err}, tolerance {tol})")
+                    f"abs err {err}, tolerance {tol} + {rtol} x |plain|)")
     return err
 
 
@@ -472,9 +500,127 @@ def flash_timing(device, rng, timer, shape):
                 device_time_clean=clean and plain_clean)
 
 
-def phase_kernels(device, seed: int = 0, flash_shape=None):
+def _expand_inputs(device, rng, shape, tensor_scalars: bool, wp=(3, 8)):
+    import torch
+    from repro_torch.kernels import cases as C
+    s, v = C.expand_inputs(rng, shape, device)
+    if tensor_scalars:  # as the solver passes them: 0-d views on the card
+        wp = tuple(torch.tensor(list(wp), dtype=torch.int32, device=device))
+    return s, v, *wp
+
+
+def expand_checks(device, rng):
+    """K5 against its plain version, bit for bit, on the JAX package's
+    table (``(N,)`` nodes, Python-int w and p) and at the solver's pools
+    (``(512, 16)``, w and p 0-d int32 tensors); returns (max abs err,
+    number of cases)."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.dd_expand.ops import (expand_layer_bulk,
+                                                   expand_pool)
+    from repro_torch.kernels.dd_expand.ref import expand_ref
+
+    runs = [(expand_layer_bulk, (n,), False, wp) for n, wp in C.EXPAND_CASES]
+    runs += [(expand_pool, C.EXPAND_SOLVER, True, wp)
+             for wp in ((3, 8), (50, 1), (0, 0))]
+    err = 0.0
+    for fn, shape, tensors, wp in runs:
+        args = _expand_inputs(device, rng, shape, tensors, wp)
+        for k_out, p_out in zip(fn(*args), expand_ref(*args)):
+            err = max(err, _compare(k_out, p_out,
+                                    f"dd_expand {shape} {wp}"))
+    return err, len(runs)
+
+
+def expand_timing(device, rng, timer):
+    """K5 and its plain version at the solver's pools; the bound is the
+    bytes (each node's state and value read, four children written)."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.dd_expand.ops import expand_pool
+    from repro_torch.kernels.dd_expand.ref import expand_ref
+
+    args = _expand_inputs(device, rng, C.EXPAND_SOLVER, True)
+    nbytes = 6 * args[0].numel() * 4 + 8
+    ms, clean = timer.ms(lambda: expand_pool(*args))
+    plain_ms, plain_clean = timer.ms(lambda: expand_ref(*args), n=20)
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=nbytes / MEM_BYTES_PER_S * 1e3, bound_by="bytes",
+                bound_bytes=nbytes,
+                timed_at=f"{C.EXPAND_SOLVER[0]} pools of "
+                         f"{C.EXPAND_SOLVER[1]} nodes, w and p on the card",
+                device_time_clean=clean and plain_clean)
+
+
+def ssd_checks(device, rng, shape):
+    """K7 against its plain version on the case tables and at ``shape``
+    in its dtype and in float32; returns (max abs err, number of
+    cases)."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    err, cases = 0.0, C.SSD_CASES + C.SSD_EXTRA_CASES + [
+        shape, shape[:-1] + ("float32",)]
+    for case in cases:
+        args = C.ssd_inputs(rng, case, device)
+        Q, dtype = case[5], case[6]
+        atol, rtol = C.SSD_TOL[dtype]
+        for what, k_out, p_out in zip(("y", "final state"),
+                                      ssd(*args, chunk=Q),
+                                      ssd_chunked(*args, Q)):
+            err = max(err, _close(k_out, p_out, atol, f"ssd_scan {case} "
+                                  f"{what}", rtol=rtol))
+    return err, len(cases)
+
+
+def ssd_bound(case):
+    """(flops, bytes) the SSD scan of ``case`` needs: per batch and chunk
+    of length L, C B^T over the L (L + 1) / 2 causal pairs once (B and C
+    are per batch); per head the causal half of (G L) x, C state^T for
+    every chunk after the first (the first one's carried state is zero)
+    and the state update; and the bytes of x, dt, A, Bm, Cm, D, y and the
+    final state, each once."""
+    B, S, nh, hd, ns, Q, dtype = case
+    size = 2 if dtype == "bfloat16" else 4
+    flops = 0
+    for c0 in range(0, S, Q):
+        L = min(Q, S - c0)
+        pairs = L * (L + 1) // 2
+        flops += B * 2 * pairs * ns
+        flops += B * nh * (2 * pairs * hd + 2 * L * hd * ns * (c0 > 0)
+                           + 2 * L * hd * ns)
+    nbytes = (2 * B * S * nh * hd + 2 * B * S * ns) * size \
+        + (B * S * nh + 2 * nh + B * nh * hd * ns) * 4
+    return flops, nbytes
+
+
+def ssd_timing(device, rng, timer, shape):
+    """K7 and its plain version at ``shape``, and the bound from
+    :func:`ssd_bound`; no single PyTorch call computes the scan."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+
+    args = C.ssd_inputs(rng, shape, device)
+    Q = shape[5]
+    flops, nbytes = ssd_bound(shape)
+    flop_ms = flops / PEAK_BF16_FLOPS * 1e3
+    byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    ms, clean = timer.ms(lambda: ssd(*args, chunk=Q), n=20)
+    plain_ms, plain_clean = timer.ms(lambda: ssd_chunked(*args, Q), n=5)
+    B, S, nh, hd, ns, _, dtype = shape
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(flop_ms, byte_ms),
+                bound_by="operations" if flop_ms >= byte_ms else "bytes",
+                bound_flops=flops, bound_bytes=nbytes,
+                timed_at=f"B {B}, S {S}, {nh} heads of {hd}, state {ns}, "
+                         f"chunk {Q}, {dtype}",
+                device_time_clean=clean and plain_clean)
+
+
+def phase_kernels(device, seed: int = 0, flash_shape=None, ssd_shape=None):
     """Every kernel against its plain version, then timed.  ``flash_shape``
-    is K6's timed shape (default: the serving slice's prefill)."""
+    and ``ssd_shape`` are K6's and K7's timed shapes (default: the serving
+    slices' prefill)."""
     from repro_torch.kernels import cases as C
     rng = np.random.default_rng(seed)
     errs, counts = {}, {}
@@ -483,12 +629,17 @@ def phase_kernels(device, seed: int = 0, flash_shape=None):
                          _compare(k_out, p_out, f"{name} {what}"))
         counts[name] = counts.get(name, 0) + 1
     flash_shape = flash_shape or C.FLASH_SLICE
+    ssd_shape = ssd_shape or C.SSD_SLICE
+    errs["dd_expand"], counts["dd_expand"] = expand_checks(device, rng)
     errs["flash_attention"], counts["flash_attention"] = flash_checks(
         device, rng, flash_shape)
+    errs["ssd_scan"], counts["ssd_scan"] = ssd_checks(device, rng, ssd_shape)
     sync(device)
     timer = Timer(device)
     timings = kernel_timings(device, rng, timer)
+    timings["dd_expand"] = expand_timing(device, rng, timer)
     timings["flash_attention"] = flash_timing(device, rng, timer, flash_shape)
+    timings["ssd_scan"] = ssd_timing(device, rng, timer, ssd_shape)
     return {name: dict(max_abs_err=errs[name], parity_cases=counts[name],
                        **timings[name]) for name, _, _ in KERNELS}
 
@@ -577,8 +728,9 @@ def phase_queue(device, *, lanes: int, capacity: int, backlog: int,
 def phase_solver(device, counters, *, n_items: int, seed: int,
                  n_workers: int, explore_width: int, batch: int,
                  capacity: int, max_steal: int, expect=None):
-    """The solver on the kernel routing; the ring kernels' launch
-    counters are zeroed just before the run and read just after it."""
+    """The solver on the kernel routing; the launch counters of the ring
+    kernels and K5 are zeroed just before the run and read just after
+    it."""
     from repro_torch.core.dd.knapsack import dp_solve, random_instance
     from repro_torch.core.dd.parallel import parallel_solve
     from repro_torch.core.policy import StealPolicy
@@ -593,7 +745,6 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
                               capacity=capacity, policy=policy,
                               backend="cuda", device=device)
 
-    counters = {name: counters[name] for name in RING_KERNELS}
     for fn in counters.values():
         fn.launches = 0
     sync(device)
@@ -621,71 +772,139 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
             "wall_s": warm, "ms_per_superstep": warm * 1e3 / st["supersteps"]}
 
 
-# --------------------------------------------------- phase 4: serving
+# ------------------------------------------------ phases 4-6: serving
 
 
-def phase_serve(device, mha, *, cfg, n_requests: int, prompt_lens,
-                max_new: int, max_seq: int, wave_size: int,
-                slow_speed: float, seed: int = 0):
-    """The wave engine behind the admission master, with ``mha`` (K6's
-    wrapper) counting its launches from just before the run to just after
-    it; then the first wave's prefill once more with K6's plain version
-    swapped in, to compare logits."""
+def _serve_routes():
+    """The serving path's kernels: the module attribute through which the
+    models reach each wrapper (so one comparison can swap in the plain
+    version; the package has no switch) and that plain version."""
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.kernels.flash_attention.ref import attention_ref
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.kernels.ssd_scan.ref import ssd_chunked
+    return {"flash_attention": (flash_ops, "mha", attention_ref),
+            "ssd_scan": (ssd_ops, "ssd", ssd_chunked)}
+
+
+def serve_launches(cfg) -> dict:
+    """Launches of each kernel per prefill wave on ``cfg``'s path: K6 once
+    per attention layer (per shared-block application in the hybrid), K7
+    once per Mamba2 block."""
+    if cfg.family == "ssm":
+        return {"ssd_scan": cfg.n_layers}
+    if cfg.family == "hybrid":
+        return {"flash_attention": cfg.n_layers // cfg.attn_every,
+                "ssd_scan": cfg.n_layers}
+    return {"flash_attention": cfg.n_layers}
+
+
+class _Clocked:
+    """Wraps a model's ``prefill`` and ``decode_step``: the wall time of
+    each call, synchronised with the device, and the first prefill's
+    tokens and logits.  ``restore()`` unwraps."""
+
+    def __init__(self, model, device):
+        self.model, self.device = model, device
+        self.prefill_ms, self.decode_ms, self.first = [], [], None
+        self._prefill, self._decode = model.prefill, model.decode_step
+        model.prefill, model.decode_step = self.prefill, self.decode
+
+    def _timed(self, fn, times, *args):
+        sync(self.device)
+        t = time.perf_counter()
+        out = fn(*args)
+        sync(self.device)
+        times.append((time.perf_counter() - t) * 1e3)
+        return out
+
+    def prefill(self, params, tokens):
+        logits, cache = self._timed(self._prefill, self.prefill_ms, params,
+                                    tokens)
+        if self.first is None:
+            self.first = (tokens.clone(), logits.clone())
+        return logits, cache
+
+    def decode(self, params, cache, tokens):
+        return self._timed(self._decode, self.decode_ms, params, cache,
+                           tokens)
+
+    def restore(self):
+        self.model.prefill, self.model.decode_step = (self._prefill,
+                                                      self._decode)
+
+
+def _init_model(cfg, device, seed):
     import torch
-    from repro_torch.core.policy import StealPolicy
     from repro_torch.models.zoo import build_model
-    from repro_torch.serve.engine import Replica, ServeCluster
-    from repro_torch.serve.scheduler import AdmissionMaster, Request
-
     model = build_model(cfg)
     t0 = time.perf_counter()
     params = model.init(torch.Generator(device=device).manual_seed(seed))
     sync(device)
-    init_s = time.perf_counter() - t0
+    return model, params, time.perf_counter() - t0
 
-    prefill_ms, decode_ms, first = [], [], []
-    prefill, decode = model.prefill, model.decode_step
 
-    def timed_prefill(p, tokens):
-        sync(device)
-        t = time.perf_counter()
-        logits, cache = prefill(p, tokens)
-        sync(device)
-        prefill_ms.append((time.perf_counter() - t) * 1e3)
-        if not first:
-            first.append((tokens.clone(), logits.clone()))
-        return logits, cache
+def _prompts(rng, cfg, n: int, prompt_lens):
+    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n)
+    return [[int(t) for t in rng.integers(1, cfg.vocab_size, int(m))]
+            for m in lens]
 
-    def timed_decode(p, cache, tokens):
-        sync(device)
-        t = time.perf_counter()
-        out = decode(p, cache, tokens)
-        sync(device)
-        decode_ms.append((time.perf_counter() - t) * 1e3)
-        return out
 
-    model.prefill, model.decode_step = timed_prefill, timed_decode
+def _run_counted(device, names, fn):
+    """``fn()`` with the launch counters of the kernels ``names`` zeroed
+    just before it and read just after it; returns (result, wall s,
+    launches)."""
+    routes = _serve_routes()
+    wrappers = {n: getattr(routes[n][0], routes[n][1]) for n in names}
+    for w in wrappers.values():
+        w.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    out = fn()
+    sync(device)
+    wall = time.perf_counter() - t0
+    return out, wall, {n: w.launches for n, w in wrappers.items()}
+
+
+def _check_launches(device, expect, launches, waves: int) -> None:
+    if device.type != "cuda":
+        return
+    for name, per_wave in expect.items():
+        check(launches[name] == per_wave * waves,
+              f"{name} launched {launches[name]} times for {waves} "
+              f"prefill waves, not {per_wave} per wave")
+
+
+def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
+                max_new: int, max_seq: int, wave_size: int,
+                slow_speed: float, seed: int = 0):
+    """The wave engine behind the admission master, with the launch
+    counters of the path's kernels zeroed just before the run and read
+    just after it; then the first wave's prefill once more with the plain
+    versions swapped in, to compare logits."""
+    from repro_torch.core.policy import StealPolicy
+    from repro_torch.serve.engine import Replica, ServeCluster
+    from repro_torch.serve.scheduler import AdmissionMaster, Request
+
+    expect = serve_launches(cfg)
+    model, params, init_s = _init_model(cfg, device, seed)
+    clock = _Clocked(model, device)
     reps = [Replica(model, params, wave_size=wave_size, max_seq=max_seq)
             for _ in range(2)]
     reps[0].speed = slow_speed
     master = AdmissionMaster(2, StealPolicy(proportion=0.5, low_watermark=1,
                                             high_watermark=2))
     cluster = ServeCluster(reps, master)
-    rng = np.random.default_rng(seed)
-    lens = rng.integers(prompt_lens[0], prompt_lens[1] + 1, n_requests)
-    reqs = [Request(prompt=[int(t) for t in rng.integers(1, cfg.vocab_size,
-                                                         int(n))],
-                    max_new=max_new) for n in lens]
+    prompts = _prompts(np.random.default_rng(seed), cfg, n_requests,
+                       prompt_lens)
+    reqs = [Request(prompt=p, max_new=max_new) for p in prompts]
 
-    mha.launches = 0
-    sync(device)
-    t0 = time.perf_counter()
-    cluster.submit(reqs)
-    done = cluster.run_until_drained()
-    sync(device)
-    wall = time.perf_counter() - t0
-    launches = mha.launches
-    model.prefill, model.decode_step = prefill, decode
+    def serve():
+        cluster.submit(reqs)
+        return cluster.run_until_drained()
+
+    done, wall, launches = _run_counted(device, expect, serve)
+    clock.restore()
 
     st = master.stats()
     tokens = sum(len(r.output or []) for r in done)
@@ -695,13 +914,11 @@ def phase_serve(device, mha, *, cfg, n_requests: int, prompt_lens,
     check(sum(st["completed"]) == n_requests,
           f"master completed {st['completed']}")
     check(st["stolen"] > 0, "the master never stole")
-    if device.type == "cuda":
-        check(launches == cfg.n_layers * len(prefill_ms),
-              f"flash_attention launched {launches} times for "
-              f"{len(prefill_ms)} prefill waves of {cfg.n_layers} layers")
+    prefill_ms, decode_ms = clock.prefill_ms, clock.decode_ms
+    _check_launches(device, expect, launches, len(prefill_ms))
 
-    tokens0, logits0 = first[0]
-    first_wave = first_wave_check(cfg, params, tokens0, logits0, mha)
+    tokens0, logits0 = clock.first
+    first_wave = first_wave_check(cfg, params, tokens0, logits0, expect)
     decode_total = sum(decode_ms)
     return {
         "arch": cfg.name, "params": cfg.param_count(), "init_s": init_s,
@@ -713,51 +930,95 @@ def phase_serve(device, mha, *, cfg, n_requests: int, prompt_lens,
         "decode_steps": len(decode_ms),
         "decode_ms_per_step": decode_total / len(decode_ms),
         "decode_ms_per_token": decode_total / tokens,
-        "prompt_tokens": int(lens.sum()),
+        "prompt_tokens": sum(map(len, prompts)),
         "first_wave_shape": list(tokens0.shape), **first_wave,
         "stolen": st["stolen"], "rounds": st["rounds"],
-        "completed": st["completed"], "flash_launches": launches}
+        "completed": st["completed"], "launches": launches}
 
 
-def first_wave_check(cfg, params, tokens, logits_k6, mha):
-    """The first wave's last-position prefill logits through K6 against
-    the same prefill with K6's plain version swapped in (no switch in the
-    package), in the run's bfloat16 compute and in float32 compute."""
+def phase_wave(device, *, cfg, n_prompts: int, prompt_lens, max_new: int,
+               max_seq: int, seed: int = 0):
+    """One ``Replica.run_wave`` of ``n_prompts`` prompts, with the path's
+    launch counters zeroed just before it and read just after it; then
+    the same first-wave comparison as :func:`phase_serve`."""
+    from repro_torch.serve.engine import Replica
+    from repro_torch.serve.scheduler import Request
+
+    expect = serve_launches(cfg)
+    model, params, init_s = _init_model(cfg, device, seed)
+    clock = _Clocked(model, device)
+    prompts = _prompts(np.random.default_rng(seed), cfg, n_prompts,
+                       prompt_lens)
+    wave = [Request(prompt=p, max_new=max_new) for p in prompts]
+    replica = Replica(model, params, wave_size=n_prompts, max_seq=max_seq)
+    done, wall, launches = _run_counted(device, expect,
+                                        lambda: replica.run_wave(wave))
+    clock.restore()
+
+    check(len(done) == n_prompts and all(len(r.output) == max_new
+                                         for r in done),
+          f"a request got fewer than {max_new} tokens")
+    _check_launches(device, expect, launches, len(clock.prefill_ms))
+    tokens0, logits0 = clock.first
+    first_wave = first_wave_check(cfg, params, tokens0, logits0, expect)
+    tokens = sum(len(r.output) for r in done)
+    decode_total = sum(clock.decode_ms)
+    return {
+        "arch": cfg.name, "params": cfg.param_count(), "init_s": init_s,
+        "requests": len(done), "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "prefill_ms": clock.prefill_ms,
+        "decode_steps": len(clock.decode_ms),
+        "decode_ms_per_step": decode_total / len(clock.decode_ms),
+        "decode_ms_per_token": decode_total / tokens,
+        "prompt_tokens": sum(map(len, prompts)),
+        "first_wave_shape": list(tokens0.shape), **first_wave,
+        "launches": launches}
+
+
+def first_wave_check(cfg, params, tokens, logits_kernel, names):
+    """The first wave's last-position prefill logits through the kernels
+    ``names`` against the same prefill with their plain versions swapped
+    in together, in the run's bfloat16 compute and in float32 compute."""
     import dataclasses
-    from repro_torch.kernels.flash_attention import ops as flash_ops
-    from repro_torch.kernels.flash_attention.ref import attention_ref
     from repro_torch.models.zoo import build_model
 
+    routes = _serve_routes()
+    kernels = {n: getattr(routes[n][0], routes[n][1]) for n in names}
     bf16, f32 = build_model(cfg), build_model(
         dataclasses.replace(cfg, compute_dtype="float32"))
     out = {}
-    for route, fn in (("plain", attention_ref), ("k6", mha)):
-        flash_ops.mha = fn
+    for route in ("plain", "kernel"):
+        for n in names:
+            mod, attr, plain = routes[n]
+            setattr(mod, attr, plain if route == "plain" else kernels[n])
         try:
             if route == "plain":
                 out["bf16/plain"] = bf16.prefill(params, tokens)[0]
             out[f"f32/{route}"] = f32.prefill(params, tokens)[0]
         finally:
-            flash_ops.mha = mha
-    f32_err = _close(out["f32/k6"], out["f32/plain"], SERVE_TOL_F32,
-                     "first wave, float32 compute: K6 vs its plain version")
-    k6, plain, ref = logits_k6.double(), out["bf16/plain"].double(), \
+            for n in names:
+                setattr(routes[n][0], routes[n][1], kernels[n])
+    f32_err = _close(out["f32/kernel"], out["f32/plain"], SERVE_TOL_F32,
+                     f"first wave, float32 compute: {'+'.join(names)} vs "
+                     f"plain")
+    kern, plain, ref = logits_kernel.double(), out["bf16/plain"].double(), \
         out["f32/plain"].double()
-    dev_k6 = float((k6 - ref).abs().mean())
+    dev_kernel = float((kern - ref).abs().mean())
     dev_plain = float((plain - ref).abs().mean())
-    check(dev_k6 <= SERVE_BF16_RATIO * dev_plain,
-          f"first wave, bfloat16 compute: K6's logits sit {dev_k6} from the "
-          f"float32 ones on average, its plain version's {dev_plain}")
-    diff = (k6 - plain).abs()
+    check(dev_kernel <= SERVE_BF16_RATIO * dev_plain,
+          f"first wave, bfloat16 compute: the kernels' logits sit "
+          f"{dev_kernel} from the float32 ones on average, the plain "
+          f"versions' {dev_plain}")
+    diff = (kern - plain).abs()
     return {
         "first_wave_f32_max_abs_err": f32_err,
         "first_wave_bf16_max_abs_err": float(diff.max()),
         "first_wave_bf16_outside_2e-2": float(
             (diff > SERVE_TOL_BF16 * (1 + plain.abs())).double().mean()),
-        "first_wave_bf16_mean_dev_from_f32": {"k6": dev_k6,
+        "first_wave_bf16_mean_dev_from_f32": {"kernel": dev_kernel,
                                               "plain": dev_plain},
         "first_wave_greedy_agreement": float(
-            (k6.argmax(-1) == plain.argmax(-1)).double().mean())}
+            (kern.argmax(-1) == plain.argmax(-1)).double().mean())}
 
 
 # ------------------------------------------------------------------ main
@@ -795,13 +1056,23 @@ def main() -> int:
     solver = phase_solver(device, counters, expect=PHASE3_EXPECT, **PHASE3)
     print(json.dumps({"phase": "solver", "result": solver}), flush=True)
     from repro_torch import configs
-    serve_kw = dict(PHASE4)
-    serve = phase_serve(device, counters["flash_attention"],
-                        cfg=configs.get(serve_kw.pop("arch")), **serve_kw)
-    print(json.dumps({"phase": "serve", "result": serve}), flush=True)
+    serving = {}
+    for phase, fn, kw in (("serve", phase_serve, PHASE4),
+                          ("serve_ssm", phase_serve, PHASE5),
+                          ("wave_hybrid", phase_wave, PHASE6)):
+        kw = dict(kw)
+        serving[phase] = fn(device, cfg=configs.get(kw.pop("arch")), **kw)
+        print(json.dumps({"phase": phase, "result": serving[phase]}),
+              flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()  # the next phase's model is larger
 
     launches = {**solver["launches"],
-                "flash_attention": serve["flash_launches"]}
+                "flash_attention": serving["serve"]["launches"][
+                    "flash_attention"],
+                "ssd_scan": serving["serve_ssm"]["launches"]["ssd_scan"]}
+    for name in (n for n, _, _ in KERNELS):
+        check(launches[name] > 0, f"{name} never launched on its path")
     rows = []
     for name, source, replaces in KERNELS:
         k = kernels[name]

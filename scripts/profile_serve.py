@@ -1,22 +1,24 @@
 #!/usr/bin/env python3
 """Where the time of one serving wave goes on one GPU.
 
-Builds llama3.2-1b at its published widths with random weights from seed
-0 (the model ``chip_smoke.py`` phase 4 serves) and runs one wave the way
-``serve.engine.Replica`` does: a 4 x 1,024-token prefill, the cache grown
-to 1,040 positions, 16 greedy decode steps.  After a warm-up wave it times
-the prefill and the decode steps with the host clock (each ending in a
-synchronize), then runs the same under ``torch.profiler``.  Prints one
-JSON line per part (prefill, decode): wall ms, the device's busy time
-(union of kernel intervals) and idle share, the kernel launches, flash
-attention's (K6) device time and the kernels that take the most device
-time.
+Builds ``--arch`` (default llama3.2-1b, the model ``chip_smoke.py`` phase
+4 serves; mamba2-2.7b is phase 5's, zamba2-7b phase 6's) at its published
+widths and depth with random weights from seed 0 and runs one wave the
+way ``serve.engine.Replica`` does: a 4 x 1,024-token prefill, the cache
+grown to 1,040 positions, 16 greedy decode steps.  After a warm-up wave it
+times the prefill and the decode steps with the host clock (each ending
+in a synchronize), then runs the same under ``torch.profiler``.  Prints
+one JSON line per part (prefill, decode): wall ms, the device's busy time
+(union of kernel intervals) and idle share, the kernel launches, the
+device time and launches of flash attention (K6) and the SSD scan (K7),
+and the kernels that take the most device time.
 
-    python3 scripts/profile_serve.py
+    python3 scripts/profile_serve.py [--arch mamba2-2.7b]
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import subprocess
 import sys
@@ -39,8 +41,11 @@ def main() -> int:
     from repro_torch import configs
     from repro_torch.models.zoo import build_model
 
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b",
+                    choices=list(configs.ARCH_IDS))
     dev = torch.device("cuda")
-    cfg = configs.get("llama3.2-1b")
+    cfg = configs.get(ap.parse_args().arch)
     model = build_model(cfg)
     params = model.init(torch.Generator(device=dev).manual_seed(0))
     toks = torch.tensor(np.random.default_rng(1).integers(
@@ -82,11 +87,14 @@ def main() -> int:
     for part, prof in profs.items():
         busy_us, window_us, by_name = device_summary(prof)
         launches = sum(v[0] for v in by_name.values())
-        flash = [v for k, v in by_name.items() if "flash_kernel" in k]
+        ours = {name: [v for k, v in by_name.items() if kernel in k]
+                for name, kernel in (("flash_attention", "flash_kernel"),
+                                     ("ssd_scan", "ssd_kernel"))}
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         steps = STEPS if part == "decode" else 1
         print(json.dumps({
-            "card": card, "part": part, "batch": B, "prompt": S,
+            "card": card, "arch": cfg.name, "part": part, "batch": B,
+            "prompt": S,
             "steps": steps, "wall_ms": walls[part],
             "wall_ms_per_step": walls[part] / steps,
             "device_busy_ms": busy_us / 1e3,
@@ -95,8 +103,10 @@ def main() -> int:
             else None,
             "kernel_launches": launches,
             "launches_per_step": launches / steps,
-            "flash_attention_launches": sum(v[0] for v in flash),
-            "flash_attention_ms": sum(v[1] for v in flash),
+            **{f"{name}_launches": sum(v[0] for v in vs)
+               for name, vs in ours.items()},
+            **{f"{name}_ms": sum(v[1] for v in vs)
+               for name, vs in ours.items()},
             "top_kernels": [{"name": k[:80], "launches": v[0], "ms": v[1]}
                             for k, v in top]}), flush=True)
     return 0

@@ -7,7 +7,8 @@ Runs ``repro_torch.core.dd.parallel.parallel_solve`` on the configuration
 timed, once under ``torch.profiler``.  Prints one JSON line with the wall
 time per superstep, the device's busy time (union of kernel intervals) and
 idle share, the kernel launches per superstep, the ring kernels' share of
-device time and the kernels that take the most device time.
+device time, DD layer expansion's (K5) launches and device time, and the
+kernels that take the most device time.
 
     python3 scripts/profile_solver.py
 """
@@ -109,6 +110,10 @@ def main() -> int:
         "launches_per_superstep": n_launches / steps,
         "kernel_ms": kernel_ms,
         "ring_kernel_ms": ring_ms,
+        "dd_expand_launches": sum(v[0] for k, v in by_name.items()
+                                  if "expand_kernel" in k),
+        "dd_expand_ms": sum(v[1] for k, v in by_name.items()
+                            if "expand_kernel" in k),
         "top_kernels": [{"name": k[:80], "launches": v[0], "ms": v[1]}
                         for k, v in top],
     }))

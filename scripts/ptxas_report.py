@@ -1,0 +1,50 @@
+#!/usr/bin/env python3
+"""What the compiler made of each CUDA kernel: registers, shared memory and
+spills per kernel instance, as ``nvcc -Xptxas -v`` reports them.
+
+Compiles every source of the port's kernel library
+(``repro_torch.kernels._lib.SOURCES``) with the library's own flags plus
+``-Xptxas -v`` into a scratch directory, all sources at once, and prints
+ptxas's lines for each (demangled kernel names).  Needs ``nvcc``; builds
+nothing that the library uses.
+
+    python3 scripts/ptxas_report.py
+"""
+
+from __future__ import annotations
+
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parents[1]
+
+
+def main() -> int:
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels import _lib
+
+    nvcc = _lib._nvcc()
+    with tempfile.TemporaryDirectory() as tmp:
+        procs = [(src, subprocess.Popen(
+            [nvcc, *_lib.NVCC_FLAGS, "-Xptxas", "-v", "-c", str(src), "-o",
+             str(Path(tmp) / (src.stem + ".o"))],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            for src in _lib.SOURCES]
+        failed = False
+        for src, proc in procs:
+            log, _ = proc.communicate()
+            print(f"== {src.relative_to(ROOT)} (exit {proc.returncode})")
+            lines = [l for l in log.splitlines() if "ptxas" in l or
+                     "spill" in l or "error" in l]
+            demangle = subprocess.run(["c++filt"], input="\n".join(lines),
+                                      capture_output=True, text=True)
+            print(demangle.stdout if demangle.returncode == 0
+                  else "\n".join(lines))
+            failed |= proc.returncode != 0
+    return 1 if failed else 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -5,7 +5,9 @@ A DD layer is a fixed-width node pool, batched over any leading dims:
   states (..., W) int32 — remaining capacity (-1 = dead slot)
   values (..., W) int32 — longest path value into the node
 
-``expand_layer`` generates both arcs for every node.  Reductions:
+``expand_layer`` generates both arcs for every node, through K5
+(``kernels/dd_expand``), the solver's one hand-written kernel outside the
+queue.  Reductions:
 
   exact:      merge duplicate states (keep max value); reports overflow
               when distinct states exceed the pool width.
@@ -26,6 +28,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
+from repro_torch.kernels.dd_expand import ops as dd_expand
+
 __all__ = ["Pool", "DEAD", "NEG", "expand_layer", "reduce_exact",
            "reduce_restricted", "reduce_relaxed", "root_pool", "where_pool",
            "build_bounds"]
@@ -42,15 +46,10 @@ class Pool(NamedTuple):
 def expand_layer(pool: Pool, w, p) -> Pool:
     """One DD layer: each live node spawns the 0-arc child (state, value)
     and the 1-arc child (state - w, value + p) when feasible.  Returns a
-    (..., 2W) pool (children may be dead)."""
-    live = pool.states >= 0
-    s0 = torch.where(live, pool.states, DEAD)
-    v0 = torch.where(live, pool.values, NEG)
-    feas = live & (pool.states >= w)
-    s1 = torch.where(feas, pool.states - w, DEAD)
-    v1 = torch.where(feas, pool.values + p, NEG)
-    return Pool(states=torch.cat([s0, s1], dim=-1),
-                values=torch.cat([v0, v1], dim=-1))
+    (..., 2W) pool (children may be dead).  This is K5
+    (``kernels/dd_expand``): one launch on the card, its plain version on
+    the CPU."""
+    return Pool(*dd_expand.expand_pool(pool.states, pool.values, w, p))
 
 
 def _dedup_max(states: torch.Tensor, values: torch.Tensor

@@ -1,5 +1,5 @@
-"""Build and load the hand-written CUDA kernels (the ring kernels K1-K4 and
-flash attention K6).
+"""Build and load the hand-written CUDA kernels (the ring kernels K1-K4,
+DD layer expansion K5, flash attention K6 and the SSD scan K7).
 
 The ``*.cu`` sources beside the kernel packages have a plain C interface.
 At first use, :func:`library` compiles each source with ``nvcc`` for
@@ -37,6 +37,8 @@ SOURCES = (
     _HERE / "queue_push" / "ring_push.cu",
     _HERE / "queue_transfer" / "ring_transfer.cu",
     _HERE / "flash_attention" / "flash_attention.cu",
+    _HERE / "ssd_scan" / "ssd_scan.cu",
+    _HERE / "dd_expand" / "expand.cu",
 )
 HEADERS = (_HERE / "ring_rows.cuh",)
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,6 +53,9 @@ _SIGNATURES = {
     "rk_ring_transfer": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I, _P),
     "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                            _I, _I, _I, _I, _F, _P),
+    "ss_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
+                    _I, _P),
+    "dd_expand": (_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _P),
 }
 
 _LIB = None

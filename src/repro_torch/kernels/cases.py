@@ -1,15 +1,18 @@
-"""Case tables and seeded inputs for the ring kernels K1-K4 and flash
-attention K6, shared by the CPU tests (plain versions against the JAX
-package's Pallas kernels) and ``chip_smoke.py`` (CUDA kernels against
-their plain versions on the card).
+"""Case tables and seeded inputs for the ring kernels K1-K4, DD layer
+expansion K5, flash attention K6 and the SSD scan K7, shared by the CPU
+tests (plain versions against the JAX package's Pallas kernels) and
+``chip_smoke.py`` (CUDA kernels against their plain versions on the card).
 
 ``STEAL_CASES``, ``TRANSFER_CASES`` and ``FLASH_CASES`` are the JAX
 package's own tables (``tests/test_kernels.py``); the scatter and slice
 tables cover the same ground for K2 and K3: wrapped rings, empty and full
 moves, int32 and bfloat16 payloads.  ``FLASH_EXTRA_CASES`` adds what the
 serving path and the card need beyond them: causal ``S > T`` (rows that
-see no key), windows, head dim 256 and GQA in bfloat16.  Payload dtypes
-are names, so the tables import nothing but numpy.
+see no key), windows, head dims 112 and 256 and GQA in bfloat16.
+``EXPAND_CASES`` and ``SSD_CASES`` are the JAX package's tables for K5
+and K7; ``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S <
+Q``), bfloat16 and the SSM archs' widths.  Payload dtypes are names, so
+the tables import nothing but numpy.
 """
 
 from __future__ import annotations
@@ -19,7 +22,9 @@ import torch
 
 __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
            "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_TOL",
-           "payload", "to_tensor"]
+           "EXPAND_CASES", "EXPAND_SOLVER", "expand_inputs",
+           "SSD_CASES", "SSD_EXTRA_CASES", "SSD_SLICE", "SSD_TOL",
+           "ssd_inputs", "payload", "to_tensor"]
 
 # (cap, D, max_steal, lo, n, dtype)
 STEAL_CASES = [
@@ -78,6 +83,8 @@ FLASH_EXTRA_CASES = [
     (1, 256, 128, 4, 1, 32, True, 16, 50.0, "bfloat16"),      # S > T, window
     (1, 100, 100, 2, 1, 256, True, 16, 50.0, "float32"),      # hd 256, ragged
     (2, 256, 256, 8, 2, 256, True, None, None, "bfloat16"),   # hd 256, GQA
+    (1, 128, 128, 4, 4, 112, True, 32, 30.0, "float32"),     # hd 112
+    (2, 256, 256, 4, 4, 112, True, None, None, "bfloat16"),   # zamba2's hd
 ]
 
 # Prefill attention of the serving slice: a wave of 4 prompts of 1,024
@@ -86,6 +93,66 @@ FLASH_SLICE = (4, 1024, 1024, 32, 8, 64, True, None, None, "bfloat16")
 
 # The JAX package's tolerances for the flash kernel (tests/test_kernels.py).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}
+
+# K5: (N, (w, p)) — the JAX package's table; states in [-1, 100), values
+# in [0, 50).
+EXPAND_CASES = [(n, wp) for n in (256, 512, 1024)
+                for wp in ((3, 8), (50, 1), (0, 0))]
+# The solver's pools (chip_smoke.py phase 3): 64 workers x 8 popped
+# subproblems, explore width 16.
+EXPAND_SOLVER = (64 * 8, 16)
+
+
+def expand_inputs(rng: np.random.Generator, shape, device):
+    """Seeded int32 (states, values) of a K5 case."""
+    s = rng.integers(-1, 100, shape, dtype=np.int32)
+    v = rng.integers(0, 50, shape, dtype=np.int32)
+    return (torch.from_numpy(s).to(device), torch.from_numpy(v).to(device))
+
+
+# K7: (B, S, nh, hd, ns, Q, dtype) — the JAX package's table first.
+SSD_CASES = [
+    (2, 64, 4, 16, 32, 16, "float32"),
+    (1, 128, 2, 32, 16, 32, "float32"),
+    (2, 256, 8, 64, 128, 128, "float32"),
+    (1, 64, 1, 8, 8, 64, "float32"),        # single chunk (S == Q)
+]
+SSD_EXTRA_CASES = [
+    (2, 100, 3, 16, 16, 32, "float32"),     # ragged last chunk
+    (1, 10, 2, 16, 16, 16, "float32"),      # S < Q
+    (2, 1, 2, 8, 8, 16, "float32"),         # one token
+    (2, 300, 4, 64, 64, 256, "float32"),    # zamba2's widths, ragged
+    (1, 700, 2, 64, 128, 256, "bfloat16"),  # mamba2's widths, ragged
+    (2, 100, 4, 16, 16, 16, "bfloat16"),    # the reduced configs' widths
+]
+# The prefill scan of the serving slice: a wave of 4 prompts of 1,024
+# tokens through one layer of mamba2-2.7b (80 heads of 64, state 128,
+# chunk 256).
+SSD_SLICE = (4, 1024, 80, 64, 128, 256, "bfloat16")
+
+# The JAX package's tolerance for the SSD kernel (tests/test_kernels.py)
+# in float32, as (atol, rtol); in bfloat16 the output is rounded to 8 bits
+# of mantissa, so two correct float32 sums may land one bf16 step apart.
+SSD_TOL = {"float32": (5e-5, 5e-4), "bfloat16": (2e-2, 2e-2)}
+
+
+def ssd_inputs(rng: np.random.Generator, case, device):
+    """Seeded (x, dt, A, Bm, Cm, D) of a K7 case, drawn as the JAX package's
+    test draws them: x ~ N(0, 0.5^2), dt = softplus(N(0, 1)), A =
+    -exp(0.3 N(0, 1)), Bm, Cm ~ N(0, 0.3^2), D = 1; x, Bm and Cm in the
+    case's dtype, the rest float32."""
+    B, S, nh, hd, ns, _, dtype = case
+    f32 = np.float32
+    x = rng.standard_normal((B, S, nh, hd)).astype(f32) * 0.5
+    dt = np.log1p(np.exp(rng.standard_normal((B, S, nh)))).astype(f32)
+    A = -np.exp(rng.standard_normal(nh) * 0.3).astype(f32)
+    Bm = rng.standard_normal((B, S, ns)).astype(f32) * 0.3
+    Cm = rng.standard_normal((B, S, ns)).astype(f32) * 0.3
+    D = np.ones(nh, f32)
+    cd = getattr(torch, dtype)
+    return tuple(torch.from_numpy(a).to(device=device, dtype=t) for a, t in (
+        (x, cd), (dt, torch.float32), (A, torch.float32), (Bm, cd), (Cm, cd),
+        (D, torch.float32)))
 
 
 def payload(rng: np.random.Generator, shape, dtype: str) -> np.ndarray:

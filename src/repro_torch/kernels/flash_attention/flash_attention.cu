@@ -233,6 +233,9 @@ int launch_hd(int hd, const void* q, const void* k, const void* v, void* o,
     case 64:
       return launch<T, 64>(q, k, v, o, B, S, T_len, H, K, scale, causal,
                            has_window, window, has_softcap, softcap, s);
+    case 112:  // zamba2-7b's shared attention (3,584 / 32 heads)
+      return launch<T, 112>(q, k, v, o, B, S, T_len, H, K, scale, causal,
+                            has_window, window, has_softcap, softcap, s);
     case 128:
       return launch<T, 128>(q, k, v, o, B, S, T_len, H, K, scale, causal,
                             has_window, window, has_softcap, softcap, s);

@@ -4,7 +4,7 @@
 with ``H % K == 0``, as the JAX package's ``kernels.flash_attention.ops.mha``
 does, and returns ``(B, S, H, hd)`` in q's dtype.  For a CUDA tensor it
 launches the CUDA kernel (``flash_attention.cu``: float32 or bfloat16,
-head dims 32, 64, 128 and 256, GQA by indexing the KV head); for a CPU
+head dims 32, 64, 112, 128 and 256, GQA by indexing the KV head); for a CPU
 tensor it runs the plain version (``ref.attention_ref``).  There is no
 other route: a CUDA tensor the kernel does not take raises.
 """
@@ -20,7 +20,7 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["mha", "HEAD_DIMS"]
 
-HEAD_DIMS = (32, 64, 128, 256)
+HEAD_DIMS = (32, 64, 112, 128, 256)
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 

@@ -1,0 +1,1 @@
+"""K7 ``ssd_scan``: the Mamba2 SSD chunked scan for prefill."""

@@ -26,6 +26,7 @@ from typing import Any, NamedTuple, Optional
 
 import torch
 
+from repro_torch._tree import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash
 from repro_torch.models.layers import dense_init, rms_norm, softcap
 
@@ -170,7 +171,9 @@ class KVCache(NamedTuple):
 
 def make_cache(L: int, B: int, C: int, cfg: AttnConfig, dtype,
                device=None) -> KVCache:
-    K, hd = cfg.n_kv_heads, cfg.head_dim
+    """Zeroed ``(L, B, C, K, hd)`` caches on ``device`` (default CUDA;
+    raises without it)."""
+    K, hd, device = cfg.n_kv_heads, cfg.head_dim, resolve_device(device)
     return KVCache(
         k=torch.zeros((L, B, C, K, hd), dtype=dtype, device=device),
         v=torch.zeros((L, B, C, K, hd), dtype=dtype, device=device),

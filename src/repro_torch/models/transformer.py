@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
                                           decode_attention)
@@ -172,8 +172,9 @@ class DecoderLM:
         return seq_len
 
     def make_cache(self, batch: int, seq_len: int, device=None) -> Pytree:
-        """Zeroed KV caches, one stack per layer kind, + position."""
-        cfg = self.cfg
+        """Zeroed KV caches, one stack per layer kind, + position, on
+        ``device`` (default CUDA; raises without it)."""
+        cfg, device = self.cfg, resolve_device(device)
         cache: Dict[str, Any] = {"pos": 0}
         for gi, kind in enumerate(self.layer_kinds):
             shape = (self.n_groups, batch, self.cache_len(kind, seq_len),

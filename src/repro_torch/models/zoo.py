@@ -2,39 +2,37 @@
 :func:`params_from_numpy`, which carries parameters made by the JAX
 package (as numpy arrays) over to the port.
 
-The decoder family only, for now: the other families raise, naming the
-ROADMAP item they wait for.  ``input_specs`` is the JAX package's dry-run
-machinery and has no counterpart here.
+The dense decoder and the SSM families (``ssm``, ``hybrid``); MoE layers,
+the VLM prefix and the enc-dec family raise, naming the ROADMAP item they
+wait for.  ``input_specs`` is the JAX package's dry-run machinery and has
+no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Union
 
 import numpy as np
 import torch
 
 from repro_torch._tree import tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models.hybrid import HybridLM, SSMLM
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["build_model", "params_from_numpy"]
 
-_WAITING = {
-    "ssm": "the SSM family (models/ssm.py with K7 ssd_scan) is the next "
-           "slice (ROADMAP queue A item 10)",
-    "hybrid": "the hybrid family waits for models/ssm.py and models/hybrid.py "
-              "(ROADMAP queue A item 10)",
-    "encdec": "the enc-dec family (models/encdec.py) waits for ROADMAP "
-              "queue A item 10",
-}
-
-
-def build_model(cfg: ModelConfig) -> DecoderLM:
+def build_model(cfg: ModelConfig) -> Union[DecoderLM, SSMLM, HybridLM]:
     if cfg.family in ("decoder", "moe", "vlm"):
         return DecoderLM(cfg)  # which raises for MoE layers and the VLM prefix
-    if cfg.family in _WAITING:
-        raise NotImplementedError(f"{cfg.name}: {_WAITING[cfg.family]}")
+    if cfg.family == "ssm":
+        return SSMLM(cfg)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg)
+    if cfg.family == "encdec":
+        raise NotImplementedError(
+            f"{cfg.name}: the enc-dec family (models/encdec.py) waits for "
+            f"ROADMAP queue A item 10")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

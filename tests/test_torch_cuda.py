@@ -1,8 +1,9 @@
 """Tests that need the card (``cuda`` marker): each CUDA ring kernel against
-its plain version, flash attention (K6) against its plain version, the
-kernel backend against the reference backend on CUDA tensors, the solver
-on the GPU against the same solver on the CPU, and the serving model's
-prefill on the GPU against the CPU.
+its plain version, DD layer expansion (K5), flash attention (K6) and the
+SSD scan (K7) against their plain versions, the kernel backend against the
+reference backend on CUDA tensors, the solver on the GPU against the same
+solver on the CPU, and the serving models' prefill on the GPU against the
+CPU.
 Each skips where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so on a GPU machine it runs on its own:
 
@@ -23,10 +24,12 @@ from repro_torch.core import ops as tops
 from repro_torch.core.dd.knapsack import random_instance
 from repro_torch.core.dd.parallel import parallel_solve
 from repro_torch.kernels import cases as C
+from repro_torch.kernels.dd_expand.ops import expand_pool
 from repro_torch.kernels.flash_attention.ops import mha
 from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
 from repro_torch.kernels.queue_steal.ops import steal_gather
 from repro_torch.kernels.queue_transfer.ops import transfer_splice
+from repro_torch.kernels.ssd_scan.ops import ssd
 from repro_torch.models.zoo import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -145,6 +148,53 @@ def test_flash_attention_kernel_matches_plain_version():
 
 
 @pytest.mark.cuda
+def test_dd_expand_kernel_matches_plain_version():
+    """K5 bit for bit on the JAX package's table and at the solver's pools,
+    launching once per call."""
+    dev = _cuda()
+    before = expand_pool.launches
+    err, n = _chip_smoke().expand_checks(dev, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    assert expand_pool.launches - before == n
+    assert err == 0.0
+
+
+@pytest.mark.cuda
+def test_ssd_scan_kernel_matches_plain_version():
+    """K7 within atol 5e-5 / rtol 5e-4 in float32 (2e-2 in bfloat16) on the
+    case tables, ragged lengths among them, and at the SSM slice's prefill
+    shape, launching once per call."""
+    dev = _cuda()
+    before = ssd.launches
+    err, n = _chip_smoke().ssd_checks(dev, np.random.default_rng(0),
+                                      C.SSD_SLICE)
+    torch.cuda.synchronize()
+    assert ssd.launches - before == n
+    assert err < C.SSD_TOL["bfloat16"][0]
+
+
+@pytest.mark.cuda
+def test_kernels_refuse_what_they_do_not_take():
+    """No fallback: a CUDA tensor the kernel cannot take raises."""
+    dev = _cuda()
+    nodes = torch.zeros((2, 8), dtype=torch.int64, device=dev)
+    with pytest.raises(ValueError, match="int32"):
+        expand_pool(nodes, nodes, 3, 4)
+    with pytest.raises(ValueError, match="int32"):
+        expand_pool(nodes.int(), nodes.int(),
+                    torch.tensor(3, device=dev), 4)
+    x = torch.zeros((1, 8, 2, 48), device=dev)  # head dim 48
+    with pytest.raises(ValueError, match="head dim"):
+        ssd(x, torch.zeros((1, 8, 2), device=dev), torch.zeros(2, device=dev),
+            torch.zeros((1, 8, 16), device=dev),
+            torch.zeros((1, 8, 16), device=dev), torch.zeros(2, device=dev),
+            chunk=4)
+    q = torch.zeros((1, 8, 2, 48), device=dev)
+    with pytest.raises(ValueError, match="head dim"):
+        mha(q, q, q)
+
+
+@pytest.mark.cuda
 def test_prefill_on_the_card_matches_the_cpu():
     """Reduced llama3.2-1b and gemma2-9b (window, softcaps, sandwich
     norms) in float32: the same parameters give the same last-position
@@ -163,3 +213,30 @@ def test_prefill_on_the_card_matches_the_cpu():
                                    toks.to(dev))
         assert cache["g0"]["k"].device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_ssm_prefill_on_the_card_matches_the_cpu():
+    """Reduced mamba2-2.7b and zamba2-7b in float32 on a ragged length: the
+    same parameters give the same last-position logits and SSD states
+    through K7 (and K6) on the card as through the plain versions on the
+    CPU."""
+    dev = _cuda()
+    for arch in ("mamba2-2.7b", "zamba2-7b"):
+        cfg = dataclasses.replace(configs.reduced(configs.get(arch)),
+                                  compute_dtype="float32")
+        model = build_model(cfg)
+        params = model.init(torch.Generator().manual_seed(0))
+        toks = torch.tensor(np.random.default_rng(0).integers(
+            1, cfg.vocab_size, (2, 45)), dtype=torch.int32)
+        want, want_cache = model.prefill(params, toks)
+        before = ssd.launches
+        got, cache = model.prefill(tree_map(lambda t: t.to(dev), params),
+                                   toks.to(dev))
+        assert ssd.launches - before == cfg.n_layers
+        torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+        for a, b in zip(tree_leaves({k: v for k, v in cache.items()
+                                     if k != "pos"}),
+                        tree_leaves({k: v for k, v in want_cache.items()
+                                     if k != "pos"})):
+            torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)

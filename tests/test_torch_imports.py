@@ -70,7 +70,11 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.core.dd.parallel import parallel_solve
     from repro_torch.core.ops import make_queue
     from repro_torch.core.sharded_queue import make_sharded_queues
+    from repro_torch import configs
     from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.attention import AttnConfig
+    from repro_torch.models.attention import make_cache as attn_make_cache
+    from repro_torch.models.zoo import build_model
     from repro_torch.runtime.executor import StealRuntime
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -80,7 +84,12 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: make_queue(8, spec),
                  lambda: make_sharded_queues(2, 8, spec),
                  lambda: make_queue(8, spec, device="cuda"),
-                 lambda: serve_main([])):
+                 lambda: serve_main([]),
+                 lambda: attn_make_cache(1, 2, 8, AttnConfig(2, 1, 4),
+                                         torch.float32),
+                 *(lambda arch=arch: build_model(configs.reduced(
+                     configs.get(arch))).make_cache(2, 8)
+                   for arch in ("llama3.2-1b", "mamba2-2.7b", "zamba2-7b"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
     with pytest.raises(NotImplementedError, match="mesh"):

@@ -22,11 +22,13 @@ from repro.kernels.queue_transfer.ops import \
     transfer_splice as jax_transfer_splice
 from repro_torch.kernels import _lib
 from repro_torch.kernels import cases as C
+from repro_torch.kernels.dd_expand.ops import expand_layer_bulk, expand_pool
 from repro_torch.kernels.queue_push.ops import (pop_slice, push_scatter,
                                                 ring_scatter)
 from repro_torch.kernels.queue_push.ref import ring_scatter_ref
 from repro_torch.kernels.queue_steal.ops import ring_gather, steal_gather
 from repro_torch.kernels.queue_transfer.ops import transfer_splice
+from repro_torch.kernels.ssd_scan.ops import ssd
 
 from _torch_parity import assert_same, jax_payload
 
@@ -165,6 +167,18 @@ def test_wrappers_refuse_non_cpu_tensors_without_cuda():
         ring_gather(buf, cursor, cursor, 8)
     with pytest.raises(ValueError, match="int32"):
         ring_gather(buf, cursor.long(), cursor, 8)
+    # K5 and K7 likewise
+    nodes = torch.zeros((4, 8), dtype=I32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        expand_pool(nodes, nodes, 3, 4)
+    with pytest.raises(ValueError, match="CUDA"):
+        expand_layer_bulk(nodes[0], nodes[0], torch.zeros((), dtype=I32), 4)
+    f32 = dict(dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd(torch.empty((1, 8, 2, 16), **f32), torch.empty((1, 8, 2), **f32),
+            torch.empty((2,), **f32), torch.empty((1, 8, 16), **f32),
+            torch.empty((1, 8, 16), **f32), torch.empty((2,), **f32),
+            chunk=4)
 
 
 @pytest.mark.parametrize("extent", [-1, 2 ** 31])

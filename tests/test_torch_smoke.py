@@ -1,9 +1,9 @@
 """``chip_smoke.py``'s phases, rehearsed on the CPU at a small size: the
 kernel checks (there the wrappers run the plain versions), the backlog
 supersteps across backends and exchanges, the solver phase against the
-JAX package's results for the same configuration, and the serving phase on
-reduced llama3.2-1b.  On the card the script runs the same code at full
-size."""
+JAX package's results for the same configuration, and the serving phases
+on reduced llama3.2-1b, mamba2-2.7b and zamba2-7b.  On the card the
+script runs the same code at full size."""
 
 import importlib.util
 from pathlib import Path
@@ -16,8 +16,10 @@ from repro.core.policy import StealPolicy as JaxPolicy
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
-# K6 timed at a CPU-sized shape (the card times the serving slice's).
+# K6 and K7 timed at CPU-sized shapes (the card times the serving
+# slices').
 FLASH_SMALL = (2, 128, 128, 4, 2, 32, True, None, None, "bfloat16")
+SSD_SMALL = (2, 100, 4, 16, 32, 32, "bfloat16")
 
 
 def _chip_smoke():
@@ -30,14 +32,21 @@ def _chip_smoke():
 
 def test_kernel_phase_checks_every_kernel():
     smoke = _chip_smoke()
-    out = smoke.phase_kernels(CPU, flash_shape=FLASH_SMALL)
+    out = smoke.phase_kernels(CPU, flash_shape=FLASH_SMALL,
+                              ssd_shape=SSD_SMALL)
     assert set(out) == {name for name, _, _ in smoke.KERNELS}
     for name, row in out.items():
         assert row["max_abs_err"] == 0.0 and row["parity_cases"] >= 9, name
         assert row["bound_ms"] > 0
-        assert row["library_ms"] > 0, name
-    assert out["flash_attention"]["parity_cases"] == 11
+        # no single PyTorch call computes K5's or K7's function
+        if name in ("dd_expand", "ssd_scan"):
+            assert row["library_ms"] is None, name
+        else:
+            assert row["library_ms"] > 0, name
+    assert out["flash_attention"]["parity_cases"] == 13
     assert out["flash_attention"]["bound_by"] == "bytes"  # at this tiny size
+    assert out["dd_expand"]["parity_cases"] == 12
+    assert out["ssd_scan"]["parity_cases"] == 12
 
 
 def test_queue_phase_agrees_across_backends_and_conserves():
@@ -67,26 +76,54 @@ def test_solver_phase_matches_reference():
     out = smoke.phase_solver(CPU, counters, expect=expect, **cfg)
     assert out["supersteps"] == st["supersteps"]
     assert set(out["launches"]) == {"ring_gather", "ring_scatter",
-                                    "ring_slice", "ring_transfer"}
+                                    "ring_slice", "ring_transfer",
+                                    "dd_expand"}
 
 
-def test_serve_phase_serves_everything_and_compares_the_first_wave():
-    from repro_torch import configs
-
-    smoke = _chip_smoke()
-    _, counters = smoke._port()
-    out = smoke.phase_serve(CPU, counters["flash_attention"],
-                            cfg=configs.reduced(configs.get("llama3.2-1b")),
-                            n_requests=10, prompt_lens=(8, 24), max_new=4,
-                            max_seq=30, wave_size=4, slow_speed=0.25)
-    assert out["requests"] == 10 and out["tokens"] == 40
-    assert out["stolen"] > 0 and sum(out["completed"]) == 10
-    assert out["decode_steps"] == 4 * out["prefill_waves"]
-    # on the CPU K6's wrapper takes its plain version: nothing launches,
-    # and the two first-wave prefills are the same computation
-    assert out["flash_launches"] == 0
+def _assert_first_wave_is_the_plain_computation(out):
+    """On the CPU every wrapper takes its plain version: nothing launches,
+    and the two first-wave prefills are the same computation."""
+    assert set(out["launches"].values()) == {0}
     assert out["first_wave_f32_max_abs_err"] == 0.0
     assert out["first_wave_bf16_max_abs_err"] == 0.0
     dev = out["first_wave_bf16_mean_dev_from_f32"]
-    assert dev["k6"] == dev["plain"] > 0
+    assert dev["kernel"] == dev["plain"] > 0
     assert out["first_wave_greedy_agreement"] == 1.0
+
+
+def _serve(arch):
+    from repro_torch import configs
+    out = _chip_smoke().phase_serve(
+        CPU, cfg=configs.reduced(configs.get(arch)), n_requests=10,
+        prompt_lens=(8, 24), max_new=4, max_seq=30, wave_size=4,
+        slow_speed=0.25)
+    assert out["requests"] == 10 and out["tokens"] == 40
+    assert out["stolen"] > 0 and sum(out["completed"]) == 10
+    assert out["decode_steps"] == 4 * out["prefill_waves"]
+    _assert_first_wave_is_the_plain_computation(out)
+    return out
+
+
+def test_serve_phase_serves_everything_and_compares_the_first_wave():
+    assert set(_serve("llama3.2-1b")["launches"]) == {"flash_attention"}
+
+
+def test_ssm_serve_phase_counts_the_ssd_scan():
+    assert set(_serve("mamba2-2.7b")["launches"]) == {"ssd_scan"}
+
+
+def test_wave_phase_runs_the_hybrid_through_both_kernels():
+    from repro_torch import configs
+
+    smoke = _chip_smoke()
+    cfg = configs.reduced(configs.get("zamba2-7b"))
+    assert smoke.serve_launches(cfg) == {"flash_attention": 2,
+                                         "ssd_scan": 7}
+    assert smoke.serve_launches(configs.get("zamba2-7b")) == {
+        "flash_attention": 13, "ssd_scan": 81}
+    out = smoke.phase_wave(CPU, cfg=cfg, n_prompts=4, prompt_lens=(8, 24),
+                           max_new=3, max_seq=30)
+    assert out["requests"] == 4 and out["tokens"] == 12
+    assert len(out["prefill_ms"]) == 1 and out["decode_steps"] == 3
+    assert set(out["launches"]) == {"flash_attention", "ssd_scan"}
+    _assert_first_wave_is_the_plain_computation(out)

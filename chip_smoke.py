@@ -16,15 +16,18 @@ check that does not hold:
    max_steal 8,192, 128-row pushes, 8-row pops) in float32, int32 and
    bfloat16 — and DD layer expansion (K5) bit for bit on its case table
    and at the solver's pools (512 x 16 nodes).  Holds flash attention
-   (K6) within the JAX package's tolerances (2e-5 float32, 2e-2 bfloat16)
-   on its case tables (head dims 32 to 256, 112 among them) and at the
-   serving slice's prefill shape (B 4, S = T 1,024, 32 heads over 8 KV
-   heads of 64, bfloat16, causal), and the SSD scan (K7) within atol 5e-5
-   / rtol 5e-4 in float32 (2e-2 in bfloat16) on its case tables (ragged
-   lengths among them) and at the SSM slice's prefill shape (B 4, S
-   1,024, 80 heads of 64, state 128, chunk 256) in bfloat16 and float32.
-   Times kernel, plain version and a library yardstick (``index_select``
-   / ``index_copy_``; SDPA for K6; none for K5 and K7) with CUDA events.
+   (K6: bfloat16 through the tensor-core kernel, float32 through the SIMT
+   kernel) within the JAX package's tolerances (2e-5 float32, 2e-2
+   bfloat16) on its case tables (head dims 32 to 256, 112 among them), at
+   the serving slice's prefill shape (B 4, S = T 1,024, 32 heads over 8 KV
+   heads of 64, bfloat16, causal) and at zamba2-7b's (32 heads of 112,
+   MHA), and the SSD scan (K7) within atol 5e-5 / rtol 5e-4 in float32
+   (2e-2 in bfloat16) on its case tables (ragged lengths among them) and
+   at the SSM slice's prefill shape (B 4, S 1,024, 80 heads of 64, state
+   128, chunk 256) in bfloat16 and float32.  Times kernel, plain version
+   and a library yardstick (``index_select`` / ``index_copy_``; SDPA for
+   K6; none for K5 and K7) with CUDA events; K6 at both of its shapes,
+   beside the SIMT kernel's bfloat16 time (its earlier design).
 2. The queue at the paper's backlog.  64 lanes of 16,384 rows, half of
    them holding 10,000 seeded unique items; 8 rebalancing supersteps on the
    kernel backend under the compact and the dense exchange and on the
@@ -39,7 +42,8 @@ check that does not hold:
    requests of 128-1,024 prompt tokens and 16 new tokens each with
    llama3.2-1b at its published widths and random weights from seed 0.
    Every request must be served in full, the master must have stolen,
-   K6 must have launched once per layer and prefill wave, and the first
+   K6 must have launched once per layer and prefill wave, every launch
+   on its tensor-core route (bfloat16 compute), and the first
    wave's prefill logits must agree with the same prefill through K6's
    plain version (swapped in for that one call): within 1e-4 in float32
    compute, and in the run's bfloat16 compute as close to the float32
@@ -50,8 +54,9 @@ check that does not hold:
    the same two checks against K7's plain version.
 6. The hybrid, one wave.  zamba2-7b at its published widths and depth (81
    layers, 6.6 B parameters) runs one wave of 4 prompts: K6 must have
-   launched once per shared-block application (13) and K7 once per
-   Mamba2 block (81), every request must get its tokens, and the first
+   launched once per shared-block application (13), all on its
+   tensor-core route, and K7 once per Mamba2 block (81), every request
+   must get its tokens, and the first
    wave passes the two checks against both plain versions at once.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
@@ -126,7 +131,11 @@ KERNELS = (
     ("dd_expand", "src/repro_torch/kernels/dd_expand/expand.cu",
      "src/repro/kernels/dd_expand/kernel.py:53"),
     ("flash_attention",
-     "src/repro_torch/kernels/flash_attention/flash_attention.cu",
+     "src/repro_torch/kernels/flash_attention/flash_attention_wgmma.cu",
+     "src/repro/kernels/flash_attention/kernel.py:100"),
+    # the same kernel at zamba2-7b's head dim, timed at its prefill shape
+    ("flash_attention_hd112",
+     "src/repro_torch/kernels/flash_attention/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention/kernel.py:100"),
     ("ssd_scan", "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
      "src/repro/kernels/ssd_scan/kernel.py:80"),
@@ -442,14 +451,15 @@ def _close(kernel_out, plain_out, tol: float, what: str,
     return err
 
 
-def flash_checks(device, rng, shape):
-    """K6 against its plain version on the case tables and at ``shape``;
-    returns (max abs err, number of cases)."""
+def flash_checks(device, rng, shapes):
+    """K6 against its plain version on the case tables and at ``shapes``
+    (bfloat16 through the tensor-core kernel, float32 through the SIMT
+    kernel); returns (max abs err, number of cases)."""
     from repro_torch.kernels import cases as C
     from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    err, cases = 0.0, C.FLASH_CASES + C.FLASH_EXTRA_CASES + [shape]
+    err, cases = 0.0, C.FLASH_CASES + C.FLASH_EXTRA_CASES + list(shapes)
     for case in cases:
         B, S, T, H, K, hd, causal, window, cap, dtype = case
         q, k, v = _flash_inputs(device, rng, case)
@@ -460,14 +470,15 @@ def flash_checks(device, rng, shape):
 
 
 def flash_timing(device, rng, timer, shape):
-    """K6, its plain version and SDPA (checked equal within tolerance
-    first) at ``shape``, and the bound: the larger of 4 hd flops per
-    visible (q, k) pair per head at the dense bf16 tensor-core peak and
-    q, k, v and o's bytes at the memory rate."""
-    import torch
+    """K6 (through ``mha``'s route for the shape's dtype), its earlier bf16
+    design (the SIMT kernel, ``mha_simt``), its plain version and SDPA,
+    each checked against the plain version within tolerance first, at
+    ``shape``, and the bound: the larger of 4 hd flops per visible (q, k)
+    pair per head at the dense bf16 tensor-core peak and q, k, v and o's
+    bytes at the memory rate."""
     import torch.nn.functional as F
     from repro_torch.kernels import cases as C
-    from repro_torch.kernels.flash_attention.ops import mha
+    from repro_torch.kernels.flash_attention.ops import mha, mha_simt
     from repro_torch.kernels.flash_attention.ref import attention_ref, visible
 
     B, S, T, H, K, hd, causal, window, cap, dtype = shape
@@ -481,23 +492,29 @@ def flash_timing(device, rng, timer, shape):
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
             is_causal=True, enable_gqa=True).transpose(1, 2)
 
-    _close(library(), mha(q, k, v, **kw), C.FLASH_TOL[dtype],
-           "SDPA yardstick vs flash_attention")
+    plain = attention_ref(q, k, v, **kw)
+    tol = C.FLASH_TOL[dtype]
+    err = _close(mha(q, k, v, **kw), plain, tol, f"flash_attention {shape}")
+    _close(mha_simt(q, k, v, **kw), plain, tol, f"SIMT kernel {shape}")
+    _close(library(), plain, tol, f"SDPA yardstick {shape}")
     pairs = int(visible(S, T, causal=causal, window=window).sum())
     flops = 4 * B * H * hd * pairs
     nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
     flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ms, clean = timer.ms(lambda: mha(q, k, v, **kw))
+    earlier_ms, earlier_clean = timer.ms(lambda: mha_simt(q, k, v, **kw),
+                                         n=20)
     plain_ms, plain_clean = timer.ms(lambda: attention_ref(q, k, v, **kw),
                                      n=20)
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=timer.ms(library)[0],
+    return dict(ms=ms, earlier_ms=earlier_ms, plain_ms=plain_ms,
+                library_ms=timer.ms(library)[0],
                 bound_ms=max(flop_ms, byte_ms),
                 bound_by="operations" if flop_ms >= byte_ms else "bytes",
-                bound_flops=flops, bound_bytes=nbytes,
+                bound_flops=flops, bound_bytes=nbytes, shape_max_abs_err=err,
                 timed_at=f"B {B}, S {S}, T {T}, H {H}, K {K}, hd {hd}, "
                          f"{dtype}, causal",
-                device_time_clean=clean and plain_clean)
+                device_time_clean=clean and earlier_clean and plain_clean)
 
 
 def _expand_inputs(device, rng, shape, tensor_scalars: bool, wp=(3, 8)):
@@ -617,10 +634,12 @@ def ssd_timing(device, rng, timer, shape):
                 device_time_clean=clean and plain_clean)
 
 
-def phase_kernels(device, seed: int = 0, flash_shape=None, ssd_shape=None):
-    """Every kernel against its plain version, then timed.  ``flash_shape``
-    and ``ssd_shape`` are K6's and K7's timed shapes (default: the serving
-    slices' prefill)."""
+def phase_kernels(device, seed: int = 0, flash_shapes=None, ssd_shape=None):
+    """Every kernel against its plain version, then timed.  ``flash_shapes``
+    are K6's two timed shapes (default: the serving slice's prefill and
+    zamba2-7b's, reported as ``flash_attention`` and
+    ``flash_attention_hd112``) and ``ssd_shape`` K7's (default: the SSM
+    slice's prefill)."""
     from repro_torch.kernels import cases as C
     rng = np.random.default_rng(seed)
     errs, counts = {}, {}
@@ -628,17 +647,23 @@ def phase_kernels(device, seed: int = 0, flash_shape=None, ssd_shape=None):
         errs[name] = max(errs.get(name, 0.0),
                          _compare(k_out, p_out, f"{name} {what}"))
         counts[name] = counts.get(name, 0) + 1
-    flash_shape = flash_shape or C.FLASH_SLICE
+    flash_shapes = flash_shapes or (C.FLASH_SLICE, C.FLASH_ZAMBA)
     ssd_shape = ssd_shape or C.SSD_SLICE
     errs["dd_expand"], counts["dd_expand"] = expand_checks(device, rng)
     errs["flash_attention"], counts["flash_attention"] = flash_checks(
-        device, rng, flash_shape)
+        device, rng, flash_shapes)
     errs["ssd_scan"], counts["ssd_scan"] = ssd_checks(device, rng, ssd_shape)
     sync(device)
     timer = Timer(device)
     timings = kernel_timings(device, rng, timer)
     timings["dd_expand"] = expand_timing(device, rng, timer)
-    timings["flash_attention"] = flash_timing(device, rng, timer, flash_shape)
+    for name, shape in zip(("flash_attention", "flash_attention_hd112"),
+                           flash_shapes):
+        timings[name] = flash_timing(device, rng, timer, shape)
+    # the hd 112 row: its own shape's error, the case tables' count
+    errs["flash_attention_hd112"] = timings["flash_attention_hd112"][
+        "shape_max_abs_err"]
+    counts["flash_attention_hd112"] = counts["flash_attention"]
     timings["ssd_scan"] = ssd_timing(device, rng, timer, ssd_shape)
     return {name: dict(max_abs_err=errs[name], parity_cases=counts[name],
                        **timings[name]) for name, _, _ in KERNELS}
@@ -853,26 +878,40 @@ def _prompts(rng, cfg, n: int, prompt_lens):
 def _run_counted(device, names, fn):
     """``fn()`` with the launch counters of the kernels ``names`` zeroed
     just before it and read just after it; returns (result, wall s,
-    launches)."""
+    launches, launches on a tensor-core route for the kernels that have
+    one)."""
     routes = _serve_routes()
     wrappers = {n: getattr(routes[n][0], routes[n][1]) for n in names}
+    tensor_core = {n: w for n, w in wrappers.items()
+                   if hasattr(w, "launches_tc")}
     for w in wrappers.values():
         w.launches = 0
+    for w in tensor_core.values():
+        w.launches_tc = 0
     sync(device)
     t0 = time.perf_counter()
     out = fn()
     sync(device)
     wall = time.perf_counter() - t0
-    return out, wall, {n: w.launches for n, w in wrappers.items()}
+    return (out, wall, {n: w.launches for n, w in wrappers.items()},
+            {n: w.launches_tc for n, w in tensor_core.items()})
 
 
-def _check_launches(device, expect, launches, waves: int) -> None:
+def _check_launches(device, cfg, expect, launches, launches_tc,
+                    waves: int) -> None:
+    """Each kernel launched ``expect`` times per prefill wave; in bfloat16
+    compute, every launch of a kernel with a tensor-core route on it."""
     if device.type != "cuda":
         return
     for name, per_wave in expect.items():
         check(launches[name] == per_wave * waves,
               f"{name} launched {launches[name]} times for {waves} "
               f"prefill waves, not {per_wave} per wave")
+    if cfg.compute_dtype == "bfloat16":
+        for name, n in launches_tc.items():
+            check(n == launches[name],
+                  f"{name}: {n} of {launches[name]} bfloat16 launches on "
+                  f"the tensor-core route")
 
 
 def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
@@ -903,7 +942,7 @@ def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
         cluster.submit(reqs)
         return cluster.run_until_drained()
 
-    done, wall, launches = _run_counted(device, expect, serve)
+    done, wall, launches, launches_tc = _run_counted(device, expect, serve)
     clock.restore()
 
     st = master.stats()
@@ -915,7 +954,8 @@ def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
           f"master completed {st['completed']}")
     check(st["stolen"] > 0, "the master never stole")
     prefill_ms, decode_ms = clock.prefill_ms, clock.decode_ms
-    _check_launches(device, expect, launches, len(prefill_ms))
+    _check_launches(device, cfg, expect, launches, launches_tc,
+                    len(prefill_ms))
 
     tokens0, logits0 = clock.first
     first_wave = first_wave_check(cfg, params, tokens0, logits0, expect)
@@ -933,7 +973,8 @@ def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
         "prompt_tokens": sum(map(len, prompts)),
         "first_wave_shape": list(tokens0.shape), **first_wave,
         "stolen": st["stolen"], "rounds": st["rounds"],
-        "completed": st["completed"], "launches": launches}
+        "completed": st["completed"], "launches": launches,
+        "launches_tensor_core": launches_tc}
 
 
 def phase_wave(device, *, cfg, n_prompts: int, prompt_lens, max_new: int,
@@ -951,14 +992,15 @@ def phase_wave(device, *, cfg, n_prompts: int, prompt_lens, max_new: int,
                        prompt_lens)
     wave = [Request(prompt=p, max_new=max_new) for p in prompts]
     replica = Replica(model, params, wave_size=n_prompts, max_seq=max_seq)
-    done, wall, launches = _run_counted(device, expect,
-                                        lambda: replica.run_wave(wave))
+    done, wall, launches, launches_tc = _run_counted(
+        device, expect, lambda: replica.run_wave(wave))
     clock.restore()
 
     check(len(done) == n_prompts and all(len(r.output) == max_new
                                          for r in done),
           f"a request got fewer than {max_new} tokens")
-    _check_launches(device, expect, launches, len(clock.prefill_ms))
+    _check_launches(device, cfg, expect, launches, launches_tc,
+                    len(clock.prefill_ms))
     tokens0, logits0 = clock.first
     first_wave = first_wave_check(cfg, params, tokens0, logits0, expect)
     tokens = sum(len(r.output) for r in done)
@@ -972,7 +1014,7 @@ def phase_wave(device, *, cfg, n_prompts: int, prompt_lens, max_new: int,
         "decode_ms_per_token": decode_total / tokens,
         "prompt_tokens": sum(map(len, prompts)),
         "first_wave_shape": list(tokens0.shape), **first_wave,
-        "launches": launches}
+        "launches": launches, "launches_tensor_core": launches_tc}
 
 
 def first_wave_check(cfg, params, tokens, logits_kernel, names):
@@ -1070,6 +1112,8 @@ def main() -> int:
     launches = {**solver["launches"],
                 "flash_attention": serving["serve"]["launches"][
                     "flash_attention"],
+                "flash_attention_hd112": serving["wave_hybrid"]["launches"][
+                    "flash_attention"],
                 "ssd_scan": serving["serve_ssm"]["launches"]["ssd_scan"]}
     for name in (n for n, _, _ in KERNELS):
         check(launches[name] > 0, f"{name} never launched on its path")
@@ -1083,7 +1127,8 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "parity_cases": k["parity_cases"], "timed_at": k["timed_at"],
-            "device_time_clean": k["device_time_clean"]})
+            "device_time_clean": k["device_time_clean"],
+            **({"earlier_ms": k["earlier_ms"]} if "earlier_ms" in k else {})})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

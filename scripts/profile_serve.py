@@ -87,9 +87,13 @@ def main() -> int:
     for part, prof in profs.items():
         busy_us, window_us, by_name = device_summary(prof)
         launches = sum(v[0] for v in by_name.values())
-        ours = {name: [v for k, v in by_name.items() if kernel in k]
-                for name, kernel in (("flash_attention", "flash_kernel"),
-                                     ("ssd_scan", "ssd_kernel"))}
+        # K6's tensor-core (bf16) and SIMT (float32) kernels, and K7
+        ours = {name: [v for k, v in by_name.items()
+                       if any(kernel in k for kernel in kernels)]
+                for name, kernels in (
+                    ("flash_attention", ("flash_wgmma_kernel",
+                                         "flash_kernel")),
+                    ("ssd_scan", ("ssd_kernel",)))}
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         steps = STEPS if part == "decode" else 1
         print(json.dumps({

@@ -5,14 +5,18 @@ spills per kernel instance, as ``nvcc -Xptxas -v`` reports them.
 Compiles every source of the port's kernel library
 (``repro_torch.kernels._lib.SOURCES``) with the library's own flags plus
 ``-Xptxas -v`` into a scratch directory, all sources at once, and prints
-ptxas's lines for each (demangled kernel names).  Needs ``nvcc``; builds
-nothing that the library uses.
+ptxas's lines for each (demangled kernel names), then the dynamic shared
+memory the tensor-core flash attention kernel (K6's bfloat16 route) asks
+for at each head dim, which ptxas does not see.  Needs ``nvcc``; the
+listing builds nothing that the library uses, the last part loads the
+library (building it at first use).
 
     python3 scripts/ptxas_report.py
 """
 
 from __future__ import annotations
 
+import ctypes
 import subprocess
 import sys
 import tempfile
@@ -43,7 +47,14 @@ def main() -> int:
             print(demangle.stdout if demangle.returncode == 0
                   else "\n".join(lines))
             failed |= proc.returncode != 0
-    return 1 if failed else 0
+    if failed:
+        return 1
+    from repro_torch.kernels.flash_attention.ops import HEAD_DIMS
+    smem = _lib.library().fa_flash_attention_wgmma_smem
+    smem.argtypes, smem.restype = (ctypes.c_int,), ctypes.c_int
+    print("== flash_wgmma_kernel dynamic shared memory (bytes) by head dim")
+    print({hd: smem(hd) for hd in HEAD_DIMS})
+    return 0
 
 
 if __name__ == "__main__":

@@ -1,5 +1,6 @@
 """Build and load the hand-written CUDA kernels (the ring kernels K1-K4,
-DD layer expansion K5, flash attention K6 and the SSD scan K7).
+DD layer expansion K5, flash attention K6 — the tensor-core kernel for
+bfloat16 and the SIMT kernel for float32 — and the SSD scan K7).
 
 The ``*.cu`` sources beside the kernel packages have a plain C interface.
 At first use, :func:`library` compiles each source with ``nvcc`` for
@@ -37,10 +38,11 @@ SOURCES = (
     _HERE / "queue_push" / "ring_push.cu",
     _HERE / "queue_transfer" / "ring_transfer.cu",
     _HERE / "flash_attention" / "flash_attention.cu",
+    _HERE / "flash_attention" / "flash_attention_wgmma.cu",
     _HERE / "ssd_scan" / "ssd_scan.cu",
     _HERE / "dd_expand" / "expand.cu",
 )
-HEADERS = (_HERE / "ring_rows.cuh",)
+HEADERS = (_HERE / "ring_rows.cuh", _HERE / "flash_attention" / "hopper.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -53,6 +55,8 @@ _SIGNATURES = {
     "rk_ring_transfer": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I, _P),
     "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                            _I, _I, _I, _I, _F, _P),
+    "fa_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
+                                 _I, _I, _I, _I, _F, _P),
     "ss_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _P),
     "dd_expand": (_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _P),

@@ -8,7 +8,10 @@ package's own tables (``tests/test_kernels.py``); the scatter and slice
 tables cover the same ground for K2 and K3: wrapped rings, empty and full
 moves, int32 and bfloat16 payloads.  ``FLASH_EXTRA_CASES`` adds what the
 serving path and the card need beyond them: causal ``S > T`` (rows that
-see no key), windows, head dims 112 and 256 and GQA in bfloat16.
+see no key), windows, head dims 112 and 256 and GQA in bfloat16, and
+bfloat16 rows for every route of the tensor-core kernel (head dim 128
+without the causal mask, ragged ``S = T = 100`` with a softcap, GQA groups
+of 8).
 ``EXPAND_CASES`` and ``SSD_CASES`` are the JAX package's tables for K5
 and K7; ``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S <
 Q``), bfloat16 and the SSM archs' widths.  Payload dtypes are names, so
@@ -21,7 +24,8 @@ import numpy as np
 import torch
 
 __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
-           "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_TOL",
+           "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_ZAMBA",
+           "FLASH_TOL",
            "EXPAND_CASES", "EXPAND_SOLVER", "expand_inputs",
            "SSD_CASES", "SSD_EXTRA_CASES", "SSD_SLICE", "SSD_TOL",
            "ssd_inputs", "payload", "to_tensor"]
@@ -85,11 +89,16 @@ FLASH_EXTRA_CASES = [
     (2, 256, 256, 8, 2, 256, True, None, None, "bfloat16"),   # hd 256, GQA
     (1, 128, 128, 4, 4, 112, True, 32, 30.0, "float32"),     # hd 112
     (2, 256, 256, 4, 4, 112, True, None, None, "bfloat16"),   # zamba2's hd
+    (2, 256, 256, 4, 2, 128, False, None, None, "bfloat16"),  # hd 128, full
+    (2, 100, 100, 4, 2, 64, True, None, 30.0, "bfloat16"),    # ragged, cap
+    (1, 256, 256, 16, 2, 64, True, None, None, "bfloat16"),   # GQA group 8
 ]
 
 # Prefill attention of the serving slice: a wave of 4 prompts of 1,024
 # tokens through one layer of llama3.2-1b (32 heads over 8 KV heads of 64).
 FLASH_SLICE = (4, 1024, 1024, 32, 8, 64, True, None, None, "bfloat16")
+# The same wave through zamba2-7b's shared attention (32 heads of 112, MHA).
+FLASH_ZAMBA = (4, 1024, 1024, 32, 32, 112, True, None, None, "bfloat16")
 
 # The JAX package's tolerances for the flash kernel (tests/test_kernels.py).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -28,9 +28,13 @@
 //
 // Bound: the two products, 4 * hd flops per visible (q, k) pair, over the
 // card's dense bf16 tensor-core peak, or the bytes of q, k, v and o over
-// 3.35 TB/s, whichever is larger.  This first version multiplies on the
-// FP32 cores from shared memory (no wgmma, no TMA), so it runs well above
-// that bound; the tensor-core version is later work.
+// 3.35 TB/s, whichever is larger.  This kernel multiplies on the FP32 cores
+// from shared memory (no wgmma, no TMA), so it runs well above that bound.
+// It serves ops.mha's float32 route: on tensor cores float32 means TF32,
+// about three decimal digits, too coarse for the 2e-5 float32 tolerance.
+// bfloat16 goes to the tensor-core kernel (flash_attention_wgmma.cu); this
+// kernel's bfloat16 instances stay reachable through fa_flash_attention
+// (ops.mha_simt) so that the earlier design can be timed beside it.
 
 #include <cstdint>
 #include <cuda_bf16.h>

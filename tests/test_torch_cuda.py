@@ -25,7 +25,8 @@ from repro_torch.core.dd.knapsack import random_instance
 from repro_torch.core.dd.parallel import parallel_solve
 from repro_torch.kernels import cases as C
 from repro_torch.kernels.dd_expand.ops import expand_pool
-from repro_torch.kernels.flash_attention.ops import mha
+from repro_torch.kernels.flash_attention.ops import mha, mha_simt
+from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
 from repro_torch.kernels.queue_steal.ops import steal_gather
 from repro_torch.kernels.queue_transfer.ops import transfer_splice
@@ -136,15 +137,38 @@ def test_solver_on_the_card_matches_the_cpu():
 @pytest.mark.cuda
 def test_flash_attention_kernel_matches_plain_version():
     """K6 within the JAX package's tolerances (2e-5 float32, 2e-2 bfloat16)
-    on the case tables and at the serving slice's prefill shape, launching
-    once per call."""
+    on the case tables and at the serving slice's and zamba2-7b's prefill
+    shapes, launching once per call: bfloat16 on the tensor-core route,
+    float32 on the SIMT kernel."""
     dev = _cuda()
-    before = mha.launches
+    shapes = (C.FLASH_SLICE, C.FLASH_ZAMBA)
+    before, before_tc = mha.launches, mha.launches_tc
     err, n = _chip_smoke().flash_checks(dev, np.random.default_rng(0),
-                                        C.FLASH_SLICE)
+                                        shapes)
     torch.cuda.synchronize()
+    bf16 = sum(c[-1] == "bfloat16" for c in
+               C.FLASH_CASES + C.FLASH_EXTRA_CASES + list(shapes))
     assert mha.launches - before == n
+    assert mha.launches_tc - before_tc == bf16 < n
     assert err < C.FLASH_TOL["bfloat16"]
+
+
+@pytest.mark.cuda
+def test_simt_flash_kernel_in_bfloat16_matches_plain_version():
+    """The earlier bf16 design, kept for timing beside the tensor-core
+    kernel, still holds its tolerance and stays off ``mha``'s counters."""
+    dev = _cuda()
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    before = (mha.launches, mha.launches_tc)
+    for case in C.FLASH_CASES + C.FLASH_EXTRA_CASES:
+        if case[-1] != "bfloat16":
+            continue
+        q, k, v = smoke._flash_inputs(dev, rng, case)
+        kw = dict(causal=case[6], window=case[7], softcap=case[8])
+        smoke._close(mha_simt(q, k, v, **kw), attention_ref(q, k, v, **kw),
+                     C.FLASH_TOL["bfloat16"], f"SIMT kernel {case}")
+    assert (mha.launches, mha.launches_tc) == before
 
 
 @pytest.mark.cuda
@@ -191,6 +215,13 @@ def test_kernels_refuse_what_they_do_not_take():
             chunk=4)
     q = torch.zeros((1, 8, 2, 48), device=dev)
     with pytest.raises(ValueError, match="head dim"):
+        mha(q, q, q)
+    q = torch.zeros((1, 8, 2, 64), device=dev, dtype=torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        mha(q, q, q)
+    flat = torch.zeros(8 * 2 * 64 + 1, device=dev, dtype=torch.bfloat16)
+    q = flat[1:].view(1, 8, 2, 64)  # 2 bytes past a 16-byte boundary
+    with pytest.raises(ValueError, match="16-byte aligned"):
         mha(q, q, q)
 
 

@@ -17,8 +17,9 @@ from repro.core.policy import StealPolicy as JaxPolicy
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 # K6 and K7 timed at CPU-sized shapes (the card times the serving
-# slices').
+# slices' and, for K6, zamba2-7b's head dim 112).
 FLASH_SMALL = (2, 128, 128, 4, 2, 32, True, None, None, "bfloat16")
+FLASH_SMALL_112 = (2, 128, 128, 4, 4, 112, True, None, None, "bfloat16")
 SSD_SMALL = (2, 100, 4, 16, 32, 32, "bfloat16")
 
 
@@ -32,8 +33,8 @@ def _chip_smoke():
 
 def test_kernel_phase_checks_every_kernel():
     smoke = _chip_smoke()
-    out = smoke.phase_kernels(CPU, flash_shape=FLASH_SMALL,
-                              ssd_shape=SSD_SMALL)
+    out = smoke.phase_kernels(
+        CPU, flash_shapes=(FLASH_SMALL, FLASH_SMALL_112), ssd_shape=SSD_SMALL)
     assert set(out) == {name for name, _, _ in smoke.KERNELS}
     for name, row in out.items():
         assert row["max_abs_err"] == 0.0 and row["parity_cases"] >= 9, name
@@ -43,8 +44,10 @@ def test_kernel_phase_checks_every_kernel():
             assert row["library_ms"] is None, name
         else:
             assert row["library_ms"] > 0, name
-    assert out["flash_attention"]["parity_cases"] == 13
-    assert out["flash_attention"]["bound_by"] == "bytes"  # at this tiny size
+    for name in ("flash_attention", "flash_attention_hd112"):
+        assert out[name]["parity_cases"] == 17
+        assert out[name]["bound_by"] == "bytes"  # at this tiny size
+        assert out[name]["earlier_ms"] > 0
     assert out["dd_expand"]["parity_cases"] == 12
     assert out["ssd_scan"]["parity_cases"] == 12
 

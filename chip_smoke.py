@@ -12,9 +12,12 @@ check that does not hold:
 1. Build and kernel parity.  Builds the CUDA kernels from the checkout's
    sources (``repro_torch.kernels._lib``).  Holds each ring kernel (K1-K4)
    against its plain PyTorch version bit for bit — on the kernel case
-   tables and at the solver's geometry (64 lanes, 16,384-row rings,
-   max_steal 8,192, 128-row pushes, 8-row pops) in float32, int32 and
-   bfloat16 — and DD layer expansion (K5) bit for bit on its case table
+   tables, on K1 and K4's byte path (rows of 4, 12, 20 and 6 bytes at
+   every offset mod 16, bases off a 16-byte boundary, segments that lap
+   the ring) and payload trees (three mixed-dtype leaves in one launch,
+   twelve in two), and at the solver's geometry (64 lanes, 16,384-row
+   rings, max_steal 8,192, 128-row pushes, 8-row pops) in float32, int32
+   and bfloat16 — and DD layer expansion (K5) bit for bit on its case table
    and at the solver's pools (512 x 16 nodes).  Holds flash attention
    (K6: bfloat16 through the tensor-core kernel, float32 through the SIMT
    kernel) within the JAX package's tolerances (2e-5 float32, 2e-2
@@ -27,7 +30,9 @@ check that does not hold:
    128, chunk 256) in bfloat16 and float32.  Times kernel, plain version
    and a library yardstick (``index_select`` / ``index_copy_``; SDPA for
    K6; none for K5 and K7) with CUDA events; K6 at both of its shapes,
-   beside the SIMT kernel's bfloat16 time (its earlier design).
+   beside the SIMT kernel's bfloat16 time (its earlier design); K1 and K4
+   also as the solver calls them, on its three-leaf payload
+   (``solver_payload``).
 2. The queue at the paper's backlog.  64 lanes of 16,384 rows, half of
    them holding 10,000 seeded unique items; 8 rebalancing supersteps on the
    kernel backend under the compact and the dense exchange and on the
@@ -252,32 +257,134 @@ def _compare(kernel_out, plain_out, what: str) -> float:
     return err
 
 
+def _vec(device, x):
+    import torch
+    return torch.tensor(np.asarray(x, np.int32).reshape(-1), device=device)
+
+
+def _at_offset(t, offset: int):
+    """A contiguous copy of ``t`` that starts ``offset`` elements into its
+    storage, so its base can sit off a 16-byte boundary."""
+    import torch
+    flat = torch.empty(offset + t.numel(), dtype=t.dtype, device=t.device)
+    return flat[offset:].view(t.shape).copy_(t)
+
+
+def _ring(device, rng, lanes, rows, d, dtype, offset: int = 0):
+    """A seeded ``(lanes, rows, d)`` payload, ``offset`` elements into its
+    storage."""
+    from repro_torch.kernels import cases as C
+    t = C.to_tensor(C.payload(rng, (lanes, rows, d), dtype), dtype, device)
+    return _at_offset(t, offset) if offset else t
+
+
+def _gather_case(device, rng, lanes, cap, d, m, lo, n, dtype, what,
+                 offset=0):
+    from repro_torch.kernels.queue_steal.ops import ring_gather
+    from repro_torch.kernels.queue_steal.ref import ring_gather_ref
+    buf = _ring(device, rng, lanes, cap, d, dtype, offset)
+    lo, n = _vec(device, lo), _vec(device, n)
+    return ("ring_gather", what, ring_gather(buf, lo, n, m),
+            ring_gather_ref(buf, lo, n, m))
+
+
+def _transfer_case(device, rng, lanes, cap, d, src_rows, m, head, src, n,
+                   dtype, what, offsets=(0, 0)):
+    """K4 from a flat ``(src_rows, d)`` stack (``W * m`` rows for a
+    stack of windows)."""
+    from repro_torch.kernels.queue_transfer.ops import ring_transfer
+    from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
+    buf = _ring(device, rng, lanes, cap, d, dtype, offsets[0])
+    gathered = _ring(device, rng, 1, src_rows, d, dtype, offsets[1])[0]
+    head, src, n = _vec(device, head), _vec(device, src), _vec(device, n)
+    plain = ring_transfer_ref(buf, gathered, head, src.long() * m,
+                              n.clamp(0, min(m, cap)))
+    return ("ring_transfer", what,
+            ring_transfer(_at_offset(buf, offsets[0]), gathered, head, src, n,
+                          m), plain)
+
+
+def byte_cases(device, rng):
+    """K1 and K4 on their byte path: the byte case tables, bases off a
+    16-byte boundary, and a stack whose last window is short (rows past
+    it repeat its last row)."""
+    from repro_torch.kernels import cases as C
+    for cap, d, m, lo, n, dt in C.STEAL_BYTE_CASES:
+        yield _gather_case(device, rng, len(lo), cap, d, m, lo, n, dt,
+                           f"bytes {cap},{d},{m},{dt}")
+    for cap, d, w, m, head, src, n, dt in C.TRANSFER_BYTE_CASES:
+        yield _transfer_case(device, rng, len(head), cap, d, w * m, m, head,
+                             src, n, dt, f"bytes {cap},{d},{w},{m},{dt}")
+    for dt, d, off in (("int32", 1, 1), ("int32", 3, 3), ("bfloat16", 3, 1),
+                       ("bfloat16", 1, 5)):
+        lo = rng.integers(-100, 100, 4)
+        yield _gather_case(device, rng, 4, 100, d, 70, lo,
+                           rng.integers(0, 71, 4), dt,
+                           f"base +{off} elements {d},{dt}", off)
+        yield _transfer_case(device, rng, 4, 100, d, 3 * 70, 70, lo,
+                             rng.permutation(4) % 3, rng.integers(0, 71, 4),
+                             dt, f"bases +{off}/+{off + 2} elements {d},{dt}",
+                             (off, off + 2))
+    yield _transfer_case(device, rng, 3, 64, 3, 40, 16, (60, 5, 9), (2, 1, 3),
+                         (16, 16, 5), "int32", "short last window")
+
+
+def tree_cases(device, rng, leaves):
+    """K1 and K4 on one payload tree at ``cases.TREE_CASE``'s geometry,
+    through the tree wrappers (one launch per eight leaves): yields
+    ``(kernel name, what, kernel_out, plain_out)`` per leaf."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.queue_steal.ops import steal_gather
+    from repro_torch.kernels.queue_steal.ref import ring_gather_ref
+    from repro_torch.kernels.queue_transfer.ops import transfer_splice
+    from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
+
+    cap, m, w, start, n, src = C.TREE_CASE
+    lanes = len(start)
+
+    def tree(lead):
+        return {k: C.to_tensor(a, leaves[k][1], device)
+                for k, a in C.tree_payload(rng, lead, leaves).items()}
+
+    rings, stacks = tree((lanes, cap)), tree((w, m))
+    start, n, src = _vec(device, start), _vec(device, n), _vec(device, src)
+    what = f"tree of {len(leaves)} leaves"
+    got = steal_gather(rings, start, n, max_steal=m)
+    for k, ring in rings.items():
+        yield ("ring_gather", f"{what}: {k}", got[k],
+               ring_gather_ref(ring, start, n, m))
+    spliced = transfer_splice({k: v.clone() for k, v in rings.items()},
+                              stacks, start, src, n, max_steal=m)
+    for k, ring in rings.items():
+        flat = stacks[k].reshape((w * m,) + tuple(stacks[k].shape[2:]))
+        yield ("ring_transfer", f"{what}: {k}", spliced[k],
+               ring_transfer_ref(ring, flat, start, src.long() * m,
+                                 n.clamp(0, min(m, cap))))
+
+
+def many_leaves():
+    """Twelve leaves (``cases.TREE_LEAVES`` four times): two launches."""
+    from repro_torch.kernels import cases as C
+    return {f"{k}{i}": v for i in range(4) for k, v in C.TREE_LEAVES.items()}
+
+
 def kernel_cases(device, rng):
     """Yield ``(kernel name, what, kernel_out, plain_out)`` over the case
-    tables and the solver's geometry in float32, int32 and bfloat16."""
-    import torch
+    tables, K1 and K4's byte path and payload trees, and the solver's
+    geometry in float32, int32 and bfloat16."""
     from repro_torch.kernels import cases as C
     from repro_torch.kernels.queue_push.ops import ring_scatter, ring_slice
     from repro_torch.kernels.queue_push.ref import (ring_scatter_ref,
                                                     ring_slice_ref)
-    from repro_torch.kernels.queue_steal.ops import ring_gather
-    from repro_torch.kernels.queue_steal.ref import ring_gather_ref
-    from repro_torch.kernels.queue_transfer.ops import ring_transfer
-    from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 
     def vec(x):
-        return torch.tensor(np.asarray(x, np.int32).reshape(-1),
-                            device=device)
+        return _vec(device, x)
 
     def ring(lanes, cap, d, dtype):
-        return C.to_tensor(C.payload(rng, (lanes, cap, d), dtype), dtype,
-                           device)
+        return _ring(device, rng, lanes, cap, d, dtype)
 
     def gather(lanes, cap, d, m, lo, n, dtype, what):
-        buf = ring(lanes, cap, d, dtype)
-        lo, n = vec(lo), vec(n)
-        return ("ring_gather", what, ring_gather(buf, lo, n, m),
-                ring_gather_ref(buf, lo, n, m))
+        return _gather_case(device, rng, lanes, cap, d, m, lo, n, dtype, what)
 
     def scatter(lanes, cap, d, b, start, n, dtype, what):
         buf = ring(lanes, cap, d, dtype)
@@ -295,13 +402,8 @@ def kernel_cases(device, rng):
                 ring_slice_ref(buf, lo, size, n, m))
 
     def transfer(lanes, cap, d, w, m, head, src, n, dtype, what):
-        buf = ring(lanes, cap, d, dtype)
-        gathered = ring(w, m, d, dtype).reshape(w * m, d)
-        head, src, n = vec(head), vec(src), vec(n)
-        return ("ring_transfer", what,
-                ring_transfer(buf.clone(), gathered, head, src, n, m),
-                ring_transfer_ref(buf, gathered, head, src.long() * m,
-                                  n.clamp(0, min(m, cap))))
+        return _transfer_case(device, rng, lanes, cap, d, w * m, m, head,
+                              src, n, dtype, what)
 
     for cap, d, m, lo, n, dt in C.STEAL_CASES:
         yield gather(1, cap, d, m, lo, n, dt, f"table {cap},{d},{m},{dt}")
@@ -313,6 +415,9 @@ def kernel_cases(device, rng):
     for cap, d, w, m, head, src, n, dt in C.TRANSFER_CASES:
         yield transfer(1, cap, d, w, m, head, src, n, dt,
                        f"table {cap},{d},{w},{m},{dt}")
+    yield from byte_cases(device, rng)
+    yield from tree_cases(device, rng, C.TREE_LEAVES)
+    yield from tree_cases(device, rng, many_leaves())
     for dt in ("float32", "int32", "bfloat16"):
         lo = rng.integers(0, CAP, LANES)
         size = rng.integers(0, CAP + 1, LANES)
@@ -422,6 +527,73 @@ def kernel_timings(device, rng, timer):
         out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
                          bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
                          bound_by="bytes", bound_bytes=nbytes, timed_at=what,
+                         device_time_clean=clean and plain_clean)
+    return out
+
+
+def solver_payload_timings(device, rng, timer):
+    """K1 and K4 as the solver calls them, on its payload tree of three
+    int32 leaves (layer, state, value) of 64 x 16,384-row rings: K1 reads
+    the compact exchange's window (n = max_steal on every lane), K4
+    splices a superstep's mean transfer, 15 rows into each of 11 of the 64
+    lanes (phase 3 moves 6,850 rows in 472 steals over 44 supersteps).
+    One call of the tree wrapper each, checked bit for bit against the
+    plain versions leaf by leaf; ``launches_per_call`` counts the
+    wrapper's launches in one call.  No single PyTorch call moves a
+    tree."""
+    import torch
+    from repro_torch.kernels.queue_steal.ops import steal_gather
+    from repro_torch.kernels.queue_steal.ref import ring_gather_ref
+    from repro_torch.kernels.queue_transfer.ops import transfer_splice
+    from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
+
+    thieves, rows = 11, 15
+
+    def leaves(shape):
+        return {k: torch.tensor(rng.integers(0, 2 ** 30, shape),
+                                dtype=torch.int32, device=device)
+                for k in ("layer", "state", "value")}
+
+    rings, stacks = leaves((LANES, CAP)), leaves((LANES, MAX_STEAL))
+    lo = _vec(device, rng.integers(0, CAP, LANES))
+    full = _vec(device, np.full(LANES, MAX_STEAL))
+    n = np.zeros(LANES, np.int32)
+    n[rng.choice(LANES, thieves, replace=False)] = rows
+    n = _vec(device, n)
+    src = _vec(device, rng.permutation(LANES))
+    cursor = 4 * LANES
+    specs = {
+        "ring_gather": (
+            lambda t: steal_gather(t, lo, full, max_steal=MAX_STEAL),
+            lambda t: {k: ring_gather_ref(v, lo, full, MAX_STEAL)
+                       for k, v in t.items()},
+            3 * (2 * LANES * MAX_STEAL * 4) + 2 * cursor,
+            "the solver's 3 int32 leaves, window at lo, n = max_steal on "
+            "every lane"),
+        "ring_transfer": (
+            lambda t: transfer_splice(t, stacks, lo, src, n,
+                                      max_steal=MAX_STEAL),
+            lambda t: {k: ring_transfer_ref(v, stacks[k].view(-1), lo,
+                                            src.long() * MAX_STEAL, n)
+                       for k, v in t.items()},
+            3 * (2 * thieves * rows * 4) + 3 * cursor,
+            f"the solver's 3 int32 leaves, {rows} rows into {thieves} of "
+            f"{LANES} lanes"),
+    }
+    counters = {"ring_gather": steal_gather, "ring_transfer": transfer_splice}
+    out = {}
+    for name, (kern, plain, nbytes, what) in specs.items():
+        before = counters[name].launches
+        got = kern({k: v.clone() for k, v in rings.items()})
+        per_call = counters[name].launches - before
+        for k, want in plain(rings).items():
+            _compare(got[k], want, f"{name} {what}: {k}")
+        ms, clean = timer.ms(lambda: kern(rings))
+        plain_ms, plain_clean = timer.ms(lambda: plain(rings), n=20)
+        out[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                         bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
+                         bound_by="bytes", bound_bytes=nbytes, timed_at=what,
+                         launches_per_call=per_call,
                          device_time_clean=clean and plain_clean)
     return out
 
@@ -656,6 +828,8 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None, ssd_shape=None):
     sync(device)
     timer = Timer(device)
     timings = kernel_timings(device, rng, timer)
+    for name, row in solver_payload_timings(device, rng, timer).items():
+        timings[name]["solver_payload"] = row
     timings["dd_expand"] = expand_timing(device, rng, timer)
     for name, shape in zip(("flash_attention", "flash_attention_hd112"),
                            flash_shapes):
@@ -1128,7 +1302,8 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "parity_cases": k["parity_cases"], "timed_at": k["timed_at"],
             "device_time_clean": k["device_time_clean"],
-            **({"earlier_ms": k["earlier_ms"]} if "earlier_ms" in k else {})})
+            **{key: k[key] for key in ("earlier_ms", "solver_payload")
+               if key in k}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -29,7 +29,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "launch", "row_bytes", "word_bytes", "check_cuda",
-           "lane_vec", "BUILD_DIR", "SOURCES"]
+           "lane_vec", "ring_trees", "RingTree", "MAX_LEAVES", "BUILD_DIR",
+           "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
@@ -42,17 +43,33 @@ SOURCES = (
     _HERE / "ssd_scan" / "ssd_scan.cu",
     _HERE / "dd_expand" / "expand.cu",
 )
-HEADERS = (_HERE / "ring_rows.cuh", _HERE / "flash_attention" / "hopper.cuh")
+HEADERS = (_HERE / "ring_rows.cuh", _HERE / "ring_copy.cuh",
+           _HERE / "flash_attention" / "hopper.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
+
+MAX_LEAVES = 8  # payload leaves per launch of K1 / K4 (ring_copy.cuh)
+
+
+class RingLeaf(ctypes.Structure):
+    """``ringcopy::RingLeaf``: one payload leaf of a K1 / K4 launch."""
+    _fields_ = [("src", _P), ("dst", _P), ("row_bytes", _I)]
+
+
+class RingTree(ctypes.Structure):
+    """``ringcopy::RingTree``, passed by value: up to ``MAX_LEAVES``
+    leaves, so a launch needs no device array of pointers."""
+    _fields_ = [("leaf", RingLeaf * MAX_LEAVES), ("count", _I)]
+
+
 _SIGNATURES = {
     # name: argument types after the C prototypes in the .cu sources
-    "rk_ring_gather": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
+    "rk_ring_gather": (RingTree, _P, _P, _I, _I, _I, _P),
     "rk_ring_scatter": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
     "rk_ring_slice": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
-    "rk_ring_transfer": (_P, _P, _P, _P, _P, _I, _I, _L, _I, _L, _I, _P),
+    "rk_ring_transfer": (RingTree, _P, _P, _P, _I, _I, _I, _I, _P),
     "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                            _I, _I, _I, _I, _F, _P),
     "fa_flash_attention_wgmma": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F,
@@ -161,6 +178,30 @@ def word_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
         if row_bytes % w == 0 and all(t.data_ptr() % w == 0 for t in tensors):
             return w
     return 1
+
+
+def ring_trees(pairs, rows: int):
+    """The ``(src, dst)`` leaf pairs of a K1 / K4 launch as :class:`RingTree`
+    descriptors of at most ``MAX_LEAVES`` leaves each, one launch each;
+    leaves with empty rows are left out.  ``dst`` is ``(lanes, rows, ...)``
+    (K1's blocks, K4's ring) and gives the row width.  ``rows`` is the most
+    rows any lane's ring, block or stack holds: the kernels' byte offsets
+    are int32, so ``rows * row_bytes`` past 32 bits raises
+    ``ValueError``."""
+    leaves = []
+    for src, dst in pairs:
+        rb = row_bytes(dst)
+        if rows * rb >= 2 ** 31:
+            raise ValueError(f"{rows} rows of {rb} bytes do not fit the "
+                             f"kernels' 32-bit byte offsets")
+        if rb:
+            leaves.append(RingLeaf(src.data_ptr(), dst.data_ptr(), rb))
+    for i in range(0, len(leaves), MAX_LEAVES):
+        group = leaves[i:i + MAX_LEAVES]
+        tree = RingTree(count=len(group))
+        for j, leaf in enumerate(group):
+            tree.leaf[j] = leaf
+        yield tree
 
 
 def check_cuda(*tensors: torch.Tensor) -> torch.device:

@@ -6,12 +6,14 @@ tests (plain versions against the JAX package's Pallas kernels) and
 ``STEAL_CASES``, ``TRANSFER_CASES`` and ``FLASH_CASES`` are the JAX
 package's own tables (``tests/test_kernels.py``); the scatter and slice
 tables cover the same ground for K2 and K3: wrapped rings, empty and full
-moves, int32 and bfloat16 payloads.  ``FLASH_EXTRA_CASES`` adds what the
-serving path and the card need beyond them: causal ``S > T`` (rows that
-see no key), windows, head dims 112 and 256 and GQA in bfloat16, and
-bfloat16 rows for every route of the tensor-core kernel (head dim 128
-without the causal mask, ragged ``S = T = 100`` with a softcap, GQA groups
-of 8).
+moves, int32 and bfloat16 payloads.  ``STEAL_BYTE_CASES``,
+``TRANSFER_BYTE_CASES`` and the payload tree ``TREE_LEAVES`` /
+``TREE_CASE`` cover the byte path of K1 and K4 (``ring_copy.cuh``).
+``FLASH_EXTRA_CASES`` adds what the serving path and the card need beyond
+them: causal ``S > T`` (rows that see no key), windows, head dims 112 and
+256 and GQA in bfloat16, and bfloat16 rows for every route of the
+tensor-core kernel (head dim 128 without the causal mask, ragged ``S = T =
+100`` with a softcap, GQA groups of 8).
 ``EXPAND_CASES`` and ``SSD_CASES`` are the JAX package's tables for K5
 and K7; ``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S <
 Q``), bfloat16 and the SSM archs' widths.  Payload dtypes are names, so
@@ -24,6 +26,8 @@ import numpy as np
 import torch
 
 __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
+           "STEAL_BYTE_CASES", "TRANSFER_BYTE_CASES", "TREE_LEAVES",
+           "TREE_CASE", "tree_payload",
            "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_ZAMBA",
            "FLASH_TOL",
            "EXPAND_CASES", "EXPAND_SOLVER", "expand_inputs",
@@ -49,6 +53,44 @@ TRANSFER_CASES = [
     (256, 4, 4, 64, 13, 1, 0, "float32"),       # empty transfer
     (256, 128, 2, 128, 100, 1, 77, "bfloat16"),
 ]
+
+# K1 and K4 on the byte path, several lanes a row: 4-byte rows at every
+# residue mod 4 rows (0, 4, 8 and 12 bytes mod 16), rows of 3 and 5 int32
+# words and 6-byte bfloat16 rows, output blocks whose lanes start off a
+# 16-byte boundary (33 rows of 12 bytes), live counts that end mid-vector,
+# segments that end exactly at cap, n = 0 and n = cap, and for K1
+# max_steal > cap with n > cap (the segment laps the ring) and a negative
+# lo.  (cap, D, max_steal, lo per lane, n per lane, dtype)
+STEAL_BYTE_CASES = [
+    (64, 1, 32, (0, 1, 2, 3), (13, 32, 7, 0), "int32"),
+    (66, 3, 33, (61, 62, 63, 65), (5, 33, 3, 1), "int32"),    # 65 + 1 = cap
+    (64, 5, 64, (1, 30, 59, 34), (63, 34, 5, 64), "int32"),   # ends at cap
+    (64, 3, 64, (5, 6, 7, 8), (64, 0, 61, 1), "bfloat16"),    # n = cap
+    (16, 1, 48, (3, 14, 0, 9), (48, 33, 16, 17), "float32"),  # laps the ring
+    (16, 3, 48, (15, -5, 7, 1), (40, 48, 16, 9), "bfloat16"),
+]
+
+# The same ground for K4, plus n = cap (max_steal = cap) and source rows
+# past the stack (src_row >= W: every row reads the stack's last one).
+# (cap, D, W, max_steal, head per lane, src_row per lane, n per lane, dtype)
+TRANSFER_BYTE_CASES = [
+    (64, 1, 4, 32, (0, 1, 2, 3), (3, 2, 1, 0), (13, 32, 7, 0), "int32"),
+    (64, 3, 4, 32, (61, 62, 63, 60), (0, 1, 2, 3), (5, 32, 3, 4), "int32"),
+    (64, 5, 4, 16, (1, 48, 59, 34), (1, 0, 3, 2), (16, 16, 5, 7), "int32"),
+    (64, 3, 3, 32, (5, 6, 7, 8), (2, 1, 0, 2), (31, 0, 32, 1), "bfloat16"),
+    (32, 3, 2, 32, (5, 6, 7, 31), (1, 0, 1, 0), (32, 0, 17, 32),
+     "bfloat16"),                                             # n = cap
+    (32, 5, 2, 16, (3, 30, 9, 0), (2, 1, 5, 0), (16, 9, 4, 16),
+     "float32"),                                              # past the stack
+]
+
+# A payload tree of mixed dtypes and widths, (trailing shape, dtype) per
+# leaf, moved by one launch of K1 and one of K4.
+TREE_LEAVES = {"id": ((), "int32"), "vec": ((3,), "bfloat16"),
+               "w": ((5,), "float32")}
+# (cap, max_steal, W, lo / head per lane, n per lane, src_row per lane)
+TREE_CASE = (48, 24, 3, (47, 5, 18, 30, 1), (24, 0, 13, 18, 7),
+             (2, 0, 1, 2, 0))
 
 # (cap, D, max_push, start, n, dtype)
 SCATTER_CASES = [
@@ -173,6 +215,14 @@ def payload(rng: np.random.Generator, shape, dtype: str) -> np.ndarray:
     if dtype == "bfloat16":
         return (x.view(np.uint32) >> 16).astype(np.uint16)
     return x
+
+
+def tree_payload(rng: np.random.Generator, lead, leaves=None) -> dict:
+    """Seeded :func:`payload` arrays of a tree: ``lead + trailing shape``
+    per leaf of ``leaves`` (default :data:`TREE_LEAVES`)."""
+    leaves = TREE_LEAVES if leaves is None else leaves
+    return {k: payload(rng, tuple(lead) + shape, dtype)
+            for k, (shape, dtype) in leaves.items()}
 
 
 def to_tensor(a: np.ndarray, dtype: str, device) -> torch.Tensor:

@@ -1,47 +1,71 @@
-// K1 ring_gather: the steal-side ring-segment read, one launch for all lanes.
+// K1 ring_gather: the steal-side ring-segment read, one launch for every
+// lane and up to eight payload leaves.
 //
 // Replaces the TPU kernel repro/kernels/queue_steal/kernel.py::ring_gather.
-// For every lane l: out[l, i] = buf[l, (lo[l] + i) mod cap] for i < n[l],
-// zero for n[l] <= i < max_steal.  Serves steal / steal_exact (masked) and
-// the compact exchange's raw window (n = max_steal).
+// For every lane l and leaf: out[l, i] = buf[l, (lo[l] + i) mod cap] for
+// i < n[l], zero for n[l] <= i < max_steal.  Serves steal / steal_exact
+// (masked) and the compact exchange's raw window (n = max_steal).
 //
-// Design: the Pallas kernel aligned DMA windows to the dynamic cut with
-// scalar prefetch and cut the segment out of two concatenated blocks.  On
-// Hopper each thread reads its lane's cursors from device memory and
-// computes its physical row itself, so no block straddles anything.
+// Bound: the bytes, each live ring row read once and each output row
+// written once (3.35 TB/s), and below that a floor of about 2.5-3 us that
+// every launch pays, however little it moves.  At the solver's shapes
+// (4-byte rows, 64 lanes of at most 8,192 rows) the floor is most of it.
 //
-// Bound: device bytes read plus written over 3.35 TB/s (one read of each
-// live row, one write of each output row, the two cursor vectors).  At the
-// solver's shapes (4-byte rows) the launch latency dominates that bound.
+// Design (ring_copy.cuh): the Pallas kernel aligned DMA windows to the
+// dynamic cut with scalar prefetch and cut the segment out of two
+// concatenated blocks.  Here a CTA takes an 8 KB chunk of one lane's
+// output block, turns lo and n into byte offsets once, and copies the
+// live part as at most two contiguous runs out of the ring (more only
+// when max_steal > cap and the segment laps the ring), 16 bytes a thread,
+// then zero-fills the rest.  All leaves of a payload tree go in one launch.
 
-#include "../ring_rows.cuh"
+#include "../ring_copy.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void ring_gather_kernel(const T* __restrict__ buf,
-                                   const int* __restrict__ lo,
-                                   const int* __restrict__ n,
-                                   T* __restrict__ out, int lanes, int cap,
-                                   int rows, int64_t wpr) {
+__global__ void __launch_bounds__(ringcopy::kThreads)
+    ring_gather_kernel(const __grid_constant__ ringcopy::RingTree tree,
+                       const int* __restrict__ lo, const int* __restrict__ n,
+                       int lanes, int cap, int max_steal) {
+  const ringcopy::RingLeaf leaf = tree.leaf[blockIdx.z];
+  const int rb = leaf.row_bytes;
+  const int block = max_steal * rb;  // bytes of one lane's output block
+  const int c0 = blockIdx.x * ringcopy::kChunk;
+  if (c0 >= block) return;
+  const int c1 = c0 + min(ringcopy::kChunk, block - c0);
+  const int ring_bytes = cap * rb;
   for (int l = blockIdx.y; l < lanes; l += gridDim.y) {
-    ring::gather_rows<T>(buf + (int64_t)l * cap * wpr,
-                         out + (int64_t)l * rows * wpr, lo[l], n[l], cap, rows,
-                         wpr);
+    const uint8_t* ring = leaf.src + (int64_t)l * ring_bytes;
+    uint8_t* out = leaf.dst + (int64_t)l * block;
+    const int live = min(max(n[l], 0), max_steal) * rb;
+    const int end = min(c1, live);
+    int b = c0;
+    if (b < end) {
+      int pos = ringcopy::wrap_add(ringcopy::py_mod(lo[l], cap) * rb, b,
+                                   ring_bytes);
+      while (b < end) {
+        const int run = min(end - b, ring_bytes - pos);
+        ringcopy::copy_bytes(out + b, ring + pos, run);
+        b += run;
+        pos = 0;
+      }
+    }
+    if (b < c1) ringcopy::zero_bytes(out + b, c1 - b);
   }
 }
 
 }  // namespace
 
-extern "C" int rk_ring_gather(const void* buf, const int* lo, const int* n,
-                              void* out, int lanes, int cap, int rows,
-                              int64_t wpr, int word_bytes, void* stream) {
-  const dim3 grid = ring::grid_for((int64_t)rows * wpr, lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RING_DISPATCH_WORD(word_bytes,
-                     ring_gather_kernel<T><<<grid, ring::kThreads, 0, s>>>(
-                         static_cast<const T*>(buf), lo, n,
-                         static_cast<T*>(out), lanes, cap, rows, wpr));
+extern "C" int rk_ring_gather(ringcopy::RingTree tree, const int* lo,
+                              const int* n, int lanes, int cap, int max_steal,
+                              void* stream) {
+  dim3 grid;
+  if (cap < 1 || !ringcopy::grid_for(tree, lanes, max_steal, &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ring_gather_kernel<<<grid, ringcopy::kThreads, 0,
+                       static_cast<cudaStream_t>(stream)>>>(
+      tree, lo, n, lanes, cap, max_steal);
   return (int)cudaGetLastError();
 }
 

@@ -1,12 +1,12 @@
 """Wrapper of K4 ``ring_transfer`` (the compact exchange's thief-side
 cut-and-splice, in place) for payload pytrees on stacked lanes.
 
-Each ring leaf ``(L, cap, ...)`` and its gathered window stack
-``(W, max_steal, ...)`` (read as ``(W * max_steal, ...)``, shared by all
-lanes) are moved by one launch of the CUDA kernel (``ring_transfer.cu``)
-for CUDA tensors, or by the plain version (``ref.ring_transfer_ref``) for
-CPU tensors.  There is no other route: a CUDA tensor the kernel refuses
-raises.
+Every ring leaf ``(L, cap, ...)`` of a CUDA payload tree and its gathered
+window stack ``(W, max_steal, ...)`` (read as ``(W * max_steal, ...)``,
+shared by all lanes) are moved by one launch of the CUDA kernel
+(``ring_transfer.cu``), up to ``_lib.MAX_LEAVES`` leaves per launch; a CPU
+leaf is moved by the plain version (``ref.ring_transfer_ref``).  There is
+no other route: a CUDA tensor the kernel refuses raises.
 """
 
 from __future__ import annotations
@@ -20,47 +20,65 @@ from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 __all__ = ["transfer_splice", "ring_transfer"]
 
 
-def ring_transfer(buf: torch.Tensor, gathered: torch.Tensor,
-                  head: torch.Tensor, src_row: torch.Tensor, n: torch.Tensor,
-                  max_steal: int) -> torch.Tensor:
-    """One leaf, IN PLACE: ``buf[l, (head[l] + i) % cap] =
-    gathered[src_row[l] * max_steal + i]`` for ``i < min(n[l], max_steal,
-    cap)``, with ``gathered`` of shape ``(W * max_steal, ...)``.  Returns
-    ``buf``."""
-    if buf.dtype != gathered.dtype or buf.shape[2:] != gathered.shape[1:]:
-        raise ValueError("gathered rows must match the ring's rows")
-    lanes, cap = buf.shape[:2]
-    if buf.device.type == "cpu":
-        n = n.clamp(0, min(max_steal, cap))
-        src_start = src_row.to(torch.int64) * max_steal
-        return buf.copy_(ring_transfer_ref(buf, gathered, head, src_start, n))
-    head = _lib.lane_vec(head, lanes, "head")
-    src_row = _lib.lane_vec(src_row, lanes, "src_row")
-    n = _lib.lane_vec(n, lanes, "n")
-    dev = _lib.check_cuda(buf, gathered, head, src_row, n)
-    if buf.numel() == 0 or gathered.shape[0] == 0:
-        return buf
-    row_bytes = _lib.row_bytes(buf)
-    word = _lib.word_bytes(row_bytes, buf, gathered)
-    _lib.launch("rk_ring_transfer", buf.data_ptr(), gathered.data_ptr(),
-                head.data_ptr(), src_row.data_ptr(), n.data_ptr(), lanes, cap,
-                gathered.shape[0], max_steal, row_bytes // word, word,
-                device=dev)
-    transfer_splice.launches += 1
-    return buf
-
-
 def transfer_splice(buf_tree, gathered_tree, head: torch.Tensor,
                     src_row: torch.Tensor, n: torch.Tensor, *,
                     max_steal: int):
     """Splice ``gathered_tree[src_row[l], :n[l]]`` at ``head[l]`` of every
     lane's ring, in place; ``gathered_tree`` leaves are ``(W, max_steal,
     ...)`` window stacks.  Returns ``buf_tree``.
-    ``transfer_splice.launches`` counts the CUDA launches."""
-    return tree_map(
-        lambda b, g: ring_transfer(b, g.reshape((-1,) + tuple(g.shape[2:])),
-                                   head, src_row, n, max_steal),
-        buf_tree, gathered_tree)
+    ``transfer_splice.launches`` counts the CUDA launches (one per
+    ``_lib.MAX_LEAVES`` leaves)."""
+    flat = tree_map(lambda g: g.reshape((-1,) + tuple(g.shape[2:])),
+                    gathered_tree)
+    _splice(buf_tree, flat, head, src_row, n, max_steal)
+    return buf_tree
+
+
+def ring_transfer(buf: torch.Tensor, gathered: torch.Tensor,
+                  head: torch.Tensor, src_row: torch.Tensor, n: torch.Tensor,
+                  max_steal: int) -> torch.Tensor:
+    """One leaf, IN PLACE: ``buf[l, (head[l] + i) % cap] =
+    gathered[src_row[l] * max_steal + i]`` for ``i < min(n[l], max_steal,
+    cap)``, with ``gathered`` of shape ``(S, ...)``; a source row past ``S``
+    reads row ``S - 1``.  Returns ``buf``."""
+    _splice(buf, gathered, head, src_row, n, max_steal)
+    return buf
+
+
+def _splice(buf_tree, flat_tree, head, src_row, n, max_steal: int) -> None:
+    pairs = []
+
+    def one(buf, gathered):
+        if buf.dtype != gathered.dtype or buf.shape[2:] != gathered.shape[1:]:
+            raise ValueError("gathered rows must match the ring's rows")
+        if buf.device.type == "cpu":
+            cap = buf.shape[1]
+            live = n.clamp(0, min(max_steal, cap))
+            src_start = src_row.to(torch.int64) * max_steal
+            buf.copy_(ring_transfer_ref(buf, gathered, head, src_start, live))
+        else:
+            pairs.append((gathered, buf))
+
+    tree_map(one, buf_tree, flat_tree)
+    if not pairs:
+        return
+    lanes, cap = pairs[0][1].shape[:2]
+    src_rows = pairs[0][0].shape[0]
+    if any(buf.shape[:2] != (lanes, cap) or g.shape[0] != src_rows
+           for g, buf in pairs):
+        raise ValueError("every leaf must be (lanes, cap, ...) alike, with "
+                         "stacks of as many rows")
+    head = _lib.lane_vec(head, lanes, "head")
+    src_row = _lib.lane_vec(src_row, lanes, "src_row")
+    n = _lib.lane_vec(n, lanes, "n")
+    dev = _lib.check_cuda(head, src_row, n, *(t for p in pairs for t in p))
+    if lanes == 0 or cap == 0 or max_steal == 0 or src_rows == 0:
+        return
+    for tree in _lib.ring_trees(pairs, max(cap, src_rows)):
+        _lib.launch("rk_ring_transfer", tree, head.data_ptr(),
+                    src_row.data_ptr(), n.data_ptr(), lanes, cap, src_rows,
+                    max_steal, device=dev)
+        transfer_splice.launches += 1
 
 
 transfer_splice.launches = 0

@@ -1,68 +1,113 @@
-// K4 ring_transfer: the compact exchange's thief-side cut-and-splice, one
-// launch for all lanes.
+// K4 ring_transfer: the compact exchange's thief-side cut-and-splice, in
+// place, one launch for every lane and up to eight payload leaves.
 //
 // Replaces the TPU kernel repro/kernels/queue_transfer/kernel.py::ring_transfer.
 // In place: buf[l, (head[l] + i) mod cap] = gathered[src_row[l]*max_steal + i]
 // for i < min(n[l], max_steal, cap); every other ring row keeps its
-// contents.  `gathered` is the (W * max_steal)-row stack of every lane's raw
-// window, shared by all thieves, so the selected victim block is never
-// built as a tensor of its own.  A source row past the stack reads its last
-// row, as the plain version does.
+// contents.  `gathered` is the (src_rows)-row stack of every lane's raw
+// window (W * max_steal rows), shared by all thieves, so the selected
+// victim block is never built as a tensor of its own.  A source row past
+// the stack reads its last row, as the plain version does; src_row must be
+// a lane (>= 0): a negative one reads from row 0.
 //
-// Design: the Pallas kernel aligned both the source and the ring DMA
-// windows to their dynamic offsets with scalar prefetch and cut each ring
-// block out of two source blocks.  Here each thread reads its lane's
-// cursors from device memory and computes both its source row and its
-// physical ring row; only the n live rows are read and written.
+// Bound: the bytes, each spliced row read once and written once (3.35
+// TB/s), and below that a floor of about 2.5-3 us that every launch pays.
+// In the solver a superstep splices about 15 rows into each of about 11
+// thieves, so the floor is all of it.
 //
-// Bound: device bytes read plus written over 3.35 TB/s.  At the solver's
-// shapes (4-byte rows, a few rows per thief) the launch latency dominates
-// that bound.
+// Design (ring_copy.cuh): the Pallas kernel aligned both the source and
+// the ring DMA windows to their dynamic offsets with scalar prefetch and
+// cut each ring block out of two source blocks.  Here a CTA takes an 8 KB
+// chunk of one lane's splice, exits after one cursor load if the splice is
+// shorter, and otherwise turns head and src_row into byte offsets once and
+// copies the chunk as at most two contiguous runs into the ring, 16 bytes a
+// thread.  All leaves of a payload tree go in one launch.
 
-#include "../ring_rows.cuh"
+#include "../ring_copy.cuh"
 
 namespace {
 
-template <typename T>
-__global__ void ring_transfer_kernel(T* __restrict__ buf,
-                                     const T* __restrict__ gathered,
-                                     const int* __restrict__ head,
-                                     const int* __restrict__ src_row,
-                                     const int* __restrict__ n, int lanes,
-                                     int cap, int64_t src_rows, int max_steal,
-                                     int64_t wpr) {
+// Write `len` bytes from `src` into the circular `ring` at `pos`; returns
+// the position after them.
+__device__ __forceinline__ int put(uint8_t* __restrict__ ring, int ring_bytes,
+                                   int pos, const uint8_t* __restrict__ src,
+                                   int len) {
+  while (len > 0) {
+    const int run = min(len, ring_bytes - pos);
+    ringcopy::copy_bytes(ring + pos, src, run);
+    src += run;
+    len -= run;
+    pos += run;
+    if (pos == ring_bytes) pos = 0;
+  }
+  return pos;
+}
+
+// The part of a splice whose rows lie past the stack: `len` bytes of the
+// stack's last row `last` repeated, starting `off` bytes into the row.
+// Kept out of line: no solver splice takes it.
+__device__ __noinline__ void repeat_row(uint8_t* __restrict__ ring,
+                                        int ring_bytes, int pos,
+                                        const uint8_t* __restrict__ last,
+                                        int rb, int off, int len) {
+  while (len > 0) {
+    const int run = min(rb - off, len);
+    pos = put(ring, ring_bytes, pos, last + off, run);
+    len -= run;
+    off = 0;
+  }
+}
+
+__global__ void __launch_bounds__(ringcopy::kThreads)
+    ring_transfer_kernel(const __grid_constant__ ringcopy::RingTree tree,
+                         const int* __restrict__ head,
+                         const int* __restrict__ src_row,
+                         const int* __restrict__ n, int lanes, int cap,
+                         int src_rows, int max_steal) {
+  const ringcopy::RingLeaf leaf = tree.leaf[blockIdx.z];
+  const int rb = leaf.row_bytes;
+  const int span = min(max_steal, cap);
+  const int c0 = blockIdx.x * ringcopy::kChunk;
+  if (c0 >= span * rb) return;
+  const int ring_bytes = cap * rb;
   for (int l = blockIdx.y; l < lanes; l += gridDim.y) {
-    int64_t live = n[l];
-    if (live > max_steal) live = max_steal;
-    if (live > cap) live = cap;
-    const int64_t total = live * wpr;
-    const int64_t at = head[l];
-    const int64_t src0 = (int64_t)src_row[l] * max_steal;
-    T* ring = buf + (int64_t)l * cap * wpr;
-    for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-         t += (int64_t)gridDim.x * blockDim.x) {
-      const int64_t i = t / wpr;
-      const int64_t w = t - i * wpr;
-      int64_t s = src0 + i;
-      if (s > src_rows - 1) s = src_rows - 1;
-      ring[ring::wrap(at + i, cap) * wpr + w] = gathered[s * wpr + w];
+    const int live = min(max(n[l], 0), span);
+    if (c0 >= live * rb) continue;
+    const int c1 = c0 + min(ringcopy::kChunk, live * rb - c0);
+    uint8_t* ring = leaf.dst + (int64_t)l * ring_bytes;
+    const int64_t first = max((int64_t)src_row[l] * max_steal, (int64_t)0);
+    // bytes of the splice that read the stack; the rest repeats its last row
+    const int direct =
+        (int)min((int64_t)live, max((int64_t)src_rows - first, (int64_t)0)) *
+        rb;
+    int pos = ringcopy::wrap_add(ringcopy::py_mod(head[l], cap) * rb, c0,
+                                 ring_bytes);
+    int b = c0;
+    if (b < direct) {
+      const int e = min(c1, direct);
+      pos = put(ring, ring_bytes, pos, leaf.src + first * rb + b, e - b);
+      b = e;
+    }
+    if (b < c1) {
+      const uint8_t* last = leaf.src + (int64_t)(src_rows - 1) * rb;
+      repeat_row(ring, ring_bytes, pos, last, rb, (b - direct) % rb, c1 - b);
     }
   }
 }
 
 }  // namespace
 
-extern "C" int rk_ring_transfer(void* buf, const void* gathered,
-                                const int* head, const int* src_row,
-                                const int* n, int lanes, int cap,
-                                int64_t src_rows, int max_steal, int64_t wpr,
-                                int word_bytes, void* stream) {
-  const dim3 grid = ring::grid_for((int64_t)max_steal * wpr, lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RING_DISPATCH_WORD(word_bytes,
-                     ring_transfer_kernel<T><<<grid, ring::kThreads, 0, s>>>(
-                         static_cast<T*>(buf), static_cast<const T*>(gathered),
-                         head, src_row, n, lanes, cap, src_rows, max_steal,
-                         wpr));
+extern "C" int rk_ring_transfer(ringcopy::RingTree tree, const int* head,
+                                const int* src_row, const int* n, int lanes,
+                                int cap, int src_rows, int max_steal,
+                                void* stream) {
+  dim3 grid;
+  if (cap < 1 || src_rows < 1 || max_steal < 1 ||
+      !ringcopy::grid_for(tree, lanes, min(max_steal, cap), &grid)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  ring_transfer_kernel<<<grid, ringcopy::kThreads, 0,
+                         static_cast<cudaStream_t>(stream)>>>(
+      tree, head, src_row, n, lanes, cap, src_rows, max_steal);
   return (int)cudaGetLastError();
 }

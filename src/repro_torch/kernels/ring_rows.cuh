@@ -1,7 +1,8 @@
-// Shared pieces of the ring-buffer row kernels (K1-K4).
+// Shared pieces of the owner-side ring-buffer row kernels (K2 ring_scatter,
+// K3 ring_slice; K1 and K4 use ring_copy.cuh).
 //
-// Every ring kernel moves whole rows between a lane's ring of `cap` rows
-// and a dense block, at a dynamic cut point that each thread turns into a
+// Each kernel moves whole rows between a lane's ring of `cap` rows and a
+// dense block, at a dynamic cut point that each thread turns into a
 // physical row itself: row (start + i) mod cap.  A row is `wpr` words of
 // type T (4-byte words where the row width allows, else 2 or 1 bytes), so
 // one kernel serves f32, i32 and bf16 payloads alike.  The grid covers

@@ -72,6 +72,39 @@ def test_cuda_kernels_match_plain_versions():
 
 
 @pytest.mark.cuda
+def test_ring_copy_kernels_launch_once_per_tree():
+    """K1 and K4 move a payload tree in one launch per eight leaves, not
+    one per leaf, bit for bit against the plain versions: the mixed-dtype
+    tree in one launch each, twelve leaves in two."""
+    dev = _cuda()
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    for leaves, launches in ((C.TREE_LEAVES, 1), (smoke.many_leaves(), 2)):
+        before = (steal_gather.launches, transfer_splice.launches)
+        rows = list(smoke.tree_cases(dev, rng, leaves))
+        for name, what, k_out, p_out in rows:
+            smoke._compare(k_out, p_out, f"{name} {what}")
+        assert len(rows) == 2 * len(leaves)
+        assert (steal_gather.launches - before[0],
+                transfer_splice.launches - before[1]) == (launches, launches)
+
+
+@pytest.mark.cuda
+def test_ring_copy_kernels_match_plain_versions_on_misaligned_rows():
+    """K1 and K4's byte path bit for bit against the plain versions: rows
+    of 4, 12, 20 and 6 bytes at every offset mod 16, bases off a 16-byte
+    boundary, segments that lap the ring, a short last window."""
+    dev = _cuda()
+    smoke = _chip_smoke()
+    names = set()
+    for name, what, k_out, p_out in smoke.byte_cases(
+            dev, np.random.default_rng(0)):
+        smoke._compare(k_out, p_out, f"{name} {what}")
+        names.add(name)
+    assert names == {"ring_gather", "ring_transfer"}
+
+
+@pytest.mark.cuda
 def test_kernel_backend_matches_reference_backend_on_the_card():
     """Random op programs on stacked lanes: the ``cuda`` backend (the
     kernels) and the ``reference`` backend (plain PyTorch) on the same

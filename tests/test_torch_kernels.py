@@ -17,7 +17,9 @@ from repro.kernels.queue_push.kernel import (ring_scatter_supported,
 from repro.kernels.queue_push.ops import pop_slice as jax_pop_slice
 from repro.kernels.queue_push.ops import push_scatter as jax_push_scatter
 from repro.kernels.queue_push.ref import ring_scatter_ref as jax_scatter_ref
+from repro.kernels.queue_steal.kernel import ring_gather_supported
 from repro.kernels.queue_steal.ops import steal_gather as jax_steal_gather
+from repro.kernels.queue_transfer.kernel import ring_transfer_supported
 from repro.kernels.queue_transfer.ops import \
     transfer_splice as jax_transfer_splice
 from repro_torch.kernels import _lib
@@ -158,6 +160,95 @@ def test_one_launch_serves_every_lane(kernel):
         assert_same(want[l], got[l], f"{kernel} lane {l}")
 
 
+@pytest.mark.parametrize("case", C.STEAL_BYTE_CASES)
+def test_ring_gather_byte_rows_match_pallas(case):
+    """K1's byte-path rows (every residue mod 16 bytes, 12-, 20- and 6-byte
+    rows, segments ending at cap or mid-vector, n = 0 and cap, a segment
+    lapping a ring smaller than max_steal): one stacked call against the
+    JAX kernel in interpret mode, lane by lane."""
+    cap, d, m, lo, n, dtype = case
+    assert ring_gather_supported(cap, m)
+    jbuf, tbuf = _both(np.random.default_rng(6), (len(lo), cap, d), dtype)
+    got = steal_gather(tbuf, _vec(*lo), _vec(*n), max_steal=m)
+    for l in range(len(lo)):
+        want = jax_steal_gather(jbuf[l], jnp.int32(lo[l]), jnp.int32(n[l]),
+                                max_steal=m, interpret=True)
+        assert_same(want, got[l], f"ring_gather {case} lane {l}")
+
+
+@pytest.mark.parametrize("case", C.TRANSFER_BYTE_CASES)
+def test_ring_transfer_byte_rows_match_pallas(case):
+    """K4's byte-path rows, lane by lane against the JAX kernel in
+    interpret mode; where the Pallas kernel does not take the lane (n =
+    cap needs max_steal = cap, past its geometry rule; a source row past
+    the stack, which its index map wraps) against the JAX package's plain
+    reference, whose clamp the port keeps."""
+    cap, d, w, m, head, src, n, dtype = case
+    rng = np.random.default_rng(7)
+    jbuf, tbuf = _both(rng, (len(head), cap, d), dtype)
+    jg, tg = _both(rng, (w, m, d), dtype)
+    got = tbuf.clone()
+    transfer_splice(got, tg, _vec(*head), _vec(*src), _vec(*n), max_steal=m)
+    for l in range(len(head)):
+        pallas = ring_transfer_supported(cap, m) and src[l] < w
+        want = jax_transfer_splice(jbuf[l], jg, jnp.int32(head[l]),
+                                   jnp.int32(src[l]), jnp.int32(n[l]),
+                                   max_steal=m, interpret=pallas)
+        assert_same(want, got[l], f"ring_transfer {case} lane {l}")
+
+
+@pytest.mark.parametrize("kernel", ["gather", "transfer"])
+def test_payload_tree_matches_pallas(kernel):
+    """The mixed-dtype payload tree (int32 ``(L, cap)``, bfloat16 ``(L,
+    cap, 3)``, float32 ``(L, cap, 5)``) through one call of the tree
+    wrapper, against the JAX wrapper on the same tree, lane by lane."""
+    cap, m, w, start, n, src = C.TREE_CASE
+    dtypes = {k: dt for k, (_, dt) in C.TREE_LEAVES.items()}
+    rng = np.random.default_rng(8)
+
+    def both(lead):
+        arrays = C.tree_payload(rng, lead)
+        return ({k: jax_payload(a, dtypes[k]) for k, a in arrays.items()},
+                {k: C.to_tensor(a, dtypes[k], CPU) for k, a in arrays.items()})
+
+    jr, tr = both((len(start), cap))
+    if kernel == "gather":
+        got = steal_gather(tr, _vec(*start), _vec(*n), max_steal=m)
+        want = [jax_steal_gather({k: v[l] for k, v in jr.items()},
+                                 jnp.int32(start[l]), jnp.int32(n[l]),
+                                 max_steal=m, interpret=True)
+                for l in range(len(start))]
+    else:
+        js, ts = both((w, m))
+        got = {k: v.clone() for k, v in tr.items()}
+        assert transfer_splice(got, ts, _vec(*start), _vec(*src), _vec(*n),
+                               max_steal=m) is got
+        want = [jax_transfer_splice({k: v[l] for k, v in jr.items()}, js,
+                                    jnp.int32(start[l]), jnp.int32(src[l]),
+                                    jnp.int32(n[l]), max_steal=m,
+                                    interpret=True)
+                for l in range(len(start))]
+    for l in range(len(start)):
+        for k in dtypes:
+            assert_same(want[l][k], got[k][l], f"{kernel} {k} lane {l}")
+
+
+def test_ring_trees_split_and_refuse():
+    """K1 / K4 take at most eight leaves a launch: a twelve-leaf tree makes
+    two descriptors, leaves of empty rows none, and a row's bytes come from
+    the ``(lanes, rows, ...)`` side; a ring whose bytes pass 32 bits is
+    refused before anything launches."""
+    # K4's pairs: a flat (W * max_steal, 3) stack into a (lanes, cap, 3) ring
+    pair = (torch.zeros((8, 3)), torch.zeros((2, 4, 3)))
+    empty = (torch.zeros((8, 0)), torch.zeros((2, 4, 0)))
+    trees = list(_lib.ring_trees([pair] * 12 + [empty], 8))
+    assert [t.count for t in trees] == [8, 4]
+    assert {t.leaf[i].row_bytes for t in trees for i in range(t.count)} \
+        == {12}
+    with pytest.raises(ValueError, match="32-bit"):
+        list(_lib.ring_trees([pair], 2 ** 31 // 12 + 1))
+
+
 def test_wrappers_refuse_non_cpu_tensors_without_cuda():
     """A tensor that is not on the CPU never takes the plain version: it
     goes to the CUDA kernel or raises."""
@@ -186,5 +277,5 @@ def test_launch_refuses_extents_past_32_bits(extent):
     """An extent the kernels' 32-bit ``int`` arguments cannot hold raises
     before the library is built or loaded, never wraps around."""
     with pytest.raises(ValueError, match="32-bit"):
-        _lib.launch("rk_ring_gather", 0, 0, 0, 0, 1, extent, 8, 1, 4,
+        _lib.launch("rk_ring_gather", _lib.RingTree(), 0, 0, 1, extent, 8,
                     device=torch.device("cuda"))

@@ -50,6 +50,11 @@ def test_kernel_phase_checks_every_kernel():
         assert out[name]["earlier_ms"] > 0
     assert out["dd_expand"]["parity_cases"] == 12
     assert out["ssd_scan"]["parity_cases"] == 12
+    # K1 and K4 also timed as the solver calls them: its three-leaf tree
+    for name in ("ring_gather", "ring_transfer"):
+        row = out[name]["solver_payload"]
+        assert row["bound_ms"] > 0 and row["library_ms"] is None
+        assert row["launches_per_call"] == 0  # the CPU launches nothing
 
 
 def test_queue_phase_agrees_across_backends_and_conserves():

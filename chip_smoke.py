@@ -24,15 +24,18 @@ check that does not hold:
    bfloat16) on its case tables (head dims 32 to 256, 112 among them), at
    the serving slice's prefill shape (B 4, S = T 1,024, 32 heads over 8 KV
    heads of 64, bfloat16, causal) and at zamba2-7b's (32 heads of 112,
-   MHA), and the SSD scan (K7) within atol 5e-5 / rtol 5e-4 in float32
-   (2e-2 in bfloat16) on its case tables (ragged lengths among them) and
-   at the SSM slice's prefill shape (B 4, S 1,024, 80 heads of 64, state
-   128, chunk 256) in bfloat16 and float32.  Times kernel, plain version
-   and a library yardstick (``index_select`` / ``index_copy_``; SDPA for
-   K6; none for K5 and K7) with CUDA events; K6 at both of its shapes,
-   beside the SIMT kernel's bfloat16 time (its earlier design); K1 and K4
-   also as the solver calls them, on its three-leaf payload
-   (``solver_payload``).
+   MHA), and the SSD scan (K7: bfloat16 at head dim 64 and state widths
+   64 and 128 through the tensor-core kernel, float32 and the other
+   bfloat16 shapes through the SIMT kernel) within atol 5e-5 / rtol 5e-4
+   in float32 (2e-2 in bfloat16) on its case tables (ragged lengths among
+   them) and their bfloat16 copies, at the SSM slice's prefill shape (B 4,
+   S 1,024, 80 heads of 64, state 128, chunk 256) in bfloat16 and float32
+   and at zamba2-7b's (112 heads of 64, state 64).  Times kernel, plain
+   version and a library yardstick (``index_select`` / ``index_copy_``;
+   SDPA for K6; none for K5 and K7) with CUDA events; K6 and K7 at both
+   of their shapes, beside the SIMT kernel's bfloat16 time (their earlier
+   design); K1 and K4 also as the solver calls them, on its three-leaf
+   payload (``solver_payload``).
 2. The queue at the paper's backlog.  64 lanes of 16,384 rows, half of
    them holding 10,000 seeded unique items; 8 rebalancing supersteps on the
    kernel backend under the compact and the dense exchange and on the
@@ -55,13 +58,14 @@ check that does not hold:
    logits as the plain version's (mean distance at most 1.1x).
 5. SSM serving at full size.  The same setup with mamba2-2.7b at its
    published widths and depth (64 layers, 2.7 B parameters): K7 must have
-   launched once per layer and prefill wave, and the first wave passes
-   the same two checks against K7's plain version.
+   launched once per layer and prefill wave, every launch on its
+   tensor-core route, and the first wave passes the same two checks
+   against K7's plain version.
 6. The hybrid, one wave.  zamba2-7b at its published widths and depth (81
    layers, 6.6 B parameters) runs one wave of 4 prompts: K6 must have
    launched once per shared-block application (13), all on its
-   tensor-core route, and K7 once per Mamba2 block (81), every request
-   must get its tokens, and the first
+   tensor-core route, and K7 once per Mamba2 block (81), all on its
+   tensor-core route; every request must get its tokens, and the first
    wave passes the two checks against both plain versions at once.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
@@ -142,7 +146,11 @@ KERNELS = (
     ("flash_attention_hd112",
      "src/repro_torch/kernels/flash_attention/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention/kernel.py:100"),
-    ("ssd_scan", "src/repro_torch/kernels/ssd_scan/ssd_scan.cu",
+    ("ssd_scan", "src/repro_torch/kernels/ssd_scan/ssd_scan_wgmma.cu",
+     "src/repro/kernels/ssd_scan/kernel.py:80"),
+    # the same kernel at zamba2-7b's state width, timed at its prefill shape
+    ("ssd_scan_hd64_ns64",
+     "src/repro_torch/kernels/ssd_scan/ssd_scan_wgmma.cu",
      "src/repro/kernels/ssd_scan/kernel.py:80"),
 )
 
@@ -739,16 +747,24 @@ def expand_timing(device, rng, timer):
                 device_time_clean=clean and plain_clean)
 
 
-def ssd_checks(device, rng, shape):
-    """K7 against its plain version on the case tables and at ``shape``
-    in its dtype and in float32; returns (max abs err, number of
-    cases)."""
+def ssd_cases(shapes):
+    """K7's parity cases: the case tables, bfloat16 copies of the JAX
+    package's table (the bfloat16 route at its shapes), and ``shapes`` in
+    their dtype and in float32."""
+    from repro_torch.kernels import cases as C
+    return C.SSD_CASES + [c[:-1] + ("bfloat16",) for c in C.SSD_CASES] \
+        + C.SSD_EXTRA_CASES + [s for shape in shapes
+                               for s in (shape, shape[:-1] + ("float32",))]
+
+
+def ssd_checks(device, rng, shapes):
+    """K7 against its plain version on :func:`ssd_cases`; returns (max abs
+    err, number of cases)."""
     from repro_torch.kernels import cases as C
     from repro_torch.kernels.ssd_scan.ops import ssd
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
-    err, cases = 0.0, C.SSD_CASES + C.SSD_EXTRA_CASES + [
-        shape, shape[:-1] + ("float32",)]
+    err, cases = 0.0, ssd_cases(shapes)
     for case in cases:
         args = C.ssd_inputs(rng, case, device)
         Q, dtype = case[5], case[6]
@@ -782,36 +798,65 @@ def ssd_bound(case):
     return flops, nbytes
 
 
+def _device_launches(device, fn) -> int:
+    """CUDA kernels one call of ``fn`` runs, from the profiler's device
+    events (0 on the CPU, which launches none)."""
+    import torch
+    if device.type != "cuda":
+        return 0
+    sync(device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        sync(device)
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
 def ssd_timing(device, rng, timer, shape):
-    """K7 and its plain version at ``shape``, and the bound from
-    :func:`ssd_bound`; no single PyTorch call computes the scan."""
+    """K7 (through ``ssd``'s route for the shape), its earlier bf16 design
+    (the SIMT kernel, ``ssd_simt``) and its plain version at ``shape``,
+    each checked against the plain version within tolerance first, the
+    CUDA launches of one call, and the bound from :func:`ssd_bound`; no
+    single PyTorch call computes the scan."""
     from repro_torch.kernels import cases as C
-    from repro_torch.kernels.ssd_scan.ops import ssd
+    from repro_torch.kernels.ssd_scan.ops import ssd, ssd_simt
     from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
     args = C.ssd_inputs(rng, shape, device)
-    Q = shape[5]
+    B, S, nh, hd, ns, Q, dtype = shape
+    atol, rtol = C.SSD_TOL[dtype]
+    plain = ssd_chunked(*args, Q)
+    err = max(_close(k_out, p_out, atol, f"ssd_scan {shape}", rtol=rtol)
+              for k_out, p_out in zip(ssd(*args, chunk=Q), plain))
+    for k_out, p_out in zip(ssd_simt(*args, chunk=Q), plain):
+        _close(k_out, p_out, atol, f"SIMT kernel {shape}", rtol=rtol)
     flops, nbytes = ssd_bound(shape)
     flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    per_call = _device_launches(device, lambda: ssd(*args, chunk=Q))
     ms, clean = timer.ms(lambda: ssd(*args, chunk=Q), n=20)
+    earlier_ms, earlier_clean = timer.ms(lambda: ssd_simt(*args, chunk=Q),
+                                         n=5)
     plain_ms, plain_clean = timer.ms(lambda: ssd_chunked(*args, Q), n=5)
-    B, S, nh, hd, ns, _, dtype = shape
-    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
-                bound_ms=max(flop_ms, byte_ms),
+    return dict(ms=ms, earlier_ms=earlier_ms, plain_ms=plain_ms,
+                library_ms=None, bound_ms=max(flop_ms, byte_ms),
                 bound_by="operations" if flop_ms >= byte_ms else "bytes",
                 bound_flops=flops, bound_bytes=nbytes,
+                launches_per_call=per_call, shape_max_abs_err=err,
                 timed_at=f"B {B}, S {S}, {nh} heads of {hd}, state {ns}, "
                          f"chunk {Q}, {dtype}",
-                device_time_clean=clean and plain_clean)
+                device_time_clean=clean and earlier_clean and plain_clean)
 
 
-def phase_kernels(device, seed: int = 0, flash_shapes=None, ssd_shape=None):
+def phase_kernels(device, seed: int = 0, flash_shapes=None,
+                  ssd_shapes=None):
     """Every kernel against its plain version, then timed.  ``flash_shapes``
     are K6's two timed shapes (default: the serving slice's prefill and
     zamba2-7b's, reported as ``flash_attention`` and
-    ``flash_attention_hd112``) and ``ssd_shape`` K7's (default: the SSM
-    slice's prefill)."""
+    ``flash_attention_hd112``) and ``ssd_shapes`` K7's (default: the SSM
+    slice's prefill and zamba2-7b's, reported as ``ssd_scan`` and
+    ``ssd_scan_hd64_ns64``)."""
     from repro_torch.kernels import cases as C
     rng = np.random.default_rng(seed)
     errs, counts = {}, {}
@@ -820,11 +865,12 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None, ssd_shape=None):
                          _compare(k_out, p_out, f"{name} {what}"))
         counts[name] = counts.get(name, 0) + 1
     flash_shapes = flash_shapes or (C.FLASH_SLICE, C.FLASH_ZAMBA)
-    ssd_shape = ssd_shape or C.SSD_SLICE
+    ssd_shapes = ssd_shapes or (C.SSD_SLICE, C.SSD_HYBRID)
     errs["dd_expand"], counts["dd_expand"] = expand_checks(device, rng)
     errs["flash_attention"], counts["flash_attention"] = flash_checks(
         device, rng, flash_shapes)
-    errs["ssd_scan"], counts["ssd_scan"] = ssd_checks(device, rng, ssd_shape)
+    errs["ssd_scan"], counts["ssd_scan"] = ssd_checks(device, rng,
+                                                      ssd_shapes)
     sync(device)
     timer = Timer(device)
     timings = kernel_timings(device, rng, timer)
@@ -838,7 +884,11 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None, ssd_shape=None):
     errs["flash_attention_hd112"] = timings["flash_attention_hd112"][
         "shape_max_abs_err"]
     counts["flash_attention_hd112"] = counts["flash_attention"]
-    timings["ssd_scan"] = ssd_timing(device, rng, timer, ssd_shape)
+    for name, shape in zip(("ssd_scan", "ssd_scan_hd64_ns64"), ssd_shapes):
+        timings[name] = ssd_timing(device, rng, timer, shape)
+    errs["ssd_scan_hd64_ns64"] = timings["ssd_scan_hd64_ns64"][
+        "shape_max_abs_err"]
+    counts["ssd_scan_hd64_ns64"] = counts["ssd_scan"]
     return {name: dict(max_abs_err=errs[name], parity_cases=counts[name],
                        **timings[name]) for name, _, _ in KERNELS}
 
@@ -1000,12 +1050,14 @@ def serve_launches(cfg) -> dict:
 
 class _Clocked:
     """Wraps a model's ``prefill`` and ``decode_step``: the wall time of
-    each call, synchronised with the device, and the first prefill's
-    tokens and logits.  ``restore()`` unwraps."""
+    each call, synchronised with the device, each prefill's token shape,
+    each decode step's batch, and the first prefill's tokens and logits.
+    ``restore()`` unwraps."""
 
     def __init__(self, model, device):
         self.model, self.device = model, device
         self.prefill_ms, self.decode_ms, self.first = [], [], None
+        self.prefill_shapes, self.decode_batch = [], []
         self._prefill, self._decode = model.prefill, model.decode_step
         model.prefill, model.decode_step = self.prefill, self.decode
 
@@ -1018,6 +1070,7 @@ class _Clocked:
         return out
 
     def prefill(self, params, tokens):
+        self.prefill_shapes.append(list(tokens.shape))
         logits, cache = self._timed(self._prefill, self.prefill_ms, params,
                                     tokens)
         if self.first is None:
@@ -1025,6 +1078,7 @@ class _Clocked:
         return logits, cache
 
     def decode(self, params, cache, tokens):
+        self.decode_batch.append(tokens.shape[0])
         return self._timed(self._decode, self.decode_ms, params, cache,
                            tokens)
 
@@ -1134,15 +1188,22 @@ def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
     tokens0, logits0 = clock.first
     first_wave = first_wave_check(cfg, params, tokens0, logits0, expect)
     decode_total = sum(decode_ms)
+    by_batch = {}
+    for b, ms in zip(clock.decode_batch, decode_ms):
+        by_batch.setdefault(b, []).append(ms)
     return {
         "arch": cfg.name, "params": cfg.param_count(), "init_s": init_s,
         "requests": len(done), "tokens": tokens, "wall_s": wall,
         "tokens_per_s": tokens / wall, "prefill_waves": len(prefill_ms),
-        "prefill_ms": prefill_ms,
+        "prefill_ms": prefill_ms, "prefill_shapes": clock.prefill_shapes,
         "prefill_ms_mean": sum(prefill_ms) / len(prefill_ms),
         "prefill_share": sum(prefill_ms) / (wall * 1e3),
         "decode_steps": len(decode_ms),
         "decode_ms_per_step": decode_total / len(decode_ms),
+        # batch -> [steps, mean ms]: a step's time depends on its batch,
+        # and the waves' make-up on the straggler monitor's wall clock
+        "decode_ms_by_batch": {b: [len(v), sum(v) / len(v)]
+                               for b, v in sorted(by_batch.items())},
         "decode_ms_per_token": decode_total / tokens,
         "prompt_tokens": sum(map(len, prompts)),
         "first_wave_shape": list(tokens0.shape), **first_wave,
@@ -1288,7 +1349,9 @@ def main() -> int:
                     "flash_attention"],
                 "flash_attention_hd112": serving["wave_hybrid"]["launches"][
                     "flash_attention"],
-                "ssd_scan": serving["serve_ssm"]["launches"]["ssd_scan"]}
+                "ssd_scan": serving["serve_ssm"]["launches"]["ssd_scan"],
+                "ssd_scan_hd64_ns64": serving["wave_hybrid"]["launches"][
+                    "ssd_scan"]}
     for name in (n for n, _, _ in KERNELS):
         check(launches[name] > 0, f"{name} never launched on its path")
     rows = []
@@ -1302,8 +1365,8 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "parity_cases": k["parity_cases"], "timed_at": k["timed_at"],
             "device_time_clean": k["device_time_clean"],
-            **{key: k[key] for key in ("earlier_ms", "solver_payload")
-               if key in k}})
+            **{key: k[key] for key in ("earlier_ms", "launches_per_call",
+                                       "solver_payload") if key in k}})
     print(json.dumps({"kernels": rows}))
     print(card)
     print(json.dumps({"ok": True, "device": {

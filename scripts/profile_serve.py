@@ -87,13 +87,14 @@ def main() -> int:
     for part, prof in profs.items():
         busy_us, window_us, by_name = device_summary(prof)
         launches = sum(v[0] for v in by_name.values())
-        # K6's tensor-core (bf16) and SIMT (float32) kernels, and K7
+        # K6's and K7's tensor-core (bf16) and SIMT (float32) kernels
         ours = {name: [v for k, v in by_name.items()
                        if any(kernel in k for kernel in kernels)]
                 for name, kernels in (
                     ("flash_attention", ("flash_wgmma_kernel",
                                          "flash_kernel")),
-                    ("ssd_scan", ("ssd_kernel",)))}
+                    ("ssd_scan", ("ssd_kernel", "ssd_state_kernel",
+                                  "ssd_output_kernel")))}
         top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
         steps = STEPS if part == "decode" else 1
         print(json.dumps({

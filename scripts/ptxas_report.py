@@ -6,8 +6,9 @@ Compiles every source of the port's kernel library
 (``repro_torch.kernels._lib.SOURCES``) with the library's own flags plus
 ``-Xptxas -v`` into a scratch directory, all sources at once, and prints
 ptxas's lines for each (demangled kernel names), then the dynamic shared
-memory the tensor-core flash attention kernel (K6's bfloat16 route) asks
-for at each head dim, which ptxas does not see.  Needs ``nvcc``; the
+memory the tensor-core kernels ask for, which ptxas does not see: flash
+attention (K6's bfloat16 route) at each head dim, and the SSD scan's two
+launches (K7's bfloat16 route) at each state width and chunk.  Needs ``nvcc``; the
 listing builds nothing that the library uses, the last part loads the
 library (building it at first use).
 
@@ -54,6 +55,14 @@ def main() -> int:
     smem.argtypes, smem.restype = (ctypes.c_int,), ctypes.c_int
     print("== flash_wgmma_kernel dynamic shared memory (bytes) by head dim")
     print({hd: smem(hd) for hd in HEAD_DIMS})
+    from repro_torch.kernels.ssd_scan.ops import TC_STATE_DIMS
+    smem = _lib.library().ss_ssd_scan_wgmma_smem
+    smem.argtypes, smem.restype = (ctypes.c_int,) * 3, ctypes.c_int
+    for which, name in ((1, "ssd_state_kernel"), (2, "ssd_output_kernel")):
+        print(f"== {name} dynamic shared memory (bytes) by state width, "
+              f"chunk")
+        print({f"{ns}, {Q}": smem(which, ns, Q) for ns in TC_STATE_DIMS
+               for Q in (64, 128, 192, 256)})
     return 0
 
 

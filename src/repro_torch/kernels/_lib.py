@@ -1,6 +1,7 @@
 """Build and load the hand-written CUDA kernels (the ring kernels K1-K4,
-DD layer expansion K5, flash attention K6 — the tensor-core kernel for
-bfloat16 and the SIMT kernel for float32 — and the SSD scan K7).
+DD layer expansion K5, flash attention K6 and the SSD scan K7 — each of
+K6 and K7 a tensor-core kernel for bfloat16 and a SIMT kernel for
+float32).
 
 The ``*.cu`` sources beside the kernel packages have a plain C interface.
 At first use, :func:`library` compiles each source with ``nvcc`` for
@@ -41,10 +42,11 @@ SOURCES = (
     _HERE / "flash_attention" / "flash_attention.cu",
     _HERE / "flash_attention" / "flash_attention_wgmma.cu",
     _HERE / "ssd_scan" / "ssd_scan.cu",
+    _HERE / "ssd_scan" / "ssd_scan_wgmma.cu",
     _HERE / "dd_expand" / "expand.cu",
 )
 HEADERS = (_HERE / "ring_rows.cuh", _HERE / "ring_copy.cuh",
-           _HERE / "flash_attention" / "hopper.cuh")
+           _HERE / "hopper.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
@@ -76,6 +78,8 @@ _SIGNATURES = {
                                  _I, _I, _I, _I, _F, _P),
     "ss_ssd_scan": (_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I,
                     _I, _P),
+    "ss_ssd_scan_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                          _I, _I, _I, _I, _P),
     "dd_expand": (_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _P),
 }
 

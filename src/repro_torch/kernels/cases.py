@@ -16,8 +16,10 @@ tensor-core kernel (head dim 128 without the causal mask, ragged ``S = T =
 100`` with a softcap, GQA groups of 8).
 ``EXPAND_CASES`` and ``SSD_CASES`` are the JAX package's tables for K5
 and K7; ``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S <
-Q``), bfloat16 and the SSM archs' widths.  Payload dtypes are names, so
-the tables import nothing but numpy.
+Q``), bfloat16, the SSM archs' widths and the other shapes of K7's
+tensor-core route; ``SSD_SLICE`` and ``SSD_HYBRID`` are the serving path's
+two K7 shapes.  Payload dtypes are names, so the tables import nothing but
+numpy.
 """
 
 from __future__ import annotations
@@ -31,7 +33,8 @@ __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
            "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_ZAMBA",
            "FLASH_TOL",
            "EXPAND_CASES", "EXPAND_SOLVER", "expand_inputs",
-           "SSD_CASES", "SSD_EXTRA_CASES", "SSD_SLICE", "SSD_TOL",
+           "SSD_CASES", "SSD_EXTRA_CASES", "SSD_SLICE", "SSD_HYBRID",
+           "SSD_TOL",
            "ssd_inputs", "payload", "to_tensor"]
 
 # (cap, D, max_steal, lo, n, dtype)
@@ -70,8 +73,10 @@ STEAL_BYTE_CASES = [
     (16, 3, 48, (15, -5, 7, 1), (40, 48, 16, 9), "bfloat16"),
 ]
 
-# The same ground for K4, plus n = cap (max_steal = cap) and source rows
-# past the stack (src_row >= W: every row reads the stack's last one).
+# The same ground for K4, plus n = cap (max_steal = cap), source rows
+# past the stack (src_row >= W: every row reads the stack's last one) and
+# negative source rows (src_row in [-W, 0): window src_row + W, as Python
+# indexing counts from the end).
 # (cap, D, W, max_steal, head per lane, src_row per lane, n per lane, dtype)
 TRANSFER_BYTE_CASES = [
     (64, 1, 4, 32, (0, 1, 2, 3), (3, 2, 1, 0), (13, 32, 7, 0), "int32"),
@@ -82,6 +87,8 @@ TRANSFER_BYTE_CASES = [
      "bfloat16"),                                             # n = cap
     (32, 5, 2, 16, (3, 30, 9, 0), (2, 1, 5, 0), (16, 9, 4, 16),
      "float32"),                                              # past the stack
+    (64, 3, 3, 16, (60, 2, 17, 40), (-1, -3, -7, -2), (16, 9, 0, 5),
+     "int32"),              # negative rows; below -W where nothing is read
 ]
 
 # A payload tree of mixed dtypes and widths, (trailing shape, dtype) per
@@ -175,11 +182,21 @@ SSD_EXTRA_CASES = [
     (2, 300, 4, 64, 64, 256, "float32"),    # zamba2's widths, ragged
     (1, 700, 2, 64, 128, 256, "bfloat16"),  # mamba2's widths, ragged
     (2, 100, 4, 16, 16, 16, "bfloat16"),    # the reduced configs' widths
+    # the tensor-core route's other shapes: chunk 192, ragged, a group of
+    # 8 heads and one more; one token at chunk 64; 17 heads, two chunks,
+    # the second ragged; mamba2's 80 heads in one ragged chunk
+    (2, 200, 9, 64, 128, 192, "bfloat16"),
+    (1, 1, 3, 64, 64, 64, "bfloat16"),
+    (3, 333, 17, 64, 64, 256, "bfloat16"),
+    (1, 130, 80, 64, 128, 256, "bfloat16"),
 ]
 # The prefill scan of the serving slice: a wave of 4 prompts of 1,024
 # tokens through one layer of mamba2-2.7b (80 heads of 64, state 128,
 # chunk 256).
 SSD_SLICE = (4, 1024, 80, 64, 128, 256, "bfloat16")
+# The same wave through one Mamba2 block of zamba2-7b (112 heads of 64,
+# state 64, chunk 256).
+SSD_HYBRID = (4, 1024, 112, 64, 64, 256, "bfloat16")
 
 # The JAX package's tolerance for the SSD kernel (tests/test_kernels.py)
 # in float32, as (atol, rtol); in bfloat16 the output is rounded to 8 bits

@@ -76,7 +76,7 @@
 
 #include <cstdint>
 
-#include "hopper.cuh"
+#include "../hopper.cuh"
 
 namespace {
 

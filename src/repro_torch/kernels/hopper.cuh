@@ -1,6 +1,7 @@
-// PTX wrappers for Hopper (sm_90a) kernels: mbarriers, TMA tile loads,
-// wgmma shared-memory descriptors and the wgmma instructions the K6
-// tensor-core kernel (flash_attention_wgmma.cu) issues.  Device code only.
+// PTX wrappers for Hopper (sm_90a) kernels: mbarriers, TMA tile loads and
+// bulk copies, wgmma shared-memory descriptors and the wgmma instructions
+// of the tensor-core kernels (K6: flash_attention/flash_attention_wgmma.cu;
+// K7: ssd_scan/ssd_scan_wgmma.cu).  Device code only.
 //
 // wgmma accumulator fragment (m64nN, f32), thread t of the warpgroup, warp
 // w = t / 32, g = (t % 32) / 4, q = t % 4: register 4 j + 2 i + c holds row
@@ -90,6 +91,29 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const void* map,
       "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
       "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// One box of a 3-D tensor map at element coordinates (c0, c1, c2).
+__device__ __forceinline__ void tma_load_3d(void* dst, const void* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
+// `bytes` contiguous bytes from global `src` into shared `dst` (both
+// 16-byte aligned, a multiple of 16 bytes); completion counts on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

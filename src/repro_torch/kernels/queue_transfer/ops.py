@@ -13,7 +13,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch._tree import tree_map
+from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.kernels import _lib
 from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 
@@ -25,7 +25,13 @@ def transfer_splice(buf_tree, gathered_tree, head: torch.Tensor,
                     max_steal: int):
     """Splice ``gathered_tree[src_row[l], :n[l]]`` at ``head[l]`` of every
     lane's ring, in place; ``gathered_tree`` leaves are ``(W, max_steal,
-    ...)`` window stacks.  Returns ``buf_tree``.
+    ...)`` window stacks, and a ``src_row`` in ``[-W, 0)`` picks window
+    ``src_row + W``, as Python indexing does.  Below ``-W`` a lane with rows
+    to splice (``n > 0``) raises: ``ValueError`` for CPU tensors; on the
+    card the kernel traps, and PyTorch raises at the next synchronisation,
+    as for an index its own CUDA indexing refuses.  A lane with ``n = 0``
+    reads nothing and is never refused.
+    Returns ``buf_tree``.
     ``transfer_splice.launches`` counts the CUDA launches (one per
     ``_lib.MAX_LEAVES`` leaves)."""
     flat = tree_map(lambda g: g.reshape((-1,) + tuple(g.shape[2:])),
@@ -40,12 +46,25 @@ def ring_transfer(buf: torch.Tensor, gathered: torch.Tensor,
     """One leaf, IN PLACE: ``buf[l, (head[l] + i) % cap] =
     gathered[src_row[l] * max_steal + i]`` for ``i < min(n[l], max_steal,
     cap)``, with ``gathered`` of shape ``(S, ...)``; a source row past ``S``
-    reads row ``S - 1``.  Returns ``buf``."""
+    reads row ``S - 1``, and a negative ``src_row`` counts from the end of
+    the stack, as Python indexing does (below ``-S / max_steal`` it
+    raises, as in :func:`transfer_splice`).  Returns ``buf``."""
     _splice(buf, gathered, head, src_row, n, max_steal)
     return buf
 
 
 def _splice(buf_tree, flat_tree, head, src_row, n, max_steal: int) -> None:
+    leaves = tree_leaves(flat_tree)
+    if src_row.device.type == "cpu" and leaves and max_steal:
+        # Only lanes with rows to splice read the stack.  On the card the
+        # kernel checks each such lane itself (ring_transfer.cu): a
+        # read-back here would stall every call.
+        rows, count = torch.broadcast_tensors(src_row, n)
+        reading = rows[count > 0]
+        lowest = int(reading.min()) if reading.numel() else 0
+        if lowest * max_steal < -leaves[0].shape[0]:
+            raise ValueError(f"src_row {lowest}: its rows would start before "
+                             f"the {leaves[0].shape[0]}-row stack")
     pairs = []
 
     def one(buf, gathered):

@@ -6,9 +6,15 @@
 // for i < min(n[l], max_steal, cap); every other ring row keeps its
 // contents.  `gathered` is the (src_rows)-row stack of every lane's raw
 // window (W * max_steal rows), shared by all thieves, so the selected
-// victim block is never built as a tensor of its own.  A source row past
-// the stack reads its last row, as the plain version does; src_row must be
-// a lane (>= 0): a negative one reads from row 0.
+// victim block is never built as a tensor of its own.  As in the plain
+// version (Python indexing), a source row past the stack reads its last
+// row, and a negative src_row counts from the stack's end: its rows start
+// at src_rows + src_row * max_steal (row src_row + W of a stack of W
+// windows).  A lane with rows to splice whose rows would start before the
+// stack (src_row < -W), where the plain version's indexing raises, traps:
+// the launch fails and PyTorch raises at the next synchronisation (the
+// wrapper raises for CPU tensors; a read-back on the card would stall
+// every call).  A lane with n = 0 reads nothing and is not checked.
 //
 // Bound: the bytes, each spliced row read once and written once (3.35
 // TB/s), and below that a floor of about 2.5-3 us that every launch pays.
@@ -75,7 +81,9 @@ __global__ void __launch_bounds__(ringcopy::kThreads)
     if (c0 >= live * rb) continue;
     const int c1 = c0 + min(ringcopy::kChunk, live * rb - c0);
     uint8_t* ring = leaf.dst + (int64_t)l * ring_bytes;
-    const int64_t first = max((int64_t)src_row[l] * max_steal, (int64_t)0);
+    int64_t first = (int64_t)src_row[l] * max_steal;
+    if (first < 0) first += src_rows;
+    if (first < 0) __trap();
     // bytes of the splice that read the stack; the rest repeats its last row
     const int direct =
         (int)min((int64_t)live, max((int64_t)src_rows - first, (int64_t)0)) *

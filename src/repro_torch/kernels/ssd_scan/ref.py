@@ -14,7 +14,13 @@ negative), B (Q, ns), C (Q, ns) and the carried state (hd, ns):
 ``kernels/ssd_scan/ref.ssd_chunk_ref``); :func:`ssd_chunked` is the whole
 scan at the model layout (port of ``models/ssm.ssd_chunked``), a loop over
 the chunks carrying the float32 ``(B, nh, hd, ns)`` state — the function
-the CUDA kernel (``ssd_scan.cu``) computes.  All arithmetic is float32
+both CUDA kernels compute, and the one the wrapper runs on the CPU.
+:func:`ssd_chunk_parallel` computes it in the tensor-core kernel's
+(``ssd_scan_wgmma.cu``) order, the chunk-parallel form of the SSD paper
+(arXiv:2405.21060, section 6), as three tensor functions:
+:func:`chunk_states` (each chunk's own state), :func:`pass_states` (the
+one sequential step: the state entering each chunk) and
+:func:`chunk_output` (y of every chunk at once).  All arithmetic is float32
 but, in ``ssd_chunked``, the within-chunk cumsum and its differences,
 which are float64 (then exp in float32), as in the CUDA kernel: at chunk
 256 the cumsum reaches about -170, where a float32 step is 1.5e-5, and
@@ -29,7 +35,8 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["ssd_chunk_ref", "ssd_chunked"]
+__all__ = ["ssd_chunk_ref", "ssd_chunked", "ssd_chunk_parallel",
+           "chunk_states", "pass_states", "chunk_output"]
 
 
 def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a, B: torch.Tensor,
@@ -116,3 +123,74 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         ys.append(y_intra + y_inter + xc * D[None, None, :, None])
     y = torch.cat(ys, 1)[:, :S_orig]
     return y.to(x.dtype), state
+
+
+def _chunks(x, dt, Bm, Cm, chunk):
+    """x, dt, Bm, Cm in float32 as ``(B, nc, Q, ...)`` chunks, the ragged
+    tail padded with dt = 0."""
+    S = x.shape[1]
+    pad = -S % chunk
+    f32 = torch.float32
+    out = []
+    for t in (x, dt, Bm, Cm):
+        t = torch.nn.functional.pad(t.to(f32),
+                                    (0, 0) * (t.dim() - 2) + (0, pad))
+        out.append(t.reshape((t.shape[0], -1, chunk) + tuple(t.shape[2:])))
+    return out
+
+
+def chunk_states(xq: torch.Tensor, dtq: torch.Tensor, A: torch.Tensor,
+                 Bq: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per chunk, from a zero state: the float64 cumsum ``cs`` ``(B, nc, Q,
+    nh)`` of dt * a and the chunk's own final state ``(B, nc, nh, hd, ns)``,
+    ``sum_j (x_j dt_j exp(cs_last - cs_j))^T B_j``."""
+    cs = torch.cumsum((dtq * A.float()).double(), 2)
+    w = dtq * torch.exp((cs[:, :, -1:] - cs).float())
+    return cs, torch.einsum("bcjh,bcjhd,bcjn->bchdn", w, xq, Bq)
+
+
+def pass_states(local: torch.Tensor, cs: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The state entering each chunk ``(B, nc, nh, hd, ns)`` (zero for the
+    first) and the final state: ``S_in[c] = S_in[c - 1] exp(cs_last[c - 1])
+    + local[c - 1]``, in float32."""
+    seg = torch.exp(cs[:, :, -1].float())[..., None, None]  # (B, nc, nh,..)
+    state = torch.zeros_like(local[:, 0])
+    s_in = []
+    for c in range(local.shape[1]):
+        s_in.append(state)
+        state = state * seg[:, c] + local[:, c]
+    return torch.stack(s_in, 1), state
+
+
+def chunk_output(xq: torch.Tensor, dtq: torch.Tensor, cs: torch.Tensor,
+                 Bq: torch.Tensor, Cq: torch.Tensor, D: torch.Tensor,
+                 s_in: torch.Tensor) -> torch.Tensor:
+    """y of every chunk ``(B, nc, Q, nh, hd)``: ``(G o L) x + exp(cs) (C
+    S_in^T) + D x`` with ``G = C B^T`` once per batch and chunk, ``L_ij =
+    exp(cs_i - cs_j) dt_j`` for ``j <= i``."""
+    Q = xq.shape[2]
+    causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
+                                   device=xq.device))[:, :, None]
+    G = torch.einsum("bcin,bcjn->bcij", Cq, Bq)
+    diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]      # (B,nc,Q,Q,nh)
+    L = torch.where(causal, torch.exp(diff.float()), 0.0) * dtq[:, :, None]
+    y = torch.einsum("bcij,bcijh,bcjhd->bcihd", G, L, xq)
+    y = y + torch.exp(cs.float())[..., None] * torch.einsum(
+        "bcin,bchdn->bcihd", Cq, s_in)
+    return y + xq * D.float()[:, None]
+
+
+def ssd_chunk_parallel(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
+                       Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor,
+                       chunk: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """:func:`ssd_chunked`'s function (no initial state) in the tensor-core
+    kernel's order: chunk states, state passing, chunk output.  float32
+    throughout (the kernel splits x w and G o L into three bfloat16 parts
+    and S_in into two for its products)."""
+    Bsz, S, nh, hd = x.shape
+    xq, dtq, Bq, Cq = _chunks(x, dt, Bm, Cm, chunk)
+    cs, local = chunk_states(xq, dtq, A, Bq)
+    s_in, final = pass_states(local, cs)
+    y = chunk_output(xq, dtq, cs, Bq, Cq, D, s_in)
+    return y.reshape(Bsz, -1, nh, hd)[:, :S].to(x.dtype), final

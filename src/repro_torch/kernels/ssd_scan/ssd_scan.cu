@@ -1,5 +1,7 @@
 // K7 ssd_scan: the Mamba2 SSD chunked scan for prefill, one launch for all
-// (batch, head) pairs.
+// (batch, head) pairs, on the FP32 cores: the float32 route of ops.ssd and
+// the bfloat16 shapes that the tensor-core kernel (ssd_scan_wgmma.cu) does
+// not take; in bfloat16 also its earlier design, timed beside it.
 //
 // Replaces the TPU kernel repro/kernels/ssd_scan/kernel.py::ssd_scan.  At
 // the model layout, x (B, S, nh, hd), dt (B, S, nh), a and D (nh,), Bm and

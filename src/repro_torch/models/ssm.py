@@ -4,8 +4,9 @@ The chunked SSD algorithm (Dao & Gu, arXiv:2405.21060): split the sequence
 into chunks of length Q; within a chunk the output is an attention-like
 masked product, across chunks a small recurrence over the per-chunk
 states (hd x ns per head) carries the history.  Prefill runs the whole
-scan through K7 (:func:`repro_torch.kernels.ssd_scan.ops.ssd`): the CUDA
-kernel on the card, its plain version (``ssd_chunked``, the JAX package's
+scan through K7 (:func:`repro_torch.kernels.ssd_scan.ops.ssd`): on the card
+its tensor-core kernel in bfloat16 at the SSM archs' widths (the SIMT
+kernel in float32), its plain version (``ssd_chunked``, the JAX package's
 jnp path) on the CPU.  The JAX package's models call the jnp path; the
 port routes it through the kernel, which computes the same function.
 

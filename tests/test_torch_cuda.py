@@ -1,6 +1,6 @@
 """Tests that need the card (``cuda`` marker): each CUDA ring kernel against
 its plain version, DD layer expansion (K5), flash attention (K6) and the
-SSD scan (K7) against their plain versions, the kernel backend against the
+SSD scan (K7, both routes) against their plain versions, the kernel backend against the
 reference backend on CUDA tensors, the solver on the GPU against the same
 solver on the CPU, and the serving models' prefill on the GPU against the
 CPU.
@@ -30,7 +30,9 @@ from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
 from repro_torch.kernels.queue_steal.ops import steal_gather
 from repro_torch.kernels.queue_transfer.ops import transfer_splice
-from repro_torch.kernels.ssd_scan.ops import ssd
+from repro_torch.kernels.ssd_scan.ops import (TENSOR_CORE, route, ssd,
+                                              ssd_simt)
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.zoo import build_model
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -219,15 +221,31 @@ def test_dd_expand_kernel_matches_plain_version():
 @pytest.mark.cuda
 def test_ssd_scan_kernel_matches_plain_version():
     """K7 within atol 5e-5 / rtol 5e-4 in float32 (2e-2 in bfloat16) on the
-    case tables, ragged lengths among them, and at the SSM slice's prefill
-    shape, launching once per call."""
+    case tables and their bfloat16 copies, ragged lengths among them, and
+    at the SSM slice's and zamba2-7b's prefill shapes, counted once per
+    call; the bfloat16 calls at head dim 64, state widths 64 and 128 and
+    chunks of 64 to 256 on the tensor-core route.  Every output also within
+    2e-2 absolute, and on the tensor-core route's calls so is the SIMT
+    kernel in bfloat16, its earlier design, outside ``ssd``'s counters."""
     dev = _cuda()
-    before = ssd.launches
-    err, n = _chip_smoke().ssd_checks(dev, np.random.default_rng(0),
-                                      C.SSD_SLICE)
+    shapes = (C.SSD_SLICE, C.SSD_HYBRID)
+    before, before_tc = ssd.launches, ssd.launches_tc
+    smoke = _chip_smoke()
+    _, n = smoke.ssd_checks(dev, np.random.default_rng(0), shapes)
     torch.cuda.synchronize()
-    assert ssd.launches - before == n
-    assert err < C.SSD_TOL["bfloat16"][0]
+    cases = smoke.ssd_cases(shapes)
+    tc = [route(getattr(torch, c[6]), c[3], c[4], c[5]) == TENSOR_CORE
+          for c in cases]
+    assert ssd.launches - before == n == len(cases)
+    assert ssd.launches_tc - before_tc == sum(tc) == 8
+    rng = np.random.default_rng(0)
+    for case, on_tc in zip(cases, tc):
+        args = C.ssd_inputs(rng, case, dev)
+        plain = ssd_chunked(*args, case[5])
+        for fn in (ssd, ssd_simt) if on_tc else (ssd,):
+            for got, want in zip(fn(*args, chunk=case[5]), plain):
+                err = float((got.float() - want.float()).abs().max())
+                assert err < C.SSD_TOL["bfloat16"][0], (fn.__name__, case)
 
 
 @pytest.mark.cuda

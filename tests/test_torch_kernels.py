@@ -22,6 +22,8 @@ from repro.kernels.queue_steal.ops import steal_gather as jax_steal_gather
 from repro.kernels.queue_transfer.kernel import ring_transfer_supported
 from repro.kernels.queue_transfer.ops import \
     transfer_splice as jax_transfer_splice
+from repro.kernels.queue_transfer.ref import ring_transfer_ref as \
+    jax_transfer_ref
 from repro_torch.kernels import _lib
 from repro_torch.kernels import cases as C
 from repro_torch.kernels.dd_expand.ops import expand_layer_bulk, expand_pool
@@ -30,6 +32,7 @@ from repro_torch.kernels.queue_push.ops import (pop_slice, push_scatter,
 from repro_torch.kernels.queue_push.ref import ring_scatter_ref
 from repro_torch.kernels.queue_steal.ops import ring_gather, steal_gather
 from repro_torch.kernels.queue_transfer.ops import transfer_splice
+from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 from repro_torch.kernels.ssd_scan.ops import ssd
 
 from _torch_parity import assert_same, jax_payload
@@ -182,7 +185,8 @@ def test_ring_transfer_byte_rows_match_pallas(case):
     interpret mode; where the Pallas kernel does not take the lane (n =
     cap needs max_steal = cap, past its geometry rule; a source row past
     the stack, which its index map wraps) against the JAX package's plain
-    reference, whose clamp the port keeps."""
+    reference, whose clamp the port keeps; a negative source row, which
+    that reference indexes from the end of the stack, likewise)."""
     cap, d, w, m, head, src, n, dtype = case
     rng = np.random.default_rng(7)
     jbuf, tbuf = _both(rng, (len(head), cap, d), dtype)
@@ -190,11 +194,53 @@ def test_ring_transfer_byte_rows_match_pallas(case):
     got = tbuf.clone()
     transfer_splice(got, tg, _vec(*head), _vec(*src), _vec(*n), max_steal=m)
     for l in range(len(head)):
-        pallas = ring_transfer_supported(cap, m) and src[l] < w
+        pallas = ring_transfer_supported(cap, m) and 0 <= src[l] < w
         want = jax_transfer_splice(jbuf[l], jg, jnp.int32(head[l]),
                                    jnp.int32(src[l]), jnp.int32(n[l]),
                                    max_steal=m, interpret=pallas)
         assert_same(want, got[l], f"ring_transfer {case} lane {l}")
+
+
+def test_negative_src_row_counts_from_the_stack_end():
+    """A source row in ``[-W, 0)`` reads window ``src_row + W``, as the JAX
+    package's K4 reference indexes it: W 2, max_steal 4, a stack holding
+    100-107, src_row -1 and n 3 splice 104, 105 and 106 at the head; a
+    source row below ``-W`` raises."""
+    stack = torch.arange(100, 108, dtype=I32)[:, None]      # (W * m, 1)
+    buf = torch.zeros((1, 8, 1), dtype=I32)
+    head, src_row, n, m = _vec(6), _vec(-1), _vec(3), 4
+    got = ring_transfer_ref(buf, stack, head, src_row.long() * m, n)
+    want = jax_transfer_ref(jnp.zeros((8, 1), jnp.int32),
+                            jnp.arange(100, 108, dtype=jnp.int32)[:, None],
+                            6, -4, 3)
+    assert_same(want, got[0], "ring_transfer_ref, src_row -1")
+    assert got[0, :, 0].tolist() == [106, 0, 0, 0, 0, 0, 104, 105]
+    spliced = transfer_splice(buf.clone(), stack.view(2, 4, 1), head,
+                              src_row, n, max_steal=m)
+    assert torch.equal(spliced, got)
+    with pytest.raises(ValueError, match="before the 8-row stack"):
+        transfer_splice(buf.clone(), stack.view(2, 4, 1), head, _vec(-3), n,
+                        max_steal=m)
+
+
+def test_lane_with_nothing_to_splice_is_not_refused_for_its_src_row():
+    """A source row below ``-W`` is refused only where rows are spliced: a
+    lane with n = 0 reads nothing, so the wrapper and the plain version
+    leave its ring as it was, and splice the other lanes as usual."""
+    stack = torch.arange(100, 108, dtype=I32)[:, None]      # W 2, m 4
+    buf = torch.zeros((2, 8, 1), dtype=I32)
+    head, src_row, n, m = _vec(6, 0), _vec(-1, -3), _vec(3, 0), 4
+    got = ring_transfer_ref(buf, stack, head, src_row.long() * m, n)
+    assert got[0, :, 0].tolist() == [106, 0, 0, 0, 0, 0, 104, 105]
+    assert not got[1].any()
+    spliced = transfer_splice(buf.clone(), stack.view(2, 4, 1), head,
+                              src_row, n, max_steal=m)
+    assert torch.equal(spliced, got)
+    with pytest.raises(IndexError):
+        ring_transfer_ref(buf, stack, head, src_row.long() * m, _vec(3, 1))
+    with pytest.raises(ValueError, match="src_row -3"):
+        transfer_splice(buf.clone(), stack.view(2, 4, 1), head, src_row,
+                        _vec(3, 1), max_steal=m)
 
 
 @pytest.mark.parametrize("kernel", ["gather", "transfer"])

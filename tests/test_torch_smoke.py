@@ -17,10 +17,11 @@ from repro.core.policy import StealPolicy as JaxPolicy
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 # K6 and K7 timed at CPU-sized shapes (the card times the serving
-# slices' and, for K6, zamba2-7b's head dim 112).
+# slices' and zamba2-7b's: K6 at head dim 112, K7 at state width 64).
 FLASH_SMALL = (2, 128, 128, 4, 2, 32, True, None, None, "bfloat16")
 FLASH_SMALL_112 = (2, 128, 128, 4, 4, 112, True, None, None, "bfloat16")
 SSD_SMALL = (2, 100, 4, 16, 32, 32, "bfloat16")
+SSD_SMALL_64 = (1, 130, 3, 64, 64, 64, "bfloat16")
 
 
 def _chip_smoke():
@@ -34,13 +35,14 @@ def _chip_smoke():
 def test_kernel_phase_checks_every_kernel():
     smoke = _chip_smoke()
     out = smoke.phase_kernels(
-        CPU, flash_shapes=(FLASH_SMALL, FLASH_SMALL_112), ssd_shape=SSD_SMALL)
+        CPU, flash_shapes=(FLASH_SMALL, FLASH_SMALL_112),
+        ssd_shapes=(SSD_SMALL, SSD_SMALL_64))
     assert set(out) == {name for name, _, _ in smoke.KERNELS}
     for name, row in out.items():
         assert row["max_abs_err"] == 0.0 and row["parity_cases"] >= 9, name
         assert row["bound_ms"] > 0
         # no single PyTorch call computes K5's or K7's function
-        if name in ("dd_expand", "ssd_scan"):
+        if name in ("dd_expand", "ssd_scan", "ssd_scan_hd64_ns64"):
             assert row["library_ms"] is None, name
         else:
             assert row["library_ms"] > 0, name
@@ -49,7 +51,11 @@ def test_kernel_phase_checks_every_kernel():
         assert out[name]["bound_by"] == "bytes"  # at this tiny size
         assert out[name]["earlier_ms"] > 0
     assert out["dd_expand"]["parity_cases"] == 12
-    assert out["ssd_scan"]["parity_cases"] == 12
+    for name in ("ssd_scan", "ssd_scan_hd64_ns64"):
+        # the tables, their bfloat16 copies, two shapes in two dtypes
+        assert out[name]["parity_cases"] == 22
+        assert out[name]["earlier_ms"] > 0
+        assert out[name]["launches_per_call"] == 0  # none on the CPU
     # K1 and K4 also timed as the solver calls them: its three-leaf tree
     for name in ("ring_gather", "ring_transfer"):
         row = out[name]["solver_payload"]

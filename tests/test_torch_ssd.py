@@ -6,9 +6,11 @@ interpret mode on the JAX package's case table, against its jnp path
 (``models.ssm.ssd_chunked``) on ragged lengths, which the Pallas kernel
 refuses, and against a token-by-token recurrence, at the JAX package's
 tolerances (``tests/test_kernels.py``: atol 5e-5, rtol 5e-4 for the scan;
-1e-4 / 1e-3 for the recurrence).  The CUDA kernel itself is held against
-the plain version by ``tests/test_torch_cuda.py`` and ``chip_smoke.py``
-on a GPU.
+1e-4 / 1e-3 for the recurrence).  The plain version of the tensor-core
+kernel's chunk-parallel order (``ref.ssd_chunk_parallel``) is held to the
+same on every case, and the wrapper's routing is checked.  The CUDA
+kernels themselves are held against the plain version by
+``tests/test_torch_cuda.py`` and ``chip_smoke.py`` on a GPU.
 """
 
 import jax.numpy as jnp
@@ -20,8 +22,9 @@ from repro.kernels.ssd_scan.kernel import ssd_scan_supported
 from repro.kernels.ssd_scan.ops import ssd as jax_ssd
 from repro.models.ssm import ssd_chunked as jax_ssd_chunked
 from repro_torch.kernels import cases as C
-from repro_torch.kernels.ssd_scan.ops import ssd
-from repro_torch.kernels.ssd_scan.ref import ssd_chunk_ref, ssd_chunked
+from repro_torch.kernels.ssd_scan.ops import SIMT, TENSOR_CORE, route, ssd
+from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_parallel,
+                                              ssd_chunk_ref, ssd_chunked)
 
 CPU = torch.device("cpu")
 
@@ -135,3 +138,46 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     y, fin = ssd(*C.ssd_inputs(np.random.default_rng(5), case, CPU), chunk=8)
     assert y.shape == (1, 20, 2, 48) and fin.shape == (1, 2, 48, 12)
     assert ssd.launches == before
+
+
+@pytest.mark.parametrize("case", C.SSD_CASES + C.SSD_EXTRA_CASES, ids=str)
+def test_chunk_parallel_order_matches_the_scan(case):
+    """Chunk states, state passing, chunk output (the tensor-core kernel's
+    order) give the chunk loop's y and final state, and the JAX package's
+    (its Pallas kernel in interpret mode where it takes the shape, else its
+    jnp path), at the float32 tolerance; every case in float32, since the
+    point is the algorithm."""
+    B, S, nh, hd, ns, Q, _ = case
+    case = case[:-1] + ("float32",)
+    jin, tin = _both(case, seed=6)
+    y, fin = ssd_chunk_parallel(*tin, Q)
+    assert y.shape == (B, S, nh, hd) and fin.shape == (B, nh, hd, ns)
+    atol, rtol = C.SSD_TOL["float32"]
+    y_c, fin_c = ssd_chunked(*tin, Q)
+    torch.testing.assert_close(y, y_c, atol=atol, rtol=rtol)
+    torch.testing.assert_close(fin, fin_c, atol=atol, rtol=rtol)
+    if ssd_scan_supported(S, Q):
+        y_j, fin_j = jax_ssd(*jin, chunk=Q, interpret=True)
+    else:
+        y_j, fin_j = jax_ssd_chunked(*jin, Q)
+    _assert_close(y, y_j, atol, rtol, "y")
+    _assert_close(fin, fin_j, atol, rtol, "final state")
+
+
+def test_route_sends_the_serving_scans_to_the_tensor_cores():
+    """bfloat16 at mamba2-2.7b's and zamba2-7b's widths (and chunks of 64
+    to 256) takes the tensor-core kernel; float32 never does, nor a shape
+    it does not take; other dtypes raise."""
+    for case in (C.SSD_SLICE, C.SSD_HYBRID):
+        _, _, _, hd, ns, Q, dtype = case
+        assert route(getattr(torch, dtype), hd, ns, Q) == TENSOR_CORE
+        assert route(torch.float32, hd, ns, Q) == SIMT
+    for Q in (64, 128, 192):
+        assert route(torch.bfloat16, 64, 128, Q) == TENSOR_CORE
+    for hd, ns, Q in ((32, 128, 256), (64, 32, 256), (64, 128, 100),
+                      (64, 128, 512), (16, 16, 16)):
+        assert route(torch.bfloat16, hd, ns, Q) == SIMT
+    for case in C.SSD_CASES + C.SSD_EXTRA_CASES:
+        assert route(torch.float32, case[3], case[4], case[5]) == SIMT
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        route(torch.float16, 64, 128, 256)

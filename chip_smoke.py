@@ -15,10 +15,16 @@ check that does not hold:
    tables, on K1 and K4's byte path (rows of 4, 12, 20 and 6 bytes at
    every offset mod 16, bases off a 16-byte boundary, segments that lap
    the ring) and payload trees (three mixed-dtype leaves in one launch,
-   twelve in two), and at the solver's geometry (64 lanes, 16,384-row
-   rings, max_steal 8,192, 128-row pushes, 8-row pops) in float32, int32
-   and bfloat16 — and DD layer expansion (K5) bit for bit on its case table
-   and at the solver's pools (512 x 16 nodes).  Holds flash attention
+   twelve in two, for K1, K3 and K4), and at the solver's geometry (64
+   lanes, 16,384-row rings, max_steal 8,192, 128-row pushes, 8-row pops)
+   in float32, int32 and bfloat16 — DD layer expansion (K5) bit for bit on
+   its case table and at the solver's pools (512 x 16 nodes), and K5's
+   redesign, the fused DD explore (restricted and relaxed DDs and the
+   exact frontier of a batch of subproblems in one launch), bit for bit
+   against its plain version on ``cases.EXPLORE_CASES`` (the solver's
+   batch of 512 subproblems at width 16 over 30 layers, exact DDs that
+   complete and that overflow, ties, edge values, widths 4, 5, 8 and
+   32).  Holds flash attention
    (K6: bfloat16 through the tensor-core kernel, float32 through the SIMT
    kernel) within the JAX package's tolerances (2e-5 float32, 2e-2
    bfloat16) on its case tables (head dims 32 to 256, 112 among them), at
@@ -34,8 +40,9 @@ check that does not hold:
    version and a library yardstick (``index_select`` / ``index_copy_``;
    SDPA for K6; none for K5 and K7) with CUDA events; K6 and K7 at both
    of their shapes, beside the SIMT kernel's bfloat16 time (their earlier
-   design); K1 and K4 also as the solver calls them, on its three-leaf
-   payload (``solver_payload``).
+   design); K1, K3 and K4 also as the solver calls them, on its three-leaf
+   payload (``solver_payload``); the fused explore at the solver's batch
+   beside K5's time per layer (its earlier design).
 2. The queue at the paper's backlog.  64 lanes of 16,384 rows, half of
    them holding 10,000 seeded unique items; 8 rebalancing supersteps on the
    kernel backend under the compact and the dense exchange and on the
@@ -43,8 +50,9 @@ check that does not hold:
    the three runs, and every item must survive exactly once.
 3. The DD solver at full size.  ``parallel_solve`` on a 30-item knapsack
    with 64 workers; it must reproduce the JAX package's integer results,
-   and each of the four ring kernels and K5 must have launched during
-   that run.
+   and each of the four ring kernels and the fused explore must have
+   launched during that run: the fused explore and K3 once per worker
+   body (one launch per payload tree for K3), K5 per layer not at all.
 4. Serving at full width.  The wave engine (two replicas, one at a
    quarter speed, behind the bulk-steal admission master) serves 24
    requests of 128-1,024 prompt tokens and 16 new tokens each with
@@ -126,18 +134,24 @@ SERVE_TOL_BF16 = 2e-2  # reported: share of logits outside it
 SERVE_BF16_RATIO = 1.1
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+# int32 operations: half the data sheet's 67 TFLOP/s float32 rate outside
+# the tensor cores, as a Hopper SM has 64 int32 lanes to 128 float32 ones
+# (NVIDIA's Hopper architecture white paper).
+PEAK_INT32_OPS = 33.5e12
 
 KERNELS = (
     ("ring_gather", "src/repro_torch/kernels/queue_steal/ring_gather.cu",
      "src/repro/kernels/queue_steal/kernel.py:56"),
     ("ring_scatter", "src/repro_torch/kernels/queue_push/ring_push.cu",
      "src/repro/kernels/queue_push/kernel.py:85"),
-    ("ring_slice", "src/repro_torch/kernels/queue_push/ring_push.cu",
+    ("ring_slice", "src/repro_torch/kernels/queue_push/ring_slice.cu",
      "src/repro/kernels/queue_push/kernel.py:155"),
     ("ring_transfer",
      "src/repro_torch/kernels/queue_transfer/ring_transfer.cu",
      "src/repro/kernels/queue_transfer/kernel.py:79"),
-    ("dd_expand", "src/repro_torch/kernels/dd_expand/expand.cu",
+    # K5's redesign, the fused DD explore (K5 per layer is its earlier
+    # design, timed beside it)
+    ("dd_expand", "src/repro_torch/kernels/dd_expand/explore.cu",
      "src/repro/kernels/dd_expand/kernel.py:53"),
     ("flash_attention",
      "src/repro_torch/kernels/flash_attention/flash_attention_wgmma.cu",
@@ -157,8 +171,9 @@ KERNELS = (
 
 def _port():
     """The kernel library and the launch counters of the solver path's
-    kernels (imported late: the script must fail cleanly where there is no
-    GPU or no checkout around it)."""
+    kernels (``dd_expand``: K5's redesign, the fused explore), imported
+    late: the script must fail cleanly where there is no GPU or no checkout
+    around it."""
     sys.path.insert(0, str(ROOT / "src"))
     import repro_torch.kernels._lib as lib
     from repro_torch.kernels.dd_expand import ops as expand_ops
@@ -169,7 +184,14 @@ def _port():
                  "ring_scatter": push_ops.push_scatter,
                  "ring_slice": push_ops.pop_slice,
                  "ring_transfer": transfer_ops.transfer_splice,
-                 "dd_expand": expand_ops.expand_pool}
+                 "dd_expand": expand_ops.explore_fused}
+
+
+def _off_path():
+    """Launch counters of kernels the solver path must not launch: K5 per
+    layer, the fused explore's earlier design."""
+    from repro_torch.kernels.dd_expand import ops as expand_ops
+    return {"dd_expand_layer": expand_ops.expand_pool}
 
 
 def check(cond: bool, what: str) -> None:
@@ -370,6 +392,24 @@ def tree_cases(device, rng, leaves):
                                  n.clamp(0, min(m, cap))))
 
 
+def slice_tree_cases(device, rng, leaves):
+    """K3 on one payload tree at ``cases.SLICE_TREE_CASE``'s geometry,
+    through the tree wrapper (one launch per eight leaves): yields
+    ``(kernel name, what, kernel_out, plain_out)`` per leaf."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.queue_push.ops import pop_slice
+    from repro_torch.kernels.queue_push.ref import ring_slice_ref
+
+    cap, m, lo, size, n = C.SLICE_TREE_CASE
+    rings = {k: C.to_tensor(a, leaves[k][1], device)
+             for k, a in C.tree_payload(rng, (len(lo), cap), leaves).items()}
+    lo, size, n = (_vec(device, c) for c in (lo, size, n))
+    got = pop_slice(rings, lo, size, n, max_n=m)
+    for k, ring in rings.items():
+        yield ("ring_slice", f"tree of {len(leaves)} leaves: {k}", got[k],
+               ring_slice_ref(ring, lo, size, n, m))
+
+
 def many_leaves():
     """Twelve leaves (``cases.TREE_LEAVES`` four times): two launches."""
     from repro_torch.kernels import cases as C
@@ -426,6 +466,8 @@ def kernel_cases(device, rng):
     yield from byte_cases(device, rng)
     yield from tree_cases(device, rng, C.TREE_LEAVES)
     yield from tree_cases(device, rng, many_leaves())
+    yield from slice_tree_cases(device, rng, C.TREE_LEAVES)
+    yield from slice_tree_cases(device, rng, many_leaves())
     for dt in ("float32", "int32", "bfloat16"):
         lo = rng.integers(0, CAP, LANES)
         size = rng.integers(0, CAP + 1, LANES)
@@ -540,16 +582,19 @@ def kernel_timings(device, rng, timer):
 
 
 def solver_payload_timings(device, rng, timer):
-    """K1 and K4 as the solver calls them, on its payload tree of three
+    """K1, K3 and K4 as the solver calls them, on its payload tree of three
     int32 leaves (layer, state, value) of 64 x 16,384-row rings: K1 reads
-    the compact exchange's window (n = max_steal on every lane), K4
-    splices a superstep's mean transfer, 15 rows into each of 11 of the 64
-    lanes (phase 3 moves 6,850 rows in 472 steals over 44 supersteps).
+    the compact exchange's window (n = max_steal on every lane), K3 pops 8
+    rows on every lane, K4 splices a superstep's mean transfer, 15 rows
+    into each of 11 of the 64 lanes (phase 3 moves 6,850 rows in 472
+    steals over 44 supersteps).
     One call of the tree wrapper each, checked bit for bit against the
     plain versions leaf by leaf; ``launches_per_call`` counts the
     wrapper's launches in one call.  No single PyTorch call moves a
     tree."""
     import torch
+    from repro_torch.kernels.queue_push.ops import pop_slice
+    from repro_torch.kernels.queue_push.ref import ring_slice_ref
     from repro_torch.kernels.queue_steal.ops import steal_gather
     from repro_torch.kernels.queue_steal.ref import ring_gather_ref
     from repro_torch.kernels.queue_transfer.ops import transfer_splice
@@ -569,6 +614,8 @@ def solver_payload_timings(device, rng, timer):
     n[rng.choice(LANES, thieves, replace=False)] = rows
     n = _vec(device, n)
     src = _vec(device, rng.permutation(LANES))
+    size = _vec(device, rng.integers(POP_ROWS, CAP + 1, LANES))
+    pop = _vec(device, np.full(LANES, POP_ROWS))
     cursor = 4 * LANES
     specs = {
         "ring_gather": (
@@ -578,6 +625,12 @@ def solver_payload_timings(device, rng, timer):
             3 * (2 * LANES * MAX_STEAL * 4) + 2 * cursor,
             "the solver's 3 int32 leaves, window at lo, n = max_steal on "
             "every lane"),
+        "ring_slice": (
+            lambda t: pop_slice(t, lo, size, pop, max_n=POP_ROWS),
+            lambda t: {k: ring_slice_ref(v, lo, size, pop, POP_ROWS)
+                       for k, v in t.items()},
+            3 * (2 * LANES * POP_ROWS * 4) + 3 * cursor,
+            "the solver's 3 int32 leaves, 8-row pop on every lane"),
         "ring_transfer": (
             lambda t: transfer_splice(t, stacks, lo, src, n,
                                       max_steal=MAX_STEAL),
@@ -588,7 +641,8 @@ def solver_payload_timings(device, rng, timer):
             f"the solver's 3 int32 leaves, {rows} rows into {thieves} of "
             f"{LANES} lanes"),
     }
-    counters = {"ring_gather": steal_gather, "ring_transfer": transfer_splice}
+    counters = {"ring_gather": steal_gather, "ring_slice": pop_slice,
+                "ring_transfer": transfer_splice}
     out = {}
     for name, (kern, plain, nbytes, what) in specs.items():
         before = counters[name].launches
@@ -747,6 +801,101 @@ def expand_timing(device, rng, timer):
                 device_time_clean=clean and plain_clean)
 
 
+def _explore_args(device, rng, case):
+    """``(subproblems, valid, weights, profits)`` of an ``EXPLORE_CASES``
+    entry, on ``device``."""
+    import torch
+    from repro_torch.core.dd.bnb import Subproblem
+    from repro_torch.kernels import cases as C
+    x = {k: torch.from_numpy(v).to(device)
+         for k, v in C.explore_inputs(rng, case).items()}
+    return (Subproblem(x["layer"], x["state"], x["value"]), x["valid"],
+            x["weights"], x["profits"])
+
+
+def _compare_explore(got, want, what: str) -> float:
+    err = 0.0
+    for k in ("primal", "dual", "exact"):
+        err = max(err, _compare(got[k], want[k], f"{what} {k}"))
+    for f in ("layer", "state", "value"):
+        err = max(err, _compare(getattr(got["children"], f),
+                                getattr(want["children"], f),
+                                f"{what} children {f}"))
+    return err
+
+
+def explore_checks(device, rng):
+    """K5's redesign, the fused DD explore (``bnb.explore_batch``), against
+    its plain version (``bnb.explore_batch_plain``) bit for bit on
+    ``cases.EXPLORE_CASES``; returns (max abs err, number of cases)."""
+    from repro_torch.core.dd.bnb import explore_batch, explore_batch_plain
+    from repro_torch.kernels import cases as C
+
+    err = 0.0
+    for case in C.EXPLORE_CASES:
+        args = _explore_args(device, rng, case)
+        kw = dict(width=case[2], n_vars=case[3])
+        err = max(err, _compare_explore(explore_batch(*args, **kw),
+                                        explore_batch_plain(*args, **kw),
+                                        f"explore {case[0]}"))
+    return err, len(C.EXPLORE_CASES)
+
+
+def explore_ops(subs, valid, out, *, width: int, n_vars: int) -> int:
+    """Integer operations the explore of these subproblems needs: for each
+    valid one, the layers its restricted and relaxed DDs walk (from its
+    start layer to the end) and its exact DD walks (to its first overflow,
+    which sets its children's layer), each layer of a pool costing 4 per
+    child for the arcs (2W children) and two sorts of the 2W children, 2W
+    log2(2W) comparisons each: the merge of duplicate states and the top-k
+    by value."""
+    import torch
+    first = subs.layer.clamp(min=0).long().cpu()
+    walk = (n_vars - first).clamp(min=0)
+    stop = out["children"].layer.amax(-1).long().cpu() + 1
+    exact_walk = torch.where(out["exact"].cpu(), walk, stop - first)
+    layers = int((2 * walk + exact_walk)[valid.cpu()].sum())
+    k = 2 * width
+    return layers * (4 * k + 2 * k * int(np.ceil(np.log2(k))))
+
+
+def explore_timing(device, rng, timer):
+    """The fused explore and its plain version on the solver's batch
+    (``EXPLORE_CASES[0]``: 512 subproblems, width 16, 30 layers), checked
+    bit for bit first, and the bound: the larger of the bytes (the (B,)
+    inputs, weights and profits read once, the bounds, flags and (B, W)
+    children written once) at the memory rate and :func:`explore_ops` at
+    the int32 rate; no single PyTorch call computes the explore."""
+    from repro_torch.core.dd.bnb import explore_batch, explore_batch_plain
+    from repro_torch.kernels import cases as C
+
+    case = C.EXPLORE_CASES[0]
+    what, b, width, n_vars = case[:4]
+    args = _explore_args(device, rng, case)
+    kw = dict(width=width, n_vars=n_vars)
+    plain = explore_batch_plain(*args, **kw)
+    _compare_explore(explore_batch(*args, **kw), plain, f"explore {what}")
+    nbytes = b * (3 * 4 + 1) + 2 * n_vars * 4 + b * (2 * 4 + 1) \
+        + 3 * b * width * 4
+    ops = explore_ops(args[0], args[1], plain, **kw)
+    byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
+    op_ms = ops / PEAK_INT32_OPS * 1e3
+    ms, clean = timer.ms(lambda: explore_batch(*args, **kw))
+    plain_ms, plain_clean = timer.ms(lambda: explore_batch_plain(*args, **kw),
+                                     n=5)
+    # The plain version's ~5,000 launches a call fill the launch queue
+    # behind the timer's sleep, so its time is the host's launch rate:
+    # its flag is reported apart from the kernel's.
+    return dict(ms=ms, plain_ms=plain_ms, library_ms=None,
+                bound_ms=max(byte_ms, op_ms),
+                bound_by="operations" if op_ms >= byte_ms else "bytes",
+                bound_bytes=nbytes, bound_ops=ops,
+                timed_at=f"{b} subproblems ({int(args[1].sum())} valid), "
+                         f"width {width}, {n_vars} layers",
+                device_time_clean=clean,
+                plain_device_time_clean=plain_clean)
+
+
 def ssd_cases(shapes):
     """K7's parity cases: the case tables, bfloat16 copies of the JAX
     package's table (the bfloat16 route at its shapes), and ``shapes`` in
@@ -866,7 +1015,11 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None,
         counts[name] = counts.get(name, 0) + 1
     flash_shapes = flash_shapes or (C.FLASH_SLICE, C.FLASH_ZAMBA)
     ssd_shapes = ssd_shapes or (C.SSD_SLICE, C.SSD_HYBRID)
-    errs["dd_expand"], counts["dd_expand"] = expand_checks(device, rng)
+    # the dd_expand row: K5's redesign, the fused explore, and K5 itself
+    fused_err, fused_n = explore_checks(device, rng)
+    layer_err, layer_n = expand_checks(device, rng)
+    errs["dd_expand"] = max(fused_err, layer_err)
+    counts["dd_expand"] = fused_n + layer_n
     errs["flash_attention"], counts["flash_attention"] = flash_checks(
         device, rng, flash_shapes)
     errs["ssd_scan"], counts["ssd_scan"] = ssd_checks(device, rng,
@@ -876,7 +1029,10 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None,
     timings = kernel_timings(device, rng, timer)
     for name, row in solver_payload_timings(device, rng, timer).items():
         timings[name]["solver_payload"] = row
-    timings["dd_expand"] = expand_timing(device, rng, timer)
+    per_layer = expand_timing(device, rng, timer)
+    timings["dd_expand"] = dict(explore_timing(device, rng, timer),
+                                earlier_ms=per_layer["ms"],
+                                earlier=per_layer)
     for name, shape in zip(("flash_attention", "flash_attention_hd112"),
                            flash_shapes):
         timings[name] = flash_timing(device, rng, timer, shape)
@@ -976,10 +1132,10 @@ def phase_queue(device, *, lanes: int, capacity: int, backlog: int,
 
 def phase_solver(device, counters, *, n_items: int, seed: int,
                  n_workers: int, explore_width: int, batch: int,
-                 capacity: int, max_steal: int, expect=None):
-    """The solver on the kernel routing; the launch counters of the ring
-    kernels and K5 are zeroed just before the run and read just after
-    it."""
+                 capacity: int, max_steal: int, expect=None, off_path=None):
+    """The solver on the kernel routing; the launch counters of the path's
+    kernels (``counters``: each must launch) and of ``off_path`` (none may)
+    are zeroed just before the run and read just after it."""
     from repro_torch.core.dd.knapsack import dp_solve, random_instance
     from repro_torch.core.dd.parallel import parallel_solve
     from repro_torch.core.policy import StealPolicy
@@ -994,7 +1150,8 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
                               capacity=capacity, policy=policy,
                               backend="cuda", device=device)
 
-    for fn in counters.values():
+    off_path = off_path or {}
+    for fn in (*counters.values(), *off_path.values()):
         fn.launches = 0
     sync(device)
     t0 = time.perf_counter()
@@ -1002,6 +1159,7 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
     sync(device)
     wall = time.perf_counter() - t0
     launches = {name: fn.launches for name, fn in counters.items()}
+    off = {name: fn.launches for name, fn in off_path.items()}
 
     got = dict(optimum=opt, supersteps=st["supersteps"],
                explored=st["explored"], transferred=st["transferred"],
@@ -1013,12 +1171,15 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
     if device.type == "cuda":
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the solver path")
+    for name, n in off.items():
+        check(n == 0, f"{name} launched {n} times on the solver path")
     t0 = time.perf_counter()
     solve()
     sync(device)
     warm = time.perf_counter() - t0
-    return {**got, "launches": launches, "wall_s_first": wall,
-            "wall_s": warm, "ms_per_superstep": warm * 1e3 / st["supersteps"]}
+    return {**got, "launches": launches, "launches_off_path": off,
+            "wall_s_first": wall, "wall_s": warm,
+            "ms_per_superstep": warm * 1e3 / st["supersteps"]}
 
 
 # ------------------------------------------------ phases 4-6: serving
@@ -1330,8 +1491,15 @@ def main() -> int:
                         backlog=CONFIG.bench_initial_size,
                         max_steal=CONFIG.max_steal, rounds=8)
     print(json.dumps({"phase": "queue", "result": queue}), flush=True)
-    solver = phase_solver(device, counters, expect=PHASE3_EXPECT, **PHASE3)
+    solver = phase_solver(device, counters, expect=PHASE3_EXPECT,
+                          off_path=_off_path(), **PHASE3)
     print(json.dumps({"phase": "solver", "result": solver}), flush=True)
+    # each worker body: one pop (one K3 launch for the payload tree) and
+    # one fused explore
+    n = solver["launches"]
+    check(n["dd_expand"] == n["ring_slice"],
+          f"the fused explore launched {n['dd_expand']} times and K3 "
+          f"{n['ring_slice']}, not once each per worker body")
     from repro_torch import configs
     serving = {}
     for phase, fn, kw in (("serve", phase_serve, PHASE4),
@@ -1365,7 +1533,9 @@ def main() -> int:
             "bound_by": k["bound_by"], "library_ms": k["library_ms"],
             "parity_cases": k["parity_cases"], "timed_at": k["timed_at"],
             "device_time_clean": k["device_time_clean"],
-            **{key: k[key] for key in ("earlier_ms", "launches_per_call",
+            **{key: k[key] for key in ("earlier_ms", "earlier",
+                                       "launches_per_call", "bound_ops",
+                                       "plain_device_time_clean",
                                        "solver_payload") if key in k}})
     print(json.dumps({"kernels": rows}))
     print(card)

@@ -7,8 +7,9 @@ Runs ``repro_torch.core.dd.parallel.parallel_solve`` on the configuration
 timed, once under ``torch.profiler``.  Prints one JSON line with the wall
 time per superstep, the device's busy time (union of kernel intervals) and
 idle share, the kernel launches per superstep, the ring kernels' share of
-device time, DD layer expansion's (K5) launches and device time, and the
-kernels that take the most device time.
+device time, the fused DD explore's (K5's redesign) launches and device
+time beside those of K5 per layer (its earlier design, 0 on this path
+now), and the kernels that take the most device time.
 
     python3 scripts/profile_solver.py
 """
@@ -110,10 +111,11 @@ def main() -> int:
         "launches_per_superstep": n_launches / steps,
         "kernel_ms": kernel_ms,
         "ring_kernel_ms": ring_ms,
-        "dd_expand_launches": sum(v[0] for k, v in by_name.items()
-                                  if "expand_kernel" in k),
-        "dd_expand_ms": sum(v[1] for k, v in by_name.items()
-                            if "expand_kernel" in k),
+        **{f"{name}_{what}": sum(v[i] for k, v in by_name.items()
+                                 if kernel in k)
+           for name, kernel in (("dd_explore", "explore_kernel"),
+                                ("dd_expand_layer", "expand_kernel"))
+           for i, what in enumerate(("launches", "ms"))},
         "top_kernels": [{"name": k[:80], "launches": v[0], "ms": v[1]}
                         for k, v in top],
     }))

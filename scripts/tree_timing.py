@@ -5,10 +5,11 @@ it, for comparing two trees in one call on one card.
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``)
 and runs this checkout's ``chip_smoke.py`` code on it.  ``--part``:
 
-- ``ring``: phase 1's ring kernel rows (K1-K4 at the solver's shapes, K1
-  and K4 also on the solver's three-leaf payload), phase 2 (the backlog
-  supersteps) and phase 3 (the DD solver, checked against the JAX
-  package's integers, with each kernel's launches);
+- ``ring``: phase 1's ring kernel rows (K1-K4 at the solver's shapes, K1,
+  K3 and K4 also on the solver's three-leaf payload), phase 2 (the
+  backlog supersteps) and phase 3 (the DD solver, checked against the JAX
+  package's integers, with each kernel's launches: the fused explore's,
+  or K5's per layer on a tree before it);
 - ``ssd``: K7 (``ssd``, on whichever route the tree gives bfloat16) at
   the SSM slice's and zamba2-7b's prefill shapes, checked against the
   plain version first, then phase 5 (mamba2-2.7b serving 24 requests) and
@@ -18,8 +19,8 @@ Prints one JSON line tagged with ``--label`` and the card.  To compare a
 parent commit with this one, unpack the parent into a directory that
 ``.gitignore`` lists and run, in turns::
 
-    python3 scripts/tree_timing.py --part ssd --src <parent>/src --label parent
-    python3 scripts/tree_timing.py --part ssd --label change
+    python3 scripts/tree_timing.py --part ring --src <old>/src --label parent
+    python3 scripts/tree_timing.py --part ring --label change
 """
 
 from __future__ import annotations
@@ -47,10 +48,26 @@ SERVE_KEYS = ("prefill_waves", "prefill_ms", "prefill_ms_mean",
               "first_wave_bf16_mean_dev_from_f32")
 
 
+def solver_counters() -> dict:
+    """The launch counters of the solver path's kernels in the tree imported
+    from ``--src``: ``dd_expand`` is the fused explore where the tree has
+    it, else K5 once per layer (the trees before the fused explore)."""
+    from repro_torch.kernels.dd_expand import ops as expand_ops
+    from repro_torch.kernels.queue_push import ops as push_ops
+    from repro_torch.kernels.queue_steal import ops as steal_ops
+    from repro_torch.kernels.queue_transfer import ops as transfer_ops
+    return {"ring_gather": steal_ops.steal_gather,
+            "ring_scatter": push_ops.push_scatter,
+            "ring_slice": push_ops.pop_slice,
+            "ring_transfer": transfer_ops.transfer_splice,
+            "dd_expand": getattr(expand_ops, "explore_fused",
+                                 expand_ops.expand_pool)}
+
+
 def ring_part(smoke, device) -> dict:
     from repro_torch.configs.paper_lfq import CONFIG
 
-    _, counters = smoke._port()  # the modules already imported from src
+    counters = solver_counters()
     rng = np.random.default_rng(0)
     timer = smoke.Timer(device)
     kernels = smoke.kernel_timings(device, rng, timer)

@@ -6,9 +6,13 @@ exact DD overflows the width budget — an exact frontier whose nodes become
 the child subproblems (bulk generation: up to ``width`` children per
 explore, the workload the paper's queue is built for).
 
-The JAX package writes ``explore`` for one subproblem and ``vmap``s it;
-here :func:`explore` takes a batch along the leading axis, and the layer
-``lax.scan`` is a Python loop over the ``n_vars`` layers.  The sequential
+The JAX package writes ``explore`` for one subproblem and ``vmap``s it.
+Here :func:`explore_batch` on CUDA tensors is one launch of K5's redesign,
+the fused DD explore (``kernels/dd_expand/explore.cu``): every layer of
+all three DDs for the whole batch.  Its plain version,
+:func:`explore_batch_plain`, takes the batch along the leading axis with
+the layer ``lax.scan`` as a Python loop over the ``n_vars`` layers, in
+plain PyTorch on any device; CPU tensors take it.  The sequential
 ``solve`` oracle is not ported yet.
 """
 
@@ -19,10 +23,12 @@ from typing import Dict, NamedTuple
 import torch
 
 from repro_torch.core.dd.diagram import (DEAD, NEG, build_bounds,
-                                         expand_layer, reduce_exact,
+                                         expand_layer_plain, reduce_exact,
                                          root_pool, where_pool)
+from repro_torch.kernels.dd_expand import ops as dd_expand
 
-__all__ = ["Subproblem", "exact_frontier", "explore", "explore_batch"]
+__all__ = ["Subproblem", "exact_frontier", "explore", "explore_batch",
+           "explore_batch_plain"]
 
 
 class Subproblem(NamedTuple):
@@ -48,7 +54,7 @@ def exact_frontier(root: Subproblem, weights, profits, *, width: int,
     for i in range(n_vars):
         active = (root.layer <= i) & ~done
         new_pool, overflow = reduce_exact(
-            expand_layer(pool, weights[i], profits[i]), width)
+            expand_layer_plain(pool, weights[i], profits[i]), width)
         overflow = overflow & active
         # On overflow: freeze the PARENT pool as the frontier at layer i.
         frontier = where_pool(overflow, pool, frontier)
@@ -87,7 +93,24 @@ def explore(sub: Subproblem, weights, profits, *, width: int,
 def explore_batch(subs: Subproblem, valid: torch.Tensor, weights, profits,
                   *, width: int, n_vars: int) -> Dict[str, object]:
     """:func:`explore` over an ``(E,)`` batch; invalid rows produce
-    nothing."""
+    nothing.  On CUDA tensors one launch of the fused DD explore
+    (``dd_expand.explore_fused``, pool widths 2 to 32); on CPU tensors
+    :func:`explore_batch_plain`.  Both give the same integers."""
+    if subs.state.device.type == "cpu":
+        return explore_batch_plain(subs, valid, weights, profits,
+                                   width=width, n_vars=n_vars)
+    primal, dual, exact, *children = dd_expand.explore_fused(
+        subs.layer, subs.state, subs.value, valid, weights, profits,
+        width=width, n_vars=n_vars)
+    return {"primal": primal, "dual": dual, "exact": exact,
+            "children": Subproblem(*children)}
+
+
+def explore_batch_plain(subs: Subproblem, valid: torch.Tensor, weights,
+                        profits, *, width: int, n_vars: int
+                        ) -> Dict[str, object]:
+    """:func:`explore_batch` in plain PyTorch, on any device: what the
+    fused kernel is held against."""
     out = explore(subs, weights, profits, width=width, n_vars=n_vars)
     primal = torch.where(valid, out["primal"], NEG)
     dual = torch.where(valid, out["dual"], NEG)

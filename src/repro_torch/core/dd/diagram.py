@@ -5,9 +5,12 @@ A DD layer is a fixed-width node pool, batched over any leading dims:
   states (..., W) int32 — remaining capacity (-1 = dead slot)
   values (..., W) int32 — longest path value into the node
 
-``expand_layer`` generates both arcs for every node, through K5
-(``kernels/dd_expand``), the solver's one hand-written kernel outside the
-queue.  Reductions:
+``expand_layer`` generates both arcs for every node through K5
+(``kernels/dd_expand/expand.cu``).  The reductions and the bounds built
+from them are plain PyTorch on any device and expand through K5's plain
+version: on the card the solver runs them all at once in K5's redesign,
+the fused explore (``bnb.explore_batch``), and these are its plain
+version.  Reductions:
 
   exact:      merge duplicate states (keep max value); reports overflow
               when distinct states exceed the pool width.
@@ -29,8 +32,10 @@ from typing import NamedTuple, Tuple
 import torch
 
 from repro_torch.kernels.dd_expand import ops as dd_expand
+from repro_torch.kernels.dd_expand.ref import expand_ref
 
-__all__ = ["Pool", "DEAD", "NEG", "expand_layer", "reduce_exact",
+__all__ = ["Pool", "DEAD", "NEG", "expand_layer", "expand_layer_plain",
+           "reduce_exact",
            "reduce_restricted", "reduce_relaxed", "root_pool", "where_pool",
            "build_bounds"]
 
@@ -50,6 +55,11 @@ def expand_layer(pool: Pool, w, p) -> Pool:
     (``kernels/dd_expand``): one launch on the card, its plain version on
     the CPU."""
     return Pool(*dd_expand.expand_pool(pool.states, pool.values, w, p))
+
+
+def expand_layer_plain(pool: Pool, w, p) -> Pool:
+    """:func:`expand_layer` through K5's plain version, on any device."""
+    return Pool(*expand_ref(pool.states, pool.values, w, p))
 
 
 def _dedup_max(states: torch.Tensor, values: torch.Tensor
@@ -140,17 +150,18 @@ def build_bounds(root_state: torch.Tensor, root_value: torch.Tensor,
 
     Walks all ``n_vars`` layers; layers before a root's ``start_layer`` are
     masked no-ops, so roots at different depths share one batch.  Returns
-    ``(B,)`` (primal, dual) bounds for root_value + completion.
+    ``(B,)`` (primal, dual) bounds for root_value + completion.  Plain
+    PyTorch on any device.
     """
     res = root_pool(root_state, root_value, width)
     rel = root_pool(root_state, root_value, width)
     for i in range(n_vars):
         active = start_layer <= i
         w, p = weights[i], profits[i]
-        res = where_pool(active, reduce_restricted(expand_layer(res, w, p),
-                                                   width), res)
-        rel = where_pool(active, reduce_relaxed(expand_layer(rel, w, p),
-                                                width), rel)
+        res = where_pool(active, reduce_restricted(
+            expand_layer_plain(res, w, p), width), res)
+        rel = where_pool(active, reduce_relaxed(
+            expand_layer_plain(rel, w, p), width), rel)
     primal = torch.where(res.states >= 0, res.values, NEG).amax(-1)
     dual = torch.where(rel.states >= 0, rel.values, NEG).amax(-1)
     return primal, dual

@@ -12,9 +12,10 @@ body sees all W lanes at once (the runtime's lane contract) and drives the
 runtime's resolved :class:`~repro_torch.core.ops.BulkOps` backend, so on
 the ``"cuda"`` routing each superstep is:
 
-  1. ops.pop_bulk(E)      — one K3 launch per payload leaf, all lanes
+  1. ops.pop_bulk(E)      — one K3 launch for the payload tree, all lanes
   2. explore_batch        — restricted/relaxed DD bounds + exact frontier
-                            for all W x E popped subproblems at once
+                            for all W x E popped subproblems: one launch
+                            of the fused DD explore (K5's redesign)
   3. incumbent            — max over lanes (the JAX package's ``lax.pmax``)
   4. prune + compact      — children of dominated nodes are dropped
   5. ops.push(children)   — one K2 launch per payload leaf, in place

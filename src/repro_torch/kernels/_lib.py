@@ -1,7 +1,7 @@
 """Build and load the hand-written CUDA kernels (the ring kernels K1-K4,
-DD layer expansion K5, flash attention K6 and the SSD scan K7 — each of
-K6 and K7 a tensor-core kernel for bfloat16 and a SIMT kernel for
-float32).
+DD layer expansion K5 and the fused DD explore built on it, flash
+attention K6 and the SSD scan K7 — each of K6 and K7 a tensor-core kernel
+for bfloat16 and a SIMT kernel for float32).
 
 The ``*.cu`` sources beside the kernel packages have a plain C interface.
 At first use, :func:`library` compiles each source with ``nvcc`` for
@@ -38,12 +38,14 @@ BUILD_DIR = _HERE / "_build"
 SOURCES = (
     _HERE / "queue_steal" / "ring_gather.cu",
     _HERE / "queue_push" / "ring_push.cu",
+    _HERE / "queue_push" / "ring_slice.cu",
     _HERE / "queue_transfer" / "ring_transfer.cu",
     _HERE / "flash_attention" / "flash_attention.cu",
     _HERE / "flash_attention" / "flash_attention_wgmma.cu",
     _HERE / "ssd_scan" / "ssd_scan.cu",
     _HERE / "ssd_scan" / "ssd_scan_wgmma.cu",
     _HERE / "dd_expand" / "expand.cu",
+    _HERE / "dd_expand" / "explore.cu",
 )
 HEADERS = (_HERE / "ring_rows.cuh", _HERE / "ring_copy.cuh",
            _HERE / "hopper.cuh")
@@ -52,11 +54,11 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
-MAX_LEAVES = 8  # payload leaves per launch of K1 / K4 (ring_copy.cuh)
+MAX_LEAVES = 8  # payload leaves per launch of K1, K3, K4 (ring_copy.cuh)
 
 
 class RingLeaf(ctypes.Structure):
-    """``ringcopy::RingLeaf``: one payload leaf of a K1 / K4 launch."""
+    """``ringcopy::RingLeaf``: one payload leaf of a K1, K3 or K4 launch."""
     _fields_ = [("src", _P), ("dst", _P), ("row_bytes", _I)]
 
 
@@ -70,7 +72,7 @@ _SIGNATURES = {
     # name: argument types after the C prototypes in the .cu sources
     "rk_ring_gather": (RingTree, _P, _P, _I, _I, _I, _P),
     "rk_ring_scatter": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
-    "rk_ring_slice": (_P, _P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
+    "rk_ring_slice": (RingTree, _P, _P, _P, _I, _I, _I, _P),
     "rk_ring_transfer": (RingTree, _P, _P, _P, _I, _I, _I, _I, _P),
     "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
                            _I, _I, _I, _I, _F, _P),
@@ -81,6 +83,8 @@ _SIGNATURES = {
     "ss_ssd_scan_wgmma": (_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                           _I, _I, _I, _I, _P),
     "dd_expand": (_P, _P, _P, _L, _P, _L, _P, _P, _I, _I, _P),
+    "dd_explore": (_P, _P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _P, _P,
+                   _P, _P),
 }
 
 _LIB = None
@@ -185,13 +189,13 @@ def word_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
 
 
 def ring_trees(pairs, rows: int):
-    """The ``(src, dst)`` leaf pairs of a K1 / K4 launch as :class:`RingTree`
-    descriptors of at most ``MAX_LEAVES`` leaves each, one launch each;
-    leaves with empty rows are left out.  ``dst`` is ``(lanes, rows, ...)``
-    (K1's blocks, K4's ring) and gives the row width.  ``rows`` is the most
-    rows any lane's ring, block or stack holds: the kernels' byte offsets
-    are int32, so ``rows * row_bytes`` past 32 bits raises
-    ``ValueError``."""
+    """The ``(src, dst)`` leaf pairs of a K1, K3 or K4 launch as
+    :class:`RingTree` descriptors of at most ``MAX_LEAVES`` leaves each, one
+    launch each; leaves with empty rows are left out.  ``dst`` is ``(lanes,
+    rows, ...)`` (K1's and K3's blocks, K4's ring) and gives the row width.
+    ``rows`` is the most rows any lane's ring, block or stack holds: the
+    kernels' byte offsets are int32, so ``rows * row_bytes`` past 32 bits
+    raises ``ValueError``."""
     leaves = []
     for src, dst in pairs:
         rb = row_bytes(dst)

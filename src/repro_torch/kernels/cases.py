@@ -14,9 +14,11 @@ them: causal ``S > T`` (rows that see no key), windows, head dims 112 and
 256 and GQA in bfloat16, and bfloat16 rows for every route of the
 tensor-core kernel (head dim 128 without the causal mask, ragged ``S = T =
 100`` with a softcap, GQA groups of 8).
+``SLICE_TREE_CASE`` moves ``TREE_LEAVES`` through K3.
 ``EXPAND_CASES`` and ``SSD_CASES`` are the JAX package's tables for K5
-and K7; ``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S <
-Q``), bfloat16, the SSM archs' widths and the other shapes of K7's
+and K7; ``EXPLORE_CASES`` cover K5's redesign, the fused DD explore;
+``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S < Q``),
+bfloat16, the SSM archs' widths and the other shapes of K7's
 tensor-core route; ``SSD_SLICE`` and ``SSD_HYBRID`` are the serving path's
 two K7 shapes.  Payload dtypes are names, so the tables import nothing but
 numpy.
@@ -32,7 +34,9 @@ __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
            "TREE_CASE", "tree_payload",
            "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_ZAMBA",
            "FLASH_TOL",
+           "SLICE_TREE_CASE",
            "EXPAND_CASES", "EXPAND_SOLVER", "expand_inputs",
+           "EXPLORE_CASES", "explore_inputs",
            "SSD_CASES", "SSD_EXTRA_CASES", "SSD_SLICE", "SSD_HYBRID",
            "SSD_TOL",
            "ssd_inputs", "payload", "to_tensor"]
@@ -99,6 +103,12 @@ TREE_LEAVES = {"id": ((), "int32"), "vec": ((3,), "bfloat16"),
 TREE_CASE = (48, 24, 3, (47, 5, 18, 30, 1), (24, 0, 13, 18, 7),
              (2, 0, 1, 2, 0))
 
+# K3 on the same tree: (cap, max_n, lo per lane, size per lane, n per
+# lane), n <= min(size, max_n); the newest rows wrap the ring on lanes 0
+# and 3, lane 1 pops nothing.
+SLICE_TREE_CASE = (48, 24, (40, 5, 18, 40, 1), (30, 0, 13, 20, 24),
+                   (24, 0, 13, 20, 7))
+
 # (cap, D, max_push, start, n, dtype)
 SCATTER_CASES = [
     (512, 8, 128, 0, 100, "float32"),
@@ -159,6 +169,49 @@ EXPAND_CASES = [(n, wp) for n in (256, 512, 1024)
 # The solver's pools (chip_smoke.py phase 3): 64 workers x 8 popped
 # subproblems, explore width 16.
 EXPAND_SOLVER = (64 * 8, 16)
+
+
+# The fused DD explore: (what, subproblems B, pool width, n_vars, and the
+# closed ranges of the weights, profits, root states, root layers and root
+# values, share of invalid rows).  "solver" is phase 3's batch (64 lanes x
+# 8 pops, width 16, the 30-item knapsack's weights, profits and
+# capacities); "exact" roots sit three layers from the end, so every exact
+# DD completes (2^3 <= 16 nodes); "overflow" roots sit at layer 0 with
+# room for every item, so every exact DD overflows; "ties" draws tiny
+# weights (0 among them: both arcs reach one state), profits and states, so
+# many children share a state or a value; "edges" adds negative weights
+# and profits, root layers outside [0, n_vars) and root values at -2^30
+# and below; then two more widths, the largest explore.cu takes among them.
+# A root state of -1 is a dead root.
+EXPLORE_CASES = [
+    ("solver", 512, 16, 30, (1, 50), (1, 100), (0, 400), (0, 29), (0, 999),
+     0.25),
+    ("exact", 64, 16, 12, (1, 50), (1, 100), (0, 600), (9, 11), (0, 999),
+     0.0),
+    ("overflow", 64, 8, 20, (1, 50), (1, 100), (600, 1000), (0, 0),
+     (0, 999), 0.0),
+    ("ties", 256, 8, 16, (0, 3), (0, 3), (-1, 12), (0, 15), (0, 9), 0.2),
+    ("edges", 96, 4, 10, (-2, 3), (-3, 3), (-3, 9), (-2, 10),
+     (-2 ** 30 - 3, -2 ** 30 + 3), 0.1),
+    ("width 32", 128, 32, 24, (1, 20), (1, 40), (0, 200), (0, 23), (0, 999),
+     0.1),
+    ("width 5", 128, 5, 16, (1, 10), (1, 20), (-1, 60), (0, 15), (0, 999),
+     0.1),
+]
+
+
+def explore_inputs(rng: np.random.Generator, case) -> dict:
+    """Seeded numpy inputs of an ``EXPLORE_CASES`` entry: int32 ``layer``,
+    ``state``, ``value`` and bool ``valid`` of shape ``(B,)``, int32
+    ``weights`` and ``profits`` of shape ``(n_vars,)``."""
+    _, b, _, n_vars, w, p, s, layer, v, invalid = case
+
+    def draw(lo_hi, n):
+        return rng.integers(lo_hi[0], lo_hi[1] + 1, n).astype(np.int32)
+
+    return {"layer": draw(layer, b), "state": draw(s, b), "value": draw(v, b),
+            "valid": rng.random(b) >= invalid, "weights": draw(w, n_vars),
+            "profits": draw(p, n_vars)}
 
 
 def expand_inputs(rng: np.random.Generator, shape, device):

@@ -1,5 +1,5 @@
-// K2 ring_scatter and K3 ring_slice: the owner-side bulk push and bulk pop,
-// one launch for all lanes each.
+// K2 ring_scatter: the owner-side bulk push, one launch for all lanes (K3
+// ring_slice, the bulk pop, is ring_slice.cu).
 //
 // K2 replaces the TPU kernel repro/kernels/queue_push/kernel.py::ring_scatter.
 // In place: buf[l, (start[l] + i) mod cap] = batch[l, i] for
@@ -7,21 +7,16 @@
 // Serves push (the solver worker's child splice) and the dense exchange's
 // thief splice.
 //
-// K3 replaces repro/kernels/queue_push/kernel.py::ring_slice.
-// out[l, i] = buf[l, (lo[l] + size[l] - n[l] + i) mod cap] for i < n[l],
-// zero for n[l] <= i < max_n: the newest n rows, oldest first.  Serves
-// pop_bulk (the solver worker's batch pop).
-//
-// Design: the Pallas kernels cut each aligned ring block out of two batch
+// Design: the Pallas kernel cut each aligned ring block out of two batch
 // blocks with a dynamic_slice and rewrote whole ring blocks (read-modify-
 // write through input_output_aliases).  Here each thread computes its own
-// physical row from the lane's cursors in device memory; K2 touches only
+// physical row from the lane's cursors in device memory and touches only
 // the n live rows, so no ring row outside the splice is read or written and
 // distinct rows never race (n <= cap).
 //
 // Bound: device bytes read plus written over 3.35 TB/s.  At the solver's
-// shapes (4-byte rows, 128-row pushes and 8-row pops) the launch latency
-// dominates that bound.
+// shapes (4-byte rows, 128-row pushes) the launch latency dominates that
+// bound.
 
 #include "../ring_rows.cuh"
 
@@ -50,21 +45,6 @@ __global__ void ring_scatter_kernel(T* __restrict__ buf,
   }
 }
 
-template <typename T>
-__global__ void ring_slice_kernel(const T* __restrict__ buf,
-                                  const int* __restrict__ lo,
-                                  const int* __restrict__ size,
-                                  const int* __restrict__ n,
-                                  T* __restrict__ out, int lanes, int cap,
-                                  int max_n, int64_t wpr) {
-  for (int l = blockIdx.y; l < lanes; l += gridDim.y) {
-    const int64_t start = (int64_t)lo[l] + size[l] - n[l];
-    ring::gather_rows<T>(buf + (int64_t)l * cap * wpr,
-                         out + (int64_t)l * max_n * wpr, start, n[l], cap,
-                         max_n, wpr);
-  }
-}
-
 }  // namespace
 
 extern "C" int rk_ring_scatter(void* buf, const void* batch, const int* start,
@@ -76,18 +56,5 @@ extern "C" int rk_ring_scatter(void* buf, const void* batch, const int* start,
                      ring_scatter_kernel<T><<<grid, ring::kThreads, 0, s>>>(
                          static_cast<T*>(buf), static_cast<const T*>(batch),
                          start, n, lanes, cap, max_push, wpr));
-  return (int)cudaGetLastError();
-}
-
-extern "C" int rk_ring_slice(const void* buf, const int* lo, const int* size,
-                             const int* n, void* out, int lanes, int cap,
-                             int max_n, int64_t wpr, int word_bytes,
-                             void* stream) {
-  const dim3 grid = ring::grid_for((int64_t)max_n * wpr, lanes);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  RING_DISPATCH_WORD(word_bytes,
-                     ring_slice_kernel<T><<<grid, ring::kThreads, 0, s>>>(
-                         static_cast<const T*>(buf), lo, size, n,
-                         static_cast<T*>(out), lanes, cap, max_n, wpr));
   return (int)cudaGetLastError();
 }

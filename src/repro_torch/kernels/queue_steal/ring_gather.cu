@@ -35,22 +35,11 @@ __global__ void __launch_bounds__(ringcopy::kThreads)
   const int c1 = c0 + min(ringcopy::kChunk, block - c0);
   const int ring_bytes = cap * rb;
   for (int l = blockIdx.y; l < lanes; l += gridDim.y) {
-    const uint8_t* ring = leaf.src + (int64_t)l * ring_bytes;
-    uint8_t* out = leaf.dst + (int64_t)l * block;
     const int live = min(max(n[l], 0), max_steal) * rb;
-    const int end = min(c1, live);
-    int b = c0;
-    if (b < end) {
-      int pos = ringcopy::wrap_add(ringcopy::py_mod(lo[l], cap) * rb, b,
-                                   ring_bytes);
-      while (b < end) {
-        const int run = min(end - b, ring_bytes - pos);
-        ringcopy::copy_bytes(out + b, ring + pos, run);
-        b += run;
-        pos = 0;
-      }
-    }
-    if (b < c1) ringcopy::zero_bytes(out + b, c1 - b);
+    ringcopy::gather_chunk(leaf.src + (int64_t)l * ring_bytes,
+                           leaf.dst + (int64_t)l * block,
+                           ringcopy::py_mod(lo[l], cap), live, rb, ring_bytes,
+                           c0, c1);
   }
 }
 

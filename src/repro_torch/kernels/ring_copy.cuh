@@ -1,6 +1,7 @@
-// The ring-copy primitive shared by K1 ring_gather and K4 ring_transfer.
+// The ring-copy primitive shared by K1 ring_gather, K3 ring_slice and K4
+// ring_transfer.
 //
-// Both kernels move one segment per lane between the lane's ring of `cap`
+// The kernels move one segment per lane between the lane's ring of `cap`
 // rows and a dense block: ring rows (start + i) mod cap for i < live.  Rows
 // are contiguous `row_bytes`, so in bytes the ring is a circular buffer of
 // cap * row_bytes bytes whose segment begins at byte start * row_bytes, and
@@ -36,8 +37,8 @@ constexpr int kThreads = 128;
 constexpr int kChunk = 8192;  // bytes of one lane's dense side per CTA
 constexpr int kMaxLeaves = 8;
 
-// One payload leaf: K1 reads the ring `src` into the blocks `dst`; K4
-// reads the window stack `src` into the ring `dst`.
+// One payload leaf: K1 and K3 read the ring `src` into the blocks `dst`;
+// K4 reads the window stack `src` into the ring `dst`.
 struct RingLeaf {
   const uint8_t* src;
   uint8_t* dst;
@@ -154,6 +155,29 @@ __device__ __forceinline__ void zero_bytes(uint8_t* __restrict__ dst,
   if (t < tail) dst[(nvec << 4) + t] = 0;
   uint4* out = reinterpret_cast<uint4*>(dst);
   for (int k = t; k < nvec; k += kThreads) out[k] = make_uint4(0, 0, 0, 0);
+}
+
+// One CTA's part of a K1 / K3 read, for one lane and leaf: bytes [c0, c1)
+// of the lane's dense block `out` are the ring's rows start_row + i (mod
+// cap) up to byte `live`, zero after.  The live part is at most two
+// contiguous runs out of the ring (more only where a segment laps a ring
+// smaller than it).
+__device__ __forceinline__ void gather_chunk(const uint8_t* __restrict__ ring,
+                                             uint8_t* __restrict__ out,
+                                             int start_row, int live, int rb,
+                                             int ring_bytes, int c0, int c1) {
+  const int end = min(c1, live);
+  int b = c0;
+  if (b < end) {
+    int pos = wrap_add(start_row * rb, b, ring_bytes);
+    while (b < end) {
+      const int run = min(end - b, ring_bytes - pos);
+      copy_bytes(out + b, ring + pos, run);
+      b += run;
+      pos = 0;
+    }
+  }
+  if (b < c1) zero_bytes(out + b, c1 - b);
 }
 
 // Launch shape: x chunks of the largest leaf's `rows` rows, y lanes (the

@@ -1,8 +1,8 @@
-// Shared pieces of the owner-side ring-buffer row kernels (K2 ring_scatter,
-// K3 ring_slice; K1 and K4 use ring_copy.cuh).
+// Shared pieces of K2 ring_scatter, the owner-side bulk push (K1, K3 and K4
+// use ring_copy.cuh).
 //
-// Each kernel moves whole rows between a lane's ring of `cap` rows and a
-// dense block, at a dynamic cut point that each thread turns into a
+// The kernel moves whole rows from a dense block into a lane's ring of
+// `cap` rows, at a dynamic cut point that each thread turns into a
 // physical row itself: row (start + i) mod cap.  A row is `wpr` words of
 // type T (4-byte words where the row width allows, else 2 or 1 bytes), so
 // one kernel serves f32, i32 and bf16 payloads alike.  The grid covers
@@ -22,24 +22,6 @@ constexpr int kThreads = 256;
 __device__ __forceinline__ int64_t wrap(int64_t x, int64_t cap) {
   const int64_t r = x % cap;
   return r < 0 ? r + cap : r;
-}
-
-// Gather `rows` rows of one lane: dst[i] = src[(start + i) mod cap] for
-// i < live, zero for live <= i < rows.
-template <typename T>
-__device__ __forceinline__ void gather_rows(const T* __restrict__ src,
-                                            T* __restrict__ dst, int64_t start,
-                                            int64_t live, int64_t cap,
-                                            int64_t rows, int64_t wpr) {
-  const int64_t total = rows * wpr;
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t i = t / wpr;
-    const int64_t w = t - i * wpr;
-    T v = 0;
-    if (i < live) v = src[wrap(start + i, cap) * wpr + w];
-    dst[t] = v;
-  }
 }
 
 inline dim3 grid_for(int64_t words_per_lane, int lanes) {

@@ -1,9 +1,9 @@
 """Tests that need the card (``cuda`` marker): each CUDA ring kernel against
-its plain version, DD layer expansion (K5), flash attention (K6) and the
-SSD scan (K7, both routes) against their plain versions, the kernel backend against the
-reference backend on CUDA tensors, the solver on the GPU against the same
-solver on the CPU, and the serving models' prefill on the GPU against the
-CPU.
+its plain version, DD layer expansion (K5) and its redesign, the fused DD
+explore, flash attention (K6) and the SSD scan (K7, both routes) against
+their plain versions, the kernel backend against the reference backend on
+CUDA tensors, the solver on the GPU against the same solver on the CPU,
+and the serving models' prefill on the GPU against the CPU.
 Each skips where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so on a GPU machine it runs on its own:
 
@@ -24,7 +24,7 @@ from repro_torch.core import ops as tops
 from repro_torch.core.dd.knapsack import random_instance
 from repro_torch.core.dd.parallel import parallel_solve
 from repro_torch.kernels import cases as C
-from repro_torch.kernels.dd_expand.ops import expand_pool
+from repro_torch.kernels.dd_expand.ops import expand_pool, explore_fused
 from repro_torch.kernels.flash_attention.ops import mha, mha_simt
 from repro_torch.kernels.flash_attention.ref import attention_ref
 from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
@@ -219,14 +219,69 @@ def test_dd_expand_kernel_matches_plain_version():
 
 
 @pytest.mark.cuda
+def test_slice_tree_launches_once_per_tree():
+    """K3 moves a payload tree in one launch per eight leaves, bit for bit
+    against the plain version: the mixed-dtype tree in one launch, twelve
+    leaves in two."""
+    dev = _cuda()
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    for leaves, launches in ((C.TREE_LEAVES, 1), (smoke.many_leaves(), 2)):
+        before = pop_slice.launches
+        rows = list(smoke.slice_tree_cases(dev, rng, leaves))
+        for name, what, k_out, p_out in rows:
+            smoke._compare(k_out, p_out, f"{name} {what}")
+        assert len(rows) == len(leaves)
+        assert pop_slice.launches - before == launches
+
+
+@pytest.mark.cuda
+def test_explore_kernel_matches_plain_version():
+    """K5's redesign, the fused DD explore, bit for bit against its plain
+    version on ``cases.EXPLORE_CASES``, one launch per call and no K5
+    launch per layer."""
+    dev = _cuda()
+    before = (explore_fused.launches, expand_pool.launches)
+    err, n = _chip_smoke().explore_checks(dev, np.random.default_rng(0))
+    torch.cuda.synchronize()
+    assert n == len(C.EXPLORE_CASES)
+    assert (explore_fused.launches - before[0],
+            expand_pool.launches - before[1]) == (n, 0)
+    assert err == 0.0
+
+
+@pytest.mark.cuda
+def test_explore_kernel_refuses_widths_it_does_not_take():
+    """Pool widths 2 to 32 (one slot per lane); any other raises, as do
+    inputs of another type, and nothing launches."""
+    dev = _cuda()
+    z = torch.zeros((4,), dtype=torch.int32, device=dev)
+    before = explore_fused.launches
+    for width in (1, 33):
+        with pytest.raises(ValueError, match="widths 2 to 32"):
+            explore_fused(z, z, z, z.bool(), z, z, width=width, n_vars=4)
+    with pytest.raises(ValueError, match="int32"):
+        explore_fused(z.long(), z, z, z.bool(), z, z, width=4, n_vars=4)
+    with pytest.raises(ValueError, match="bool"):
+        explore_fused(z, z, z, z, z, z, width=4, n_vars=4)
+    with pytest.raises(ValueError, match="n_vars"):
+        explore_fused(z, z, z, z.bool(), z, z, width=4, n_vars=5)
+    assert explore_fused.launches == before
+
+
+@pytest.mark.cuda
 def test_ssd_scan_kernel_matches_plain_version():
-    """K7 within atol 5e-5 / rtol 5e-4 in float32 (2e-2 in bfloat16) on the
-    case tables and their bfloat16 copies, ragged lengths among them, and
-    at the SSM slice's and zamba2-7b's prefill shapes, counted once per
-    call; the bfloat16 calls at head dim 64, state widths 64 and 128 and
-    chunks of 64 to 256 on the tensor-core route.  Every output also within
-    2e-2 absolute, and on the tensor-core route's calls so is the SIMT
-    kernel in bfloat16, its earlier design, outside ``ssd``'s counters."""
+    """K7 within atol 5e-5 / rtol 5e-4 in float32 (2e-2 / 2e-2 in
+    bfloat16) on the case tables and their bfloat16 copies, ragged lengths
+    among them, and at the SSM slice's and zamba2-7b's prefill shapes,
+    counted once per call; the bfloat16 calls at head dim 64, state widths
+    64 and 128 and chunks of 64 to 256 on the tensor-core route.  Every
+    output is then held once more to ``cases.SSD_TOL`` of its dtype in the
+    JAX package's ``assert_allclose`` form, |got - want| <= atol + rtol x
+    |want| (the tensor-core route sums in another order than the plain
+    version, so an output of |y| >= 4 may land one bfloat16 step, 0.03125,
+    away); on the tensor-core route's calls so is the SIMT kernel in
+    bfloat16, its earlier design, outside ``ssd``'s counters."""
     dev = _cuda()
     shapes = (C.SSD_SLICE, C.SSD_HYBRID)
     before, before_tc = ssd.launches, ssd.launches_tc
@@ -239,13 +294,20 @@ def test_ssd_scan_kernel_matches_plain_version():
     assert ssd.launches - before == n == len(cases)
     assert ssd.launches_tc - before_tc == sum(tc) == 8
     rng = np.random.default_rng(0)
+    worst = 0.0
     for case, on_tc in zip(cases, tc):
         args = C.ssd_inputs(rng, case, dev)
         plain = ssd_chunked(*args, case[5])
+        atol, rtol = C.SSD_TOL[case[6]]
         for fn in (ssd, ssd_simt) if on_tc else (ssd,):
             for got, want in zip(fn(*args, chunk=case[5]), plain):
-                err = float((got.float() - want.float()).abs().max())
-                assert err < C.SSD_TOL["bfloat16"][0], (fn.__name__, case)
+                got, want = got.float(), want.float()
+                assert bool(torch.isfinite(got).all()), (fn.__name__, case)
+                ratio = float(((got - want).abs()
+                               / (atol + rtol * want.abs())).max())
+                assert ratio <= 1.0, (fn.__name__, case, ratio)
+                worst = max(worst, ratio)
+    print(f"ssd_scan: largest |got - want| / (atol + rtol |want|) {worst}")
 
 
 @pytest.mark.cuda

@@ -13,6 +13,7 @@ import torch
 from repro.core.dd.knapsack import random_instance as jax_random_instance
 from repro.core.dd.parallel import parallel_solve as jax_parallel_solve
 from repro.core.policy import StealPolicy as JaxPolicy
+from repro_torch.kernels import cases as C
 
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
@@ -50,14 +51,18 @@ def test_kernel_phase_checks_every_kernel():
         assert out[name]["parity_cases"] == 17
         assert out[name]["bound_by"] == "bytes"  # at this tiny size
         assert out[name]["earlier_ms"] > 0
-    assert out["dd_expand"]["parity_cases"] == 12
+    # the fused explore on its case table, K5 per layer (its earlier
+    # design, timed beside it) on its 12 cases
+    assert out["dd_expand"]["parity_cases"] == len(C.EXPLORE_CASES) + 12
+    assert out["dd_expand"]["bound_ops"] > 0
     for name in ("ssd_scan", "ssd_scan_hd64_ns64"):
         # the tables, their bfloat16 copies, two shapes in two dtypes
         assert out[name]["parity_cases"] == 22
         assert out[name]["earlier_ms"] > 0
         assert out[name]["launches_per_call"] == 0  # none on the CPU
-    # K1 and K4 also timed as the solver calls them: its three-leaf tree
-    for name in ("ring_gather", "ring_transfer"):
+    # K1, K3 and K4 also timed as the solver calls them: its three-leaf
+    # tree
+    for name in ("ring_gather", "ring_slice", "ring_transfer"):
         row = out[name]["solver_payload"]
         assert row["bound_ms"] > 0 and row["library_ms"] is None
         assert row["launches_per_call"] == 0  # the CPU launches nothing

@@ -12,12 +12,13 @@ check that does not hold:
 1. Build and kernel parity.  Builds the CUDA kernels from the checkout's
    sources (``repro_torch.kernels._lib``).  Holds each ring kernel (K1-K4)
    against its plain PyTorch version bit for bit — on the kernel case
-   tables, on K1 and K4's byte path (rows of 4, 12, 20 and 6 bytes at
+   tables, on K1, K2 and K4's byte path (rows of 4, 12, 20 and 6 bytes at
    every offset mod 16, bases off a 16-byte boundary, segments that lap
-   the ring) and payload trees (three mixed-dtype leaves in one launch,
-   twelve in two, for K1, K3 and K4), and at the solver's geometry (64
-   lanes, 16,384-row rings, max_steal 8,192, 128-row pushes, 8-row pops)
-   in float32, int32 and bfloat16 — DD layer expansion (K5) bit for bit on
+   the ring, K2's negative starts and n past max_push) and payload trees
+   (three mixed-dtype leaves in one launch, twelve in two, for K1-K4), and
+   at the solver's geometry (64 lanes, 16,384-row rings, max_steal 8,192,
+   128-row pushes, 8-row pops) in float32, int32 and bfloat16 — DD layer
+   expansion (K5) bit for bit on
    its case table and at the solver's pools (512 x 16 nodes), and K5's
    redesign, the fused DD explore (restricted and relaxed DDs and the
    exact frontier of a batch of subproblems in one launch), bit for bit
@@ -40,9 +41,12 @@ check that does not hold:
    version and a library yardstick (``index_select`` / ``index_copy_``;
    SDPA for K6; none for K5 and K7) with CUDA events; K6 and K7 at both
    of their shapes, beside the SIMT kernel's bfloat16 time (their earlier
-   design); K1, K3 and K4 also as the solver calls them, on its three-leaf
+   design); K1-K4 also as the solver calls them, on its three-leaf
    payload (``solver_payload``); the fused explore at the solver's batch
-   beside K5's time per layer (its earlier design).
+   beside K5's time per layer (its earlier design).  Then the paper's Fig.
+   6 on the card (``{"phase": "push_latency"}``): K2's time per push of 1
+   to 8,192 rows on every one of the 64 int32 rings of 16,384 rows, beside
+   ``index_copy_`` and the byte bound.
 2. The queue at the paper's backlog.  64 lanes of 16,384 rows, half of
    them holding 10,000 seeded unique items; 8 rebalancing supersteps on the
    kernel backend under the compact and the dense exchange and on the
@@ -52,7 +56,9 @@ check that does not hold:
    with 64 workers; it must reproduce the JAX package's integer results,
    and each of the four ring kernels and the fused explore must have
    launched during that run: the fused explore and K3 once per worker
-   body (one launch per payload tree for K3), K5 per layer not at all.
+   body, K2 once per push (the runtime's seed push and one per worker
+   body), K3 and K2 one launch per payload tree, K5 per layer not at
+   all.
 4. Serving at full width.  The wave engine (two replicas, one at a
    quarter speed, behind the bulk-steal admission master) serves 24
    requests of 128-1,024 prompt tokens and 16 new tokens each with
@@ -100,6 +106,8 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # 8,192; 64 workers, a point of the Fig. 10 sweep; explore width 16 x batch
 # 8 = 128-row child pushes, 8-row pops).
 LANES, CAP, MAX_STEAL, PUSH_ROWS, POP_ROWS = 64, 16384, 8192, 128, 8
+# The paper's Fig. 6 sweep of push sizes, up to max_steal rows per lane.
+FIG6_PUSH_ROWS = (1, 16, 128, 1024, 8192)
 
 # What the JAX package's parallel_solve returns for PHASE3 (a CPU run of
 # repro.core.dd.parallel.parallel_solve at commit ebd45d9, jax 0.9.0, all
@@ -334,14 +342,31 @@ def _transfer_case(device, rng, lanes, cap, d, src_rows, m, head, src, n,
                           m), plain)
 
 
+def _scatter_case(device, rng, lanes, cap, d, b, start, n, dtype, what,
+                  offsets=(0, 0)):
+    """K2 from a ``(lanes, b, d)`` batch; ring and batch ``offsets``
+    elements into their storage."""
+    from repro_torch.kernels.queue_push.ops import ring_scatter
+    from repro_torch.kernels.queue_push.ref import ring_scatter_ref
+    buf = _ring(device, rng, lanes, cap, d, dtype, offsets[0])
+    batch = _ring(device, rng, lanes, b, d, dtype, offsets[1])
+    start, n = _vec(device, start), _vec(device, n)
+    plain = ring_scatter_ref(buf, batch, start, n.clamp(0, min(b, cap)))
+    return ("ring_scatter", what,
+            ring_scatter(_at_offset(buf, offsets[0]), batch, start, n), plain)
+
+
 def byte_cases(device, rng):
-    """K1 and K4 on their byte path: the byte case tables, bases off a
+    """K1, K2 and K4 on their byte path: the byte case tables, bases off a
     16-byte boundary, and a stack whose last window is short (rows past
     it repeat its last row)."""
     from repro_torch.kernels import cases as C
     for cap, d, m, lo, n, dt in C.STEAL_BYTE_CASES:
         yield _gather_case(device, rng, len(lo), cap, d, m, lo, n, dt,
                            f"bytes {cap},{d},{m},{dt}")
+    for cap, d, m, start, n, dt in C.SCATTER_BYTE_CASES:
+        yield _scatter_case(device, rng, len(start), cap, d, m, start, n, dt,
+                            f"bytes {cap},{d},{m},{dt}")
     for cap, d, w, m, head, src, n, dt in C.TRANSFER_BYTE_CASES:
         yield _transfer_case(device, rng, len(head), cap, d, w * m, m, head,
                              src, n, dt, f"bytes {cap},{d},{w},{m},{dt}")
@@ -355,6 +380,10 @@ def byte_cases(device, rng):
                              rng.permutation(4) % 3, rng.integers(0, 71, 4),
                              dt, f"bases +{off}/+{off + 2} elements {d},{dt}",
                              (off, off + 2))
+        yield _scatter_case(device, rng, 4, 100, d, 70, lo,
+                            rng.integers(0, 71, 4), dt,
+                            f"bases +{off}/+{off + 2} elements {d},{dt}",
+                            (off, off + 2))
     yield _transfer_case(device, rng, 3, 64, 3, 40, 16, (60, 5, 9), (2, 1, 3),
                          (16, 16, 5), "int32", "short last window")
 
@@ -410,6 +439,30 @@ def slice_tree_cases(device, rng, leaves):
                ring_slice_ref(ring, lo, size, n, m))
 
 
+def scatter_tree_cases(device, rng, leaves):
+    """K2 on one payload tree at ``cases.SCATTER_TREE_CASE``'s geometry,
+    through the tree wrapper (one launch per eight leaves): yields
+    ``(kernel name, what, kernel_out, plain_out)`` per leaf."""
+    from repro_torch.kernels import cases as C
+    from repro_torch.kernels.queue_push.ops import push_scatter
+    from repro_torch.kernels.queue_push.ref import ring_scatter_ref
+
+    cap, m, start, n = C.SCATTER_TREE_CASE
+
+    def tree(lead):
+        return {k: C.to_tensor(a, leaves[k][1], device)
+                for k, a in C.tree_payload(rng, lead, leaves).items()}
+
+    rings, batches = tree((len(start), cap)), tree((len(start), m))
+    start, n = _vec(device, start), _vec(device, n)
+    got = push_scatter({k: v.clone() for k, v in rings.items()}, batches,
+                       start, n)
+    live = n.clamp(0, min(m, cap))
+    for k, ring in rings.items():
+        yield ("ring_scatter", f"tree of {len(leaves)} leaves: {k}", got[k],
+               ring_scatter_ref(ring, batches[k], start, live))
+
+
 def many_leaves():
     """Twelve leaves (``cases.TREE_LEAVES`` four times): two launches."""
     from repro_torch.kernels import cases as C
@@ -418,12 +471,11 @@ def many_leaves():
 
 def kernel_cases(device, rng):
     """Yield ``(kernel name, what, kernel_out, plain_out)`` over the case
-    tables, K1 and K4's byte path and payload trees, and the solver's
-    geometry in float32, int32 and bfloat16."""
+    tables, the ring kernels' byte path and payload trees, and the
+    solver's geometry in float32, int32 and bfloat16."""
     from repro_torch.kernels import cases as C
-    from repro_torch.kernels.queue_push.ops import ring_scatter, ring_slice
-    from repro_torch.kernels.queue_push.ref import (ring_scatter_ref,
-                                                    ring_slice_ref)
+    from repro_torch.kernels.queue_push.ops import ring_slice
+    from repro_torch.kernels.queue_push.ref import ring_slice_ref
 
     def vec(x):
         return _vec(device, x)
@@ -435,13 +487,8 @@ def kernel_cases(device, rng):
         return _gather_case(device, rng, lanes, cap, d, m, lo, n, dtype, what)
 
     def scatter(lanes, cap, d, b, start, n, dtype, what):
-        buf = ring(lanes, cap, d, dtype)
-        batch = ring(lanes, b, d, dtype)
-        start, n = vec(start), vec(n)
-        return ("ring_scatter", what,
-                ring_scatter(buf.clone(), batch, start, n),
-                ring_scatter_ref(buf, batch, start,
-                                 n.clamp(0, min(b, cap))))
+        return _scatter_case(device, rng, lanes, cap, d, b, start, n, dtype,
+                             what)
 
     def slice_(lanes, cap, d, m, lo, size, n, dtype, what):
         buf = ring(lanes, cap, d, dtype)
@@ -468,6 +515,8 @@ def kernel_cases(device, rng):
     yield from tree_cases(device, rng, many_leaves())
     yield from slice_tree_cases(device, rng, C.TREE_LEAVES)
     yield from slice_tree_cases(device, rng, many_leaves())
+    yield from scatter_tree_cases(device, rng, C.TREE_LEAVES)
+    yield from scatter_tree_cases(device, rng, many_leaves())
     for dt in ("float32", "int32", "bfloat16"):
         lo = rng.integers(0, CAP, LANES)
         size = rng.integers(0, CAP + 1, LANES)
@@ -564,6 +613,10 @@ def kernel_timings(device, rng, timer):
     check(torch.equal(specs["ring_slice"][2]().view(LANES, POP_ROWS, 1),
                       ring_slice(buf, lo, size, full_pop, POP_ROWS)),
           "index_select yardstick != ring_slice")
+    pushed = ring_scatter(buf.clone(), batch, lo, full_push)
+    check(torch.equal(flat.clone().index_copy_(0, push_idx, batch.view(-1, 1)),
+                      pushed.view(LANES * CAP, 1)),
+          "index_copy_ yardstick != ring_scatter")
     spliced = ring_transfer(buf.clone(), gathered, lo, src, full_steal,
                             MAX_STEAL)
     check(torch.equal(flat.clone().index_copy_(0, splice_idx, gathered),
@@ -582,10 +635,11 @@ def kernel_timings(device, rng, timer):
 
 
 def solver_payload_timings(device, rng, timer):
-    """K1, K3 and K4 as the solver calls them, on its payload tree of three
-    int32 leaves (layer, state, value) of 64 x 16,384-row rings: K1 reads
-    the compact exchange's window (n = max_steal on every lane), K3 pops 8
-    rows on every lane, K4 splices a superstep's mean transfer, 15 rows
+    """K1-K4 as the solver calls them, on its payload tree of three int32
+    leaves (layer, state, value) of 64 x 16,384-row rings: K1 reads the
+    compact exchange's window (n = max_steal on every lane), K2 pushes a
+    128-row batch of children with n drawn in 0-128 on every lane, K3 pops
+    8 rows on every lane, K4 splices a superstep's mean transfer, 15 rows
     into each of 11 of the 64 lanes (phase 3 moves 6,850 rows in 472
     steals over 44 supersteps).
     One call of the tree wrapper each, checked bit for bit against the
@@ -593,8 +647,9 @@ def solver_payload_timings(device, rng, timer):
     wrapper's launches in one call.  No single PyTorch call moves a
     tree."""
     import torch
-    from repro_torch.kernels.queue_push.ops import pop_slice
-    from repro_torch.kernels.queue_push.ref import ring_slice_ref
+    from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
+    from repro_torch.kernels.queue_push.ref import (ring_scatter_ref,
+                                                    ring_slice_ref)
     from repro_torch.kernels.queue_steal.ops import steal_gather
     from repro_torch.kernels.queue_steal.ref import ring_gather_ref
     from repro_torch.kernels.queue_transfer.ops import transfer_splice
@@ -616,6 +671,8 @@ def solver_payload_timings(device, rng, timer):
     src = _vec(device, rng.permutation(LANES))
     size = _vec(device, rng.integers(POP_ROWS, CAP + 1, LANES))
     pop = _vec(device, np.full(LANES, POP_ROWS))
+    children = leaves((LANES, PUSH_ROWS))
+    push_n = _vec(device, rng.integers(0, PUSH_ROWS + 1, LANES))
     cursor = 4 * LANES
     specs = {
         "ring_gather": (
@@ -625,6 +682,13 @@ def solver_payload_timings(device, rng, timer):
             3 * (2 * LANES * MAX_STEAL * 4) + 2 * cursor,
             "the solver's 3 int32 leaves, window at lo, n = max_steal on "
             "every lane"),
+        "ring_scatter": (
+            lambda t: push_scatter(t, children, lo, push_n),
+            lambda t: {k: ring_scatter_ref(v, children[k], lo, push_n)
+                       for k, v in t.items()},
+            3 * (2 * int(push_n.sum()) * 4) + 2 * cursor,
+            f"the solver's 3 int32 leaves, {PUSH_ROWS}-row batch, n in "
+            f"0-{PUSH_ROWS} on every lane"),
         "ring_slice": (
             lambda t: pop_slice(t, lo, size, pop, max_n=POP_ROWS),
             lambda t: {k: ring_slice_ref(v, lo, size, pop, POP_ROWS)
@@ -641,8 +705,8 @@ def solver_payload_timings(device, rng, timer):
             f"the solver's 3 int32 leaves, {rows} rows into {thieves} of "
             f"{LANES} lanes"),
     }
-    counters = {"ring_gather": steal_gather, "ring_slice": pop_slice,
-                "ring_transfer": transfer_splice}
+    counters = {"ring_gather": steal_gather, "ring_scatter": push_scatter,
+                "ring_slice": pop_slice, "ring_transfer": transfer_splice}
     out = {}
     for name, (kern, plain, nbytes, what) in specs.items():
         before = counters[name].launches
@@ -658,6 +722,48 @@ def solver_payload_timings(device, rng, timer):
                          launches_per_call=per_call,
                          device_time_clean=clean and plain_clean)
     return out
+
+
+def push_latency(device, rng, timer, *, lanes=LANES, cap=CAP,
+                 sizes=FIG6_PUSH_ROWS):
+    """The paper's Fig. 6 on the card: K2's time per push of ``m`` rows on
+    every one of ``lanes`` int32 rings of ``cap`` rows (every lane pushes
+    its full batch), beside ``index_copy_`` of the same rows and the byte
+    bound, for each ``m`` in ``sizes``.  Each size is first held bit for
+    bit against the plain version, and the yardstick against K2."""
+    import torch
+    from repro_torch.kernels.queue_push.ops import ring_scatter
+    from repro_torch.kernels.queue_push.ref import ring_scatter_ref
+
+    i32 = torch.int32
+    buf = torch.tensor(rng.integers(0, 2 ** 30, (lanes, cap, 1)), dtype=i32,
+                       device=device)
+    flat = buf.view(lanes * cap, 1)
+    lo = torch.tensor(rng.integers(0, cap, lanes), dtype=i32, device=device)
+    base = torch.arange(lanes, device=device)[:, None] * cap
+    series = []
+    for m in sizes:
+        batch = torch.tensor(rng.integers(0, 2 ** 30, (lanes, m, 1)),
+                             dtype=i32, device=device)
+        rows = batch.view(-1, 1)
+        n = torch.full((lanes,), m, dtype=i32, device=device)
+        idx = (base + (lo.long()[:, None] + torch.arange(m, device=device))
+               % cap).reshape(-1)
+        got = ring_scatter(buf.clone(), batch, lo, n)
+        _compare(got, ring_scatter_ref(buf, batch, lo, n),
+                 f"ring_scatter push of {m} rows")
+        check(torch.equal(flat.clone().index_copy_(0, idx, rows),
+                          got.view(-1, 1)),
+              f"index_copy_ yardstick != ring_scatter at {m} rows")
+        ms, clean = timer.ms(lambda: ring_scatter(buf, batch, lo, n))
+        lib_ms, lib_clean = timer.ms(lambda: flat.index_copy_(0, idx, rows))
+        nbytes = 2 * lanes * m * 4 + 2 * 4 * lanes
+        series.append(dict(max_push=m, ms=ms, library_ms=lib_ms,
+                           bound_ms=nbytes / MEM_BYTES_PER_S * 1e3,
+                           bound_bytes=nbytes,
+                           device_time_clean=clean and lib_clean))
+    return {"lanes": lanes, "capacity": cap, "dtype": "int32",
+            "series": series}
 
 
 def _flash_inputs(device, rng, case):
@@ -1487,6 +1593,8 @@ def main() -> int:
 
     kernels = phase_kernels(device)
     print(json.dumps({"phase": "kernels", "result": kernels}), flush=True)
+    fig6 = push_latency(device, np.random.default_rng(1), Timer(device))
+    print(json.dumps({"phase": "push_latency", "result": fig6}), flush=True)
     queue = phase_queue(device, lanes=LANES, capacity=CONFIG.queue_capacity,
                         backlog=CONFIG.bench_initial_size,
                         max_steal=CONFIG.max_steal, rounds=8)
@@ -1500,6 +1608,11 @@ def main() -> int:
     check(n["dd_expand"] == n["ring_slice"],
           f"the fused explore launched {n['dd_expand']} times and K3 "
           f"{n['ring_slice']}, not once each per worker body")
+    # one K2 launch per push of the payload tree: the runtime's seed push
+    # and one push per worker body
+    check(n["ring_scatter"] == n["ring_slice"] + 1,
+          f"K2 launched {n['ring_scatter']} times for {n['ring_slice'] + 1} "
+          f"pushes, not once per push")
     from repro_torch import configs
     serving = {}
     for phase, fn, kw in (("serve", phase_serve, PHASE4),

@@ -5,8 +5,9 @@ it, for comparing two trees in one call on one card.
 Imports ``repro_torch`` from ``--src`` (default: this checkout's ``src``)
 and runs this checkout's ``chip_smoke.py`` code on it.  ``--part``:
 
-- ``ring``: phase 1's ring kernel rows (K1-K4 at the solver's shapes, K1,
-  K3 and K4 also on the solver's three-leaf payload), phase 2 (the
+- ``ring``: phase 1's ring kernel rows (K1-K4 at the solver's shapes and
+  on the solver's three-leaf payload) and its Fig. 6 push-latency series
+  (K2 and ``index_copy_`` at 1 to 8,192 rows a lane), phase 2 (the
   backlog supersteps) and phase 3 (the DD solver, checked against the JAX
   package's integers, with each kernel's launches: the fused explore's,
   or K5's per layer on a tree before it);
@@ -74,13 +75,15 @@ def ring_part(smoke, device) -> dict:
     for name, row in smoke.solver_payload_timings(device, rng,
                                                   timer).items():
         kernels[name]["solver_payload"] = row
+    push = smoke.push_latency(device, np.random.default_rng(1), timer)
     queue = smoke.phase_queue(device, lanes=smoke.LANES,
                               capacity=CONFIG.queue_capacity,
                               backlog=CONFIG.bench_initial_size,
                               max_steal=CONFIG.max_steal, rounds=8)
     solver = smoke.phase_solver(device, counters, expect=smoke.PHASE3_EXPECT,
                                 **smoke.PHASE3)
-    return {"kernels": kernels, "queue": queue, "solver": solver}
+    return {"kernels": kernels, "push_latency": push, "queue": queue,
+            "solver": solver}
 
 
 def ssd_part(smoke, device) -> dict:

@@ -18,7 +18,7 @@ the ``"cuda"`` routing each superstep is:
                             of the fused DD explore (K5's redesign)
   3. incumbent            — max over lanes (the JAX package's ``lax.pmax``)
   4. prune + compact      — children of dominated nodes are dropped
-  5. ops.push(children)   — one K2 launch per payload leaf, in place
+  5. ops.push(children)   — one K2 launch for the payload tree, in place
   6. master.superstep     — K1 window + K4 splice (appended by the runtime)
 
 ``fused_rounds`` supersteps run per :meth:`StealRuntime.run_fused` block,

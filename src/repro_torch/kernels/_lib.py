@@ -29,9 +29,8 @@ from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "row_bytes", "word_bytes", "check_cuda",
-           "lane_vec", "ring_trees", "RingTree", "MAX_LEAVES", "BUILD_DIR",
-           "SOURCES"]
+__all__ = ["library", "launch", "row_bytes", "check_cuda", "lane_vec",
+           "ring_trees", "RingTree", "MAX_LEAVES", "BUILD_DIR", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
@@ -47,18 +46,17 @@ SOURCES = (
     _HERE / "dd_expand" / "expand.cu",
     _HERE / "dd_expand" / "explore.cu",
 )
-HEADERS = (_HERE / "ring_rows.cuh", _HERE / "ring_copy.cuh",
-           _HERE / "hopper.cuh")
+HEADERS = (_HERE / "ring_copy.cuh", _HERE / "hopper.cuh")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC")
 
 _P, _I, _L, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64, ctypes.c_float
 
-MAX_LEAVES = 8  # payload leaves per launch of K1, K3, K4 (ring_copy.cuh)
+MAX_LEAVES = 8  # payload leaves per launch of K1-K4 (ring_copy.cuh)
 
 
 class RingLeaf(ctypes.Structure):
-    """``ringcopy::RingLeaf``: one payload leaf of a K1, K3 or K4 launch."""
+    """``ringcopy::RingLeaf``: one payload leaf of a K1-K4 launch."""
     _fields_ = [("src", _P), ("dst", _P), ("row_bytes", _I)]
 
 
@@ -71,7 +69,7 @@ class RingTree(ctypes.Structure):
 _SIGNATURES = {
     # name: argument types after the C prototypes in the .cu sources
     "rk_ring_gather": (RingTree, _P, _P, _I, _I, _I, _P),
-    "rk_ring_scatter": (_P, _P, _P, _P, _I, _I, _I, _L, _I, _P),
+    "rk_ring_scatter": (RingTree, _P, _P, _I, _I, _I, _P),
     "rk_ring_slice": (RingTree, _P, _P, _P, _I, _I, _I, _P),
     "rk_ring_transfer": (RingTree, _P, _P, _P, _I, _I, _I, _I, _P),
     "fa_flash_attention": (_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _F,
@@ -179,23 +177,14 @@ def row_bytes(t: torch.Tensor) -> int:
     return math.prod(t.shape[2:]) * t.element_size()
 
 
-def word_bytes(row_bytes: int, *tensors: torch.Tensor) -> int:
-    """The widest word (4, 2 or 1 bytes) that divides a row and aligns every
-    tensor's base address."""
-    for w in (4, 2, 1):
-        if row_bytes % w == 0 and all(t.data_ptr() % w == 0 for t in tensors):
-            return w
-    return 1
-
-
 def ring_trees(pairs, rows: int):
-    """The ``(src, dst)`` leaf pairs of a K1, K3 or K4 launch as
+    """The ``(src, dst)`` leaf pairs of a K1-K4 launch as
     :class:`RingTree` descriptors of at most ``MAX_LEAVES`` leaves each, one
     launch each; leaves with empty rows are left out.  ``dst`` is ``(lanes,
-    rows, ...)`` (K1's and K3's blocks, K4's ring) and gives the row width.
-    ``rows`` is the most rows any lane's ring, block or stack holds: the
-    kernels' byte offsets are int32, so ``rows * row_bytes`` past 32 bits
-    raises ``ValueError``."""
+    rows, ...)`` (K1's and K3's blocks, K2's and K4's ring) and gives the
+    row width.  ``rows`` is the most rows any lane's ring, block, batch or
+    stack holds: the kernels' byte offsets are int32, so ``rows *
+    row_bytes`` past 32 bits raises ``ValueError``."""
     leaves = []
     for src, dst in pairs:
         rb = row_bytes(dst)

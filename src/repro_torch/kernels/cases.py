@@ -14,7 +14,9 @@ them: causal ``S > T`` (rows that see no key), windows, head dims 112 and
 256 and GQA in bfloat16, and bfloat16 rows for every route of the
 tensor-core kernel (head dim 128 without the causal mask, ragged ``S = T =
 100`` with a softcap, GQA groups of 8).
-``SLICE_TREE_CASE`` moves ``TREE_LEAVES`` through K3.
+``SLICE_TREE_CASE`` moves ``TREE_LEAVES`` through K3, and
+``SCATTER_BYTE_CASES`` and ``SCATTER_TREE_CASE`` cover K2's byte path and
+tree.
 ``EXPAND_CASES`` and ``SSD_CASES`` are the JAX package's tables for K5
 and K7; ``EXPLORE_CASES`` cover K5's redesign, the fused DD explore;
 ``SSD_EXTRA_CASES`` adds ragged lengths (``S % Q != 0``, ``S < Q``),
@@ -34,7 +36,7 @@ __all__ = ["STEAL_CASES", "TRANSFER_CASES", "SCATTER_CASES", "SLICE_CASES",
            "TREE_CASE", "tree_payload",
            "FLASH_CASES", "FLASH_EXTRA_CASES", "FLASH_SLICE", "FLASH_ZAMBA",
            "FLASH_TOL",
-           "SLICE_TREE_CASE",
+           "SLICE_TREE_CASE", "SCATTER_BYTE_CASES", "SCATTER_TREE_CASE",
            "EXPAND_CASES", "EXPAND_SOLVER", "expand_inputs",
            "EXPLORE_CASES", "explore_inputs",
            "SSD_CASES", "SSD_EXTRA_CASES", "SSD_SLICE", "SSD_HYBRID",
@@ -108,6 +110,29 @@ TREE_CASE = (48, 24, 3, (47, 5, 18, 30, 1), (24, 0, 13, 18, 7),
 # and 3, lane 1 pops nothing.
 SLICE_TREE_CASE = (48, 24, (40, 5, 18, 40, 1), (30, 0, 13, 20, 24),
                    (24, 0, 13, 20, 7))
+
+# K2 on the byte path, several lanes a row: 4-byte rows at every residue
+# mod 16 bytes, 12-, 20- and 6-byte rows, batch blocks whose lanes start
+# off a 16-byte boundary (33 rows of 12 bytes), pushes that end exactly at
+# cap, n = 0 and n = cap, max_push > cap with n > cap (only cap rows are
+# written), negative starts (Python's `%`: counted from the ring's end),
+# a start past cap and a negative n (nothing written).
+# (cap, D, max_push, start per lane, n per lane, dtype)
+SCATTER_BYTE_CASES = [
+    (64, 1, 32, (0, 1, 2, 3), (13, 32, 7, 0), "int32"),
+    (66, 3, 33, (61, 62, 63, 65), (5, 33, 3, 1), "int32"),    # 65 + 1 = cap
+    (64, 5, 64, (1, 30, 59, 34), (63, 34, 5, 64), "int32"),   # ends at cap
+    (64, 3, 64, (5, 6, 7, 8), (64, 0, 61, 1), "bfloat16"),    # n = cap
+    (16, 1, 48, (3, 14, 0, 9), (48, 33, 16, 17), "float32"),  # n > cap
+    (16, 3, 48, (15, -5, 7, 1), (40, 48, 16, 9), "bfloat16"),
+    (32, 5, 16, (-1, 40, 31, -33), (16, 9, -2, 5), "float32"),
+]
+
+# K2 on TREE_LEAVES: (cap, max_push, start per lane, n per lane).  Lane 0
+# wraps the ring, lane 1 pushes nothing, lane 2 has a negative start and n
+# past max_push (24 rows written, wrapping), lane 4 a start past cap, lane
+# 5 a negative n.
+SCATTER_TREE_CASE = (48, 24, (40, 5, -7, 30, 100, 13), (24, 0, 30, 13, 7, -2))
 
 # (cap, D, max_push, start, n, dtype)
 SCATTER_CASES = [

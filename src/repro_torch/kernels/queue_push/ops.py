@@ -1,11 +1,10 @@
 """Wrappers of K2 ``ring_scatter`` (bulk push, in place) and K3
 ``ring_slice`` (bulk pop) for payload pytrees on stacked lanes.
 
-For a CUDA tensor, K2 moves each ``(L, rows, ...)`` leaf with one launch of
-``ring_push.cu``, and K3 moves up to ``_lib.MAX_LEAVES`` leaves of a tree
-with one launch of ``ring_slice.cu``; for a CPU tensor the plain versions
-in :mod:`.ref` run.  There is no other route: a CUDA tensor the kernels
-refuse raises.
+For CUDA tensors, K2 (``ring_push.cu``) and K3 (``ring_slice.cu``) each
+move up to ``_lib.MAX_LEAVES`` leaves of a payload tree with one launch;
+for CPU tensors the plain versions in :mod:`.ref` run.  There is no other
+route: a CUDA tensor the kernels refuse raises.
 """
 
 from __future__ import annotations
@@ -23,25 +22,7 @@ def ring_scatter(buf: torch.Tensor, batch: torch.Tensor, start: torch.Tensor,
                  n: torch.Tensor) -> torch.Tensor:
     """One leaf, IN PLACE: ``buf[l, (start[l] + i) % cap] = batch[l, i]``
     for ``i < min(n[l], batch rows, cap)``.  Returns ``buf``."""
-    if buf.dtype != batch.dtype or buf.shape[2:] != batch.shape[2:]:
-        raise ValueError("batch rows must match the ring's rows")
-    lanes, cap = buf.shape[:2]
-    max_push = batch.shape[1]
-    if buf.device.type == "cpu":
-        n = n.clamp(0, min(max_push, cap))
-        return buf.copy_(ring_scatter_ref(buf, batch, start, n))
-    start = _lib.lane_vec(start, lanes, "start")
-    n = _lib.lane_vec(n, lanes, "n")
-    dev = _lib.check_cuda(buf, batch, start, n)
-    if buf.numel() == 0 or max_push == 0:
-        return buf
-    row_bytes = _lib.row_bytes(buf)
-    word = _lib.word_bytes(row_bytes, buf, batch)
-    _lib.launch("rk_ring_scatter", buf.data_ptr(), batch.data_ptr(),
-                start.data_ptr(), n.data_ptr(), lanes, cap, max_push,
-                row_bytes // word, word, device=dev)
-    push_scatter.launches += 1
-    return buf
+    return push_scatter(buf, batch, start, n)
 
 
 def ring_slice(buf: torch.Tensor, lo: torch.Tensor, size: torch.Tensor,
@@ -53,10 +34,47 @@ def ring_slice(buf: torch.Tensor, lo: torch.Tensor, size: torch.Tensor,
 
 def push_scatter(buf_tree, batch_tree, start: torch.Tensor, n: torch.Tensor):
     """Splice ``batch_tree[l, i] -> buf_tree[l, (start[l] + i) % cap]`` for
-    ``i < n[l]``, in place; returns ``buf_tree``.
+    ``i < min(n[l], max_push, cap)``, in place, with ``start`` taken mod
+    ``cap`` as Python's ``%`` takes it; returns ``buf_tree``.
+
+    Ring leaves are ``(lanes, cap, ...)`` and batch leaves ``(lanes,
+    max_push, ...)`` of the ring's dtype and row shape, all alike;
+    anything else raises ``ValueError`` before a leaf is written.  On the
+    card one launch moves up to ``_lib.MAX_LEAVES`` leaves; its byte
+    offsets are int32, so a lane whose ring or batch holds 2^31 bytes or
+    more raises ``ValueError`` (there is no other route).
     ``push_scatter.launches`` counts the CUDA launches."""
-    return tree_map(lambda b, x: ring_scatter(b, x, start, n),
-                    buf_tree, batch_tree)
+    pairs = []
+    tree_map(lambda buf, batch: pairs.append((batch, buf)), buf_tree,
+             batch_tree)
+    if not pairs:
+        return buf_tree
+    lanes, cap = pairs[0][1].shape[:2]
+    max_push = pairs[0][0].shape[1]
+    for batch, buf in pairs:
+        if (buf.shape[:2] != (lanes, cap)
+                or batch.shape[:2] != (lanes, max_push)):
+            raise ValueError(f"every ring leaf must be ({lanes}, {cap}, ...) "
+                             f"and every batch leaf ({lanes}, {max_push}, "
+                             f"...), got {tuple(buf.shape)} and "
+                             f"{tuple(batch.shape)}")
+        if buf.dtype != batch.dtype or buf.shape[2:] != batch.shape[2:]:
+            raise ValueError("batch rows must match the ring's rows")
+    if all(buf.device.type == "cpu" for _, buf in pairs):
+        n = n.clamp(0, min(max_push, cap))
+        for batch, buf in pairs:
+            buf.copy_(ring_scatter_ref(buf, batch, start, n))
+        return buf_tree
+    start = _lib.lane_vec(start, lanes, "start")
+    n = _lib.lane_vec(n, lanes, "n")
+    dev = _lib.check_cuda(start, n, *(t for pair in pairs for t in pair))
+    if lanes == 0 or cap == 0 or max_push == 0:
+        return buf_tree
+    for tree in _lib.ring_trees(pairs, max(cap, max_push)):
+        _lib.launch("rk_ring_scatter", tree, start.data_ptr(), n.data_ptr(),
+                    lanes, cap, max_push, device=dev)
+        push_scatter.launches += 1
+    return buf_tree
 
 
 def pop_slice(buf_tree, lo: torch.Tensor, size: torch.Tensor,

@@ -27,27 +27,12 @@
 // chunk of one lane's splice, exits after one cursor load if the splice is
 // shorter, and otherwise turns head and src_row into byte offsets once and
 // copies the chunk as at most two contiguous runs into the ring, 16 bytes a
-// thread.  All leaves of a payload tree go in one launch.
+// thread: ring_copy.cuh's scatter_chunk, which K2 ring_scatter shares.
+// All leaves of a payload tree go in one launch.
 
 #include "../ring_copy.cuh"
 
 namespace {
-
-// Write `len` bytes from `src` into the circular `ring` at `pos`; returns
-// the position after them.
-__device__ __forceinline__ int put(uint8_t* __restrict__ ring, int ring_bytes,
-                                   int pos, const uint8_t* __restrict__ src,
-                                   int len) {
-  while (len > 0) {
-    const int run = min(len, ring_bytes - pos);
-    ringcopy::copy_bytes(ring + pos, src, run);
-    src += run;
-    len -= run;
-    pos += run;
-    if (pos == ring_bytes) pos = 0;
-  }
-  return pos;
-}
 
 // The part of a splice whose rows lie past the stack: `len` bytes of the
 // stack's last row `last` repeated, starting `off` bytes into the row.
@@ -58,7 +43,7 @@ __device__ __noinline__ void repeat_row(uint8_t* __restrict__ ring,
                                         int rb, int off, int len) {
   while (len > 0) {
     const int run = min(rb - off, len);
-    pos = put(ring, ring_bytes, pos, last + off, run);
+    pos = ringcopy::put(ring, ring_bytes, pos, last + off, run);
     len -= run;
     off = 0;
   }
@@ -88,17 +73,14 @@ __global__ void __launch_bounds__(ringcopy::kThreads)
     const int direct =
         (int)min((int64_t)live, max((int64_t)src_rows - first, (int64_t)0)) *
         rb;
-    int pos = ringcopy::wrap_add(ringcopy::py_mod(head[l], cap) * rb, c0,
-                                 ring_bytes);
-    int b = c0;
-    if (b < direct) {
-      const int e = min(c1, direct);
-      pos = put(ring, ring_bytes, pos, leaf.src + first * rb + b, e - b);
-      b = e;
-    }
-    if (b < c1) {
+    // bytes [c0, e) read the stack, through the scatter K2 shares
+    const int e = min(c1, max(c0, direct));
+    const int pos = ringcopy::scatter_chunk(
+        ring, leaf.src + first * rb, ringcopy::py_mod(head[l], cap), rb,
+        ring_bytes, c0, e);
+    if (e < c1) {
       const uint8_t* last = leaf.src + (int64_t)(src_rows - 1) * rb;
-      repeat_row(ring, ring_bytes, pos, last, rb, (b - direct) % rb, c1 - b);
+      repeat_row(ring, ring_bytes, pos, last, rb, (e - direct) % rb, c1 - e);
     }
   }
 }

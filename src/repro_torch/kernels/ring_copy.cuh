@@ -1,5 +1,6 @@
-// The ring-copy primitive shared by K1 ring_gather, K3 ring_slice and K4
-// ring_transfer.
+// The ring-copy primitive shared by K1 ring_gather, K2 ring_scatter, K3
+// ring_slice and K4 ring_transfer: K1 and K3 read the ring
+// (gather_chunk), K2 and K4 write it (scatter_chunk).
 //
 // The kernels move one segment per lane between the lane's ring of `cap`
 // rows and a dense block: ring rows (start + i) mod cap for i < live.  Rows
@@ -18,7 +19,10 @@
 // loads beat a TMA bulk copy staged through shared memory (PERF.md §6).
 //
 // A run is stored 16 bytes a thread (`uint4`): a scalar head up to the
-// destination's 16-byte boundary, aligned vector stores, a scalar tail.
+// destination's 16-byte boundary, aligned vector stores, a scalar tail,
+// with every load of a thread issued before its first store.  A write
+// that wraps the ring copies its two runs at once, each by a share of the
+// CTA's warps.
 // The source side of a run generally sits at another offset mod 16 (a
 // 4-byte row starts at 0, 4, 8 or 12), so loads are aligned `uint4`s and
 // each stored vector is assembled from two of them with __funnelshift_r.
@@ -38,7 +42,8 @@ constexpr int kChunk = 8192;  // bytes of one lane's dense side per CTA
 constexpr int kMaxLeaves = 8;
 
 // One payload leaf: K1 and K3 read the ring `src` into the blocks `dst`;
-// K4 reads the window stack `src` into the ring `dst`.
+// K2 reads the batch `src` and K4 the window stack `src` into the ring
+// `dst`.
 struct RingLeaf {
   const uint8_t* src;
   uint8_t* dst;
@@ -78,19 +83,21 @@ __device__ __forceinline__ uint4 realign(const uint4 a, const uint4 b,
 }
 
 // out[k] = the 16 bytes 16 k + 4 Q + shift / 8 past the aligned `in`, for
-// k < nvec.  The second load of a vector reads the aligned block holding
-// its last byte, so nothing outside the source's 16-byte blocks is read.
+// k < nvec, by threads t of nt.  The second load of a vector reads the
+// aligned block holding its last byte, so nothing outside the source's
+// 16-byte blocks is read.
 template <int Q, bool kAligned>
 __device__ __forceinline__ void copy_vectors(uint4* __restrict__ out,
                                              const uint4* __restrict__ in,
-                                             int nvec, int shift) {
+                                             int nvec, int shift, int t,
+                                             int nt) {
   auto load = [&](int k) {
     if constexpr (kAligned) return __ldg(in + k);
     else return realign<Q>(__ldg(in + k), __ldg(in + k + 1), shift);
   };
-  for (int k = threadIdx.x; k < nvec; k += 2 * kThreads) {
+  for (int k = t; k < nvec; k += 2 * nt) {
     const uint4 v = load(k);
-    const int k2 = k + kThreads;
+    const int k2 = k + nt;
     if (k2 < nvec) {
       const uint4 v2 = load(k2);
       out[k] = v;
@@ -101,44 +108,53 @@ __device__ __forceinline__ void copy_vectors(uint4* __restrict__ out,
   }
 }
 
-// dst[i] = src[i] for i < len, by the CTA's threads: stores aligned to
-// dst, loads realigned in registers.
-__device__ __forceinline__ void copy_bytes(uint8_t* __restrict__ dst,
-                                           const uint8_t* __restrict__ src,
-                                           int len) {
-  const int t = threadIdx.x;
-  int head = (int)((16u - ((uintptr_t)dst & 15u)) & 15u);
-  if (head > len) head = len;
-  if (t < head) dst[t] = src[t];
-  dst += head;
-  src += head;
-  len -= head;
-  const int nvec = len >> 4;
-  const int tail = len & 15;
-  if (t < tail) dst[(nvec << 4) + t] = src[(nvec << 4) + t];
-  if (nvec == 0) return;
+// The 16-byte body of copy_bytes: nvec vectors from `src` to the aligned
+// `dst`, by threads t of nt.
+__device__ __forceinline__ void copy_body(uint8_t* __restrict__ dst,
+                                          const uint8_t* __restrict__ src,
+                                          int nvec, int t, int nt) {
   uint4* out = reinterpret_cast<uint4*>(dst);
   const int mis = (int)((uintptr_t)src & 15u);
   const uint4* in = reinterpret_cast<const uint4*>(src - mis);
   const int shift = (mis & 3) * 8;
-  switch (mis >> 2) {  // the same for every thread of the CTA
+  switch (mis >> 2) {  // the same for every thread of a warp
     case 0:
       if (mis == 0) {
-        copy_vectors<0, true>(out, in, nvec, 0);
+        copy_vectors<0, true>(out, in, nvec, 0, t, nt);
       } else {
-        copy_vectors<0, false>(out, in, nvec, shift);
+        copy_vectors<0, false>(out, in, nvec, shift, t, nt);
       }
       break;
     case 1:
-      copy_vectors<1, false>(out, in, nvec, shift);
+      copy_vectors<1, false>(out, in, nvec, shift, t, nt);
       break;
     case 2:
-      copy_vectors<2, false>(out, in, nvec, shift);
+      copy_vectors<2, false>(out, in, nvec, shift, t, nt);
       break;
     default:
-      copy_vectors<3, false>(out, in, nvec, shift);
+      copy_vectors<3, false>(out, in, nvec, shift, t, nt);
       break;
   }
+}
+
+// dst[i] = src[i] for i < len, by threads t = 0 .. nt - 1 of the CTA (nt
+// >= 16): stores aligned to dst, loads realigned in registers.  The scalar
+// head and tail are loaded before the body and stored after it, so no load
+// waits for a store.
+__device__ __forceinline__ void copy_bytes(uint8_t* __restrict__ dst,
+                                           const uint8_t* __restrict__ src,
+                                           int len, int t, int nt) {
+  int head = (int)((16u - ((uintptr_t)dst & 15u)) & 15u);
+  if (head > len) head = len;
+  const int nvec = (len - head) >> 4;
+  const int tail = (len - head) & 15;
+  const int at = head + (nvec << 4);  // where the tail starts
+  uint8_t h = 0, e = 0;
+  if (t < head) h = src[t];
+  if (t < tail) e = src[at + t];
+  if (nvec > 0) copy_body(dst + head, src + head, nvec, t, nt);
+  if (t < head) dst[t] = h;
+  if (t < tail) dst[at + t] = e;
 }
 
 // dst[i] = 0 for i < len, by the CTA's threads.
@@ -172,12 +188,56 @@ __device__ __forceinline__ void gather_chunk(const uint8_t* __restrict__ ring,
     int pos = wrap_add(start_row * rb, b, ring_bytes);
     while (b < end) {
       const int run = min(end - b, ring_bytes - pos);
-      copy_bytes(out + b, ring + pos, run);
+      copy_bytes(out + b, ring + pos, run, threadIdx.x, kThreads);
       b += run;
       pos = 0;
     }
   }
   if (b < c1) zero_bytes(out + b, c1 - b);
+}
+
+// Write `len` <= ring_bytes bytes from `src` into the circular `ring` of
+// `ring_bytes` bytes at byte `pos`; returns the position after them.
+// Where the bytes wrap, the two runs are copied at once, each by a share of
+// the CTA's warps in proportion to its length, so the second run's loads
+// do not wait for the first run's stores.
+__device__ __forceinline__ int put(uint8_t* __restrict__ ring, int ring_bytes,
+                                   int pos, const uint8_t* __restrict__ src,
+                                   int len) {
+  const int first = min(len, ring_bytes - pos);
+  uint8_t* dst = ring + pos;
+  int n = len, t = threadIdx.x, nt = kThreads;
+  if (first < len) {  // one inlined copy serves both runs
+    constexpr int kWarps = kThreads / 32;
+    const int w1 = (int)(((int64_t)kWarps * first + len / 2) / len);
+    const int split = 32 * min(max(w1, 1), kWarps - 1);
+    if (t < split) {
+      n = first;
+      nt = split;
+    } else {
+      dst = ring;
+      src += first;
+      n = len - first;
+      t -= split;
+      nt = kThreads - split;
+    }
+  }
+  copy_bytes(dst, src, n, t, nt);
+  if (first < len) return len - first;
+  return pos + len == ring_bytes ? 0 : pos + len;
+}
+
+// One CTA's part of a K2 / K4 write, for one lane and leaf: bytes [c0, c1)
+// of the lane's dense block `in` go to the ring's rows start_row + i (mod
+// cap), i.e. to ring byte (start_row * rb + c0) mod ring_bytes onwards.
+// With c1 - c0 <= ring_bytes that is at most two contiguous runs.
+// Returns the ring position after the last byte written.
+__device__ __forceinline__ int scatter_chunk(uint8_t* __restrict__ ring,
+                                             const uint8_t* __restrict__ in,
+                                             int start_row, int rb,
+                                             int ring_bytes, int c0, int c1) {
+  const int pos = wrap_add(start_row * rb, c0, ring_bytes);
+  return put(ring, ring_bytes, pos, in + c0, c1 - c0);
 }
 
 // Launch shape: x chunks of the largest leaf's `rows` rows, y lanes (the

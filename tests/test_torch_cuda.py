@@ -93,9 +93,10 @@ def test_ring_copy_kernels_launch_once_per_tree():
 
 @pytest.mark.cuda
 def test_ring_copy_kernels_match_plain_versions_on_misaligned_rows():
-    """K1 and K4's byte path bit for bit against the plain versions: rows
-    of 4, 12, 20 and 6 bytes at every offset mod 16, bases off a 16-byte
-    boundary, segments that lap the ring, a short last window."""
+    """K1, K2 and K4's byte path bit for bit against the plain versions:
+    rows of 4, 12, 20 and 6 bytes at every offset mod 16, bases off a
+    16-byte boundary, segments that lap the ring, K2's negative starts and
+    n past max_push, a short last window."""
     dev = _cuda()
     smoke = _chip_smoke()
     names = set()
@@ -103,7 +104,25 @@ def test_ring_copy_kernels_match_plain_versions_on_misaligned_rows():
             dev, np.random.default_rng(0)):
         smoke._compare(k_out, p_out, f"{name} {what}")
         names.add(name)
-    assert names == {"ring_gather", "ring_transfer"}
+    assert names == {"ring_gather", "ring_scatter", "ring_transfer"}
+
+
+@pytest.mark.cuda
+def test_ring_transfer_on_the_shared_scatter_matches_plain_version():
+    """K4, whose direct part runs on the scatter it shares with K2, stays
+    bit for bit with its plain version on ``cases.TRANSFER_BYTE_CASES``
+    (negative source rows, rows past the stack, n = cap), one launch a
+    case."""
+    dev = _cuda()
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    before = transfer_splice.launches
+    for cap, d, w, m, head, src, n, dt in C.TRANSFER_BYTE_CASES:
+        name, what, k_out, p_out = smoke._transfer_case(
+            dev, rng, len(head), cap, d, w * m, m, head, src, n, dt,
+            f"bytes {cap},{d},{w},{m},{dt}")
+        smoke._compare(k_out, p_out, f"{name} {what}")
+    assert transfer_splice.launches - before == len(C.TRANSFER_BYTE_CASES)
 
 
 @pytest.mark.cuda
@@ -233,6 +252,24 @@ def test_slice_tree_launches_once_per_tree():
             smoke._compare(k_out, p_out, f"{name} {what}")
         assert len(rows) == len(leaves)
         assert pop_slice.launches - before == launches
+
+
+@pytest.mark.cuda
+def test_scatter_tree_launches_once_per_tree():
+    """K2 moves a payload tree in one launch per eight leaves, bit for bit
+    against the plain version at ``cases.SCATTER_TREE_CASE`` (a wrapping
+    lane, n = 0, a negative start with n past max_push): the mixed-dtype
+    tree in one launch, twelve leaves in two."""
+    dev = _cuda()
+    smoke = _chip_smoke()
+    rng = np.random.default_rng(0)
+    for leaves, launches in ((C.TREE_LEAVES, 1), (smoke.many_leaves(), 2)):
+        before = push_scatter.launches
+        rows = list(smoke.scatter_tree_cases(dev, rng, leaves))
+        for name, what, k_out, p_out in rows:
+            smoke._compare(k_out, p_out, f"{name} {what}")
+        assert len(rows) == len(leaves)
+        assert push_scatter.launches - before == launches
 
 
 @pytest.mark.cuda

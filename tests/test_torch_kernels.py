@@ -243,6 +243,101 @@ def test_lane_with_nothing_to_splice_is_not_refused_for_its_src_row():
                         _vec(3, 1), max_steal=m)
 
 
+@pytest.mark.parametrize("case", C.SCATTER_BYTE_CASES)
+def test_ring_scatter_byte_rows_match_pallas(case):
+    """K2's byte-path rows (every residue mod 16 bytes, 12-, 20- and 6-byte
+    rows, pushes ending at cap, n = 0 and cap, n past a batch larger than
+    the ring, negative starts and n): one stacked call against the JAX
+    wrapper lane by lane, on the Pallas kernel in interpret mode where it
+    takes the geometry and on the JAX package's plain reference where it
+    does not (max_push + block > cap)."""
+    cap, d, m, start, n, dtype = case
+    rng = np.random.default_rng(9)
+    jbuf, tbuf = _both(rng, (len(start), cap, d), dtype)
+    jb, tb = _both(rng, (len(start), m, d), dtype)
+    got = tbuf.clone()
+    assert push_scatter(got, tb, _vec(*start), _vec(*n)) is got
+    pallas = ring_scatter_supported(cap, m)
+    for l in range(len(start)):
+        want = jax_push_scatter(jbuf[l], jb[l], jnp.int32(start[l]),
+                                jnp.int32(n[l]), interpret=pallas)
+        assert_same(want, got[l], f"ring_scatter {case} lane {l}")
+
+
+def _tree_leaves(count):
+    """``cases.TREE_LEAVES`` (3 leaves: one launch of K1-K4 on the card) or
+    four copies of it (12 leaves: two launches)."""
+    return {f"{k}{i}": v for i in range(count // len(C.TREE_LEAVES))
+            for k, v in C.TREE_LEAVES.items()}
+
+
+@pytest.mark.parametrize("count", [3, 12])
+def test_push_scatter_tree_matches_pallas(count):
+    """K2 on the mixed-dtype payload tree at ``cases.SCATTER_TREE_CASE``
+    (a lane that wraps the ring, one with n = 0, one with a negative start
+    and n past max_push, a start past cap, a negative n): one call of the
+    tree wrapper, in place, against the JAX wrapper on the Pallas kernel in
+    interpret mode, lane by lane and leaf by leaf, bit for bit."""
+    cap, m, start, n = C.SCATTER_TREE_CASE
+    leaves = _tree_leaves(count)
+    dtypes = {k: dt for k, (_, dt) in leaves.items()}
+    rng = np.random.default_rng(10)
+
+    def both(lead):
+        arrays = C.tree_payload(rng, lead, leaves)
+        return ({k: jax_payload(a, dtypes[k]) for k, a in arrays.items()},
+                {k: C.to_tensor(a, dtypes[k], CPU) for k, a in arrays.items()})
+
+    jr, tr = both((len(start), cap))
+    jb, tb = both((len(start), m))
+    got = {k: v.clone() for k, v in tr.items()}
+    assert push_scatter(got, tb, _vec(*start), _vec(*n)) is got
+    assert ring_scatter_supported(cap, m)
+    for l in range(len(start)):
+        want = jax_push_scatter({k: v[l] for k, v in jr.items()},
+                                {k: v[l] for k, v in jb.items()},
+                                jnp.int32(start[l]), jnp.int32(n[l]),
+                                interpret=True)
+        for k in dtypes:
+            assert_same(want[k], got[k][l], f"push_scatter {k} lane {l}")
+
+
+@pytest.mark.parametrize("fault", ["ring_rows", "batch_rows", "lanes",
+                                   "dtype", "row_shape"])
+def test_push_scatter_refuses_unlike_leaves_before_writing(fault):
+    """K2's tree wrapper takes ring leaves ``(lanes, cap, ...)`` and batch
+    leaves ``(lanes, max_push, ...)`` of the ring's dtype and row shape, all
+    alike.  A tree whose second leaf breaks that raises ``ValueError``
+    before the first leaf is written, on the CPU and on another device
+    alike, where nothing launches."""
+    rings = {"a": torch.zeros((2, 8, 3), dtype=I32),
+             "b": torch.zeros((2, 8, 3), dtype=I32)}
+    batches = {"a": torch.ones((2, 4, 3), dtype=I32),
+               "b": torch.ones((2, 4, 3), dtype=I32)}
+    if fault == "ring_rows":
+        rings["b"] = torch.zeros((2, 9, 3), dtype=I32)
+    elif fault == "batch_rows":
+        batches["b"] = torch.ones((2, 5, 3), dtype=I32)
+    elif fault == "lanes":
+        rings["b"] = torch.zeros((3, 8, 3), dtype=I32)
+        batches["b"] = torch.ones((3, 4, 3), dtype=I32)
+    elif fault == "dtype":
+        batches["b"] = torch.ones((2, 4, 3), dtype=torch.float32)
+    else:
+        batches["b"] = torch.ones((2, 4, 2), dtype=I32)
+    match = ("must match" if fault in ("dtype", "row_shape")
+             else "every ring leaf")
+    with pytest.raises(ValueError, match=match):
+        push_scatter(rings, batches, _vec(1, 6), _vec(4, 4))
+    assert not rings["a"].any()
+    before = push_scatter.launches
+    meta = {k: v.to("meta") for k, v in rings.items()}
+    with pytest.raises(ValueError, match=match):
+        push_scatter(meta, {k: v.to("meta") for k, v in batches.items()},
+                     _vec(1, 6).to("meta"), _vec(4, 4).to("meta"))
+    assert push_scatter.launches == before
+
+
 @pytest.mark.parametrize("kernel", ["gather", "transfer"])
 def test_payload_tree_matches_pallas(kernel):
     """The mixed-dtype payload tree (int32 ``(L, cap)``, bfloat16 ``(L,
@@ -304,6 +399,12 @@ def test_wrappers_refuse_non_cpu_tensors_without_cuda():
         ring_gather(buf, cursor, cursor, 8)
     with pytest.raises(ValueError, match="int32"):
         ring_gather(buf, cursor.long(), cursor, 8)
+    # K2's tree wrapper: the whole tree goes to the kernel or raises
+    before = push_scatter.launches
+    with pytest.raises(ValueError, match="CUDA"):
+        push_scatter({"a": buf, "b": buf.clone()}, {"a": buf, "b": buf},
+                     cursor, cursor)
+    assert push_scatter.launches == before
     # K5 and K7 likewise
     nodes = torch.zeros((4, 8), dtype=I32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):

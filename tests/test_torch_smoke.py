@@ -8,6 +8,7 @@ script runs the same code at full size."""
 import importlib.util
 from pathlib import Path
 
+import numpy as np
 import torch
 
 from repro.core.dd.knapsack import random_instance as jax_random_instance
@@ -60,12 +61,25 @@ def test_kernel_phase_checks_every_kernel():
         assert out[name]["parity_cases"] == 22
         assert out[name]["earlier_ms"] > 0
         assert out[name]["launches_per_call"] == 0  # none on the CPU
-    # K1, K3 and K4 also timed as the solver calls them: its three-leaf
-    # tree
-    for name in ("ring_gather", "ring_slice", "ring_transfer"):
+    # K1-K4 also timed as the solver calls them: its three-leaf tree
+    for name in ("ring_gather", "ring_scatter", "ring_slice",
+                 "ring_transfer"):
         row = out[name]["solver_payload"]
         assert row["bound_ms"] > 0 and row["library_ms"] is None
         assert row["launches_per_call"] == 0  # the CPU launches nothing
+
+
+def test_push_latency_series_checks_and_times_every_size():
+    """The Fig. 6 series at a CPU size: every push size held against the
+    plain version and timed beside ``index_copy_`` and its byte bound."""
+    smoke = _chip_smoke()
+    out = smoke.push_latency(CPU, np.random.default_rng(0),
+                             smoke.Timer(CPU), lanes=4, cap=256,
+                             sizes=(1, 16, 128))
+    assert [row["max_push"] for row in out["series"]] == [1, 16, 128]
+    for row in out["series"]:
+        assert row["ms"] > 0 and row["library_ms"] > 0
+        assert row["bound_bytes"] == 2 * 4 * row["max_push"] * 4 + 2 * 4 * 4
 
 
 def test_queue_phase_agrees_across_backends_and_conserves():

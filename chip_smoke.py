@@ -82,6 +82,21 @@ check that does not hold:
    tensor-core route; every request must get its tokens, and the first
    wave passes the two checks against both plain versions at once.
 
+7. The checkers (``{"phase": "checkers"}``, after phase 3).  (a) Phase 2's
+   backlog on the relaxed backend and on the kernel backend under the
+   runtime sanitizer (``make_ops("cuda", check=True)``): rings and cursors
+   bit-equal to the plain kernel backend's under both exchanges, the
+   live-item multiset conserved, no violation, K1 and K4 launched under
+   the relaxed backend; ms per superstep of each.  (b) The exhaustive
+   linearizability checker over the reference, kernel and relaxed
+   backends on rings of (4, 2) and (8, 4) on the card: 330 histories per
+   fenced backend and 636 for the split relaxed steal per geometry, none
+   violating, and both seeded reconcile mutations caught.  (c)
+   ``PagedQueue`` past its ring: 131,072 distinct ids (8x one 16,384-row
+   int32 ring, pages of 8,192) pushed in batches of 1,024, stolen and
+   popped through spills and refills, every id back exactly once under
+   the sanitizer's spill/refill audit; ms per push with and without it.
+
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -1158,41 +1173,59 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None,
 # ------------------------------------------- phase 2: the paper's backlog
 
 
+def backlog_items(lanes: int, backlog: int, seed: int) -> dict:
+    """``backlog`` unique seeded items for each of the even lanes: their
+    ids (``layer``) and two random int32 words."""
+    rng = np.random.default_rng(seed)
+    ids = np.arange(len(range(0, lanes, 2)) * backlog, dtype=np.int32)
+    return {"layer": ids,
+            "state": rng.integers(0, 2 ** 30, ids.size).astype(np.int32),
+            "value": rng.integers(-2 ** 30, 2 ** 30, ids.size).astype(
+                np.int32)}
+
+
+def backlog_runtime(device, items, *, backend, exchange: str, lanes: int,
+                    capacity: int, max_steal: int):
+    """A runtime of the repo's steal policy on ``backend`` with the even
+    lanes holding ``items``, ``backlog`` rows each (the seed pushes)."""
+    import torch
+    from repro_torch.configs.paper_lfq import CONFIG
+    from repro_torch.core.policy import StealPolicy
+    from repro_torch.runtime.executor import StealRuntime
+
+    policy = StealPolicy(proportion=CONFIG.steal_proportion,
+                         queue_limit=CONFIG.queue_limit,
+                         low_watermark=CONFIG.low_watermark,
+                         high_watermark=CONFIG.high_watermark,
+                         max_steal=max_steal, exchange=exchange)
+    spec = {k: torch.zeros((), dtype=torch.int32) for k in items}
+    rt = StealRuntime(lanes, capacity, spec, policy=policy, backend=backend,
+                      device=device)
+    full = list(range(0, lanes, 2))
+    backlog = items["layer"].size // len(full)
+    for j, lane in enumerate(full):
+        part = slice(j * backlog, (j + 1) * backlog)
+        rt.push(lane, {k: v[part] for k, v in items.items()}, backlog)
+    return rt
+
+
 def phase_queue(device, *, lanes: int, capacity: int, backlog: int,
                 max_steal: int, rounds: int, seed: int = 0):
     """``rounds`` supersteps from half the lanes holding ``backlog`` unique
     items, on the kernel backend (compact and dense exchange) and the
     reference backend; all three must agree and conserve every item."""
-    import torch
-    from repro_torch.configs.paper_lfq import CONFIG
     from repro_torch.core.ops import queue_to_numpy
-    from repro_torch.core.policy import StealPolicy
-    from repro_torch.runtime.executor import StealRuntime
     from repro_torch.runtime.telemetry import RoundRecord
 
     fields = [f.name for f in dataclasses.fields(RoundRecord)]
-    rng = np.random.default_rng(seed)
-    full = list(range(0, lanes, 2))
-    ids = np.arange(len(full) * backlog, dtype=np.int32)
-    items = {"layer": ids,
-             "state": rng.integers(0, 2 ** 30, ids.size).astype(np.int32),
-             "value": rng.integers(-2 ** 30, 2 ** 30, ids.size).astype(
-                 np.int32)}
-    spec = {k: torch.zeros((), dtype=torch.int32) for k in items}
+    items = backlog_items(lanes, backlog, seed)
     runs = {}
     # The first configuration runs twice; its first run only warms up.
     for backend, exchange in (("cuda", "compact"), ("cuda", "compact"),
                               ("cuda", "dense"), ("reference", "compact")):
-        policy = StealPolicy(proportion=CONFIG.steal_proportion,
-                             queue_limit=CONFIG.queue_limit,
-                             low_watermark=CONFIG.low_watermark,
-                             high_watermark=CONFIG.high_watermark,
-                             max_steal=max_steal, exchange=exchange)
-        rt = StealRuntime(lanes, capacity, spec, policy=policy,
-                          backend=backend, device=device)
-        for j, lane in enumerate(full):
-            part = slice(j * backlog, (j + 1) * backlog)
-            rt.push(lane, {k: v[part] for k, v in items.items()}, backlog)
+        rt = backlog_runtime(device, items, backend=backend,
+                             exchange=exchange, lanes=lanes,
+                             capacity=capacity, max_steal=max_steal)
         sync(device)
         t0 = time.perf_counter()
         rt.run_fused(rounds)
@@ -1217,6 +1250,7 @@ def phase_queue(device, *, lanes: int, capacity: int, backlog: int,
             ref = rec0
         check(rec == ref, f"{name}: round records")
     # Conservation: every (id, state, value) row lives exactly once.
+    ids = items["layer"]
     live = [(q0.lo[l] + np.arange(q0.size[l])) % capacity
             for l in range(lanes)]
     got = {k: np.concatenate([q0.buf[k][l][r] for l, r in enumerate(live)])
@@ -1231,6 +1265,174 @@ def phase_queue(device, *, lanes: int, capacity: int, backlog: int,
             "rounds": rounds, "items": int(ids.size), "moved": int(moved),
             "ms_per_superstep": {k: v[2] * 1e3 / rounds
                                  for k, v in runs.items()}}
+
+
+# ----------------------------------------- phase 7: the correctness checkers
+
+
+def checkers_backlog(device, counters, *, lanes: int, capacity: int,
+                     backlog: int, max_steal: int, rounds: int,
+                     seed: int = 0):
+    """Phase 2's backlog on the relaxed backend and on the sanitized kernel
+    backend, each against the plain kernel backend, under both exchanges:
+    rings and cursors bit-equal, the live-item multiset conserved, no
+    violation.  The plain and relaxed backends run three times each in
+    turns (ms per superstep of every run); K1 (the optimistic read and the
+    window), K2 and K4 are counted over a relaxed run."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.ops import make_ops, queue_to_numpy
+
+    items = backlog_items(lanes, backlog, seed)
+    sanitize.reset_violations()
+    out = {"ms_per_superstep": {}, "launches_relaxed": {}}
+    for exchange in ("compact", "dense"):
+        runs = {}
+        for name in ("cuda", "relaxed", "relaxed", "cuda", "cuda", "relaxed",
+                     "cuda+check"):
+            backend = (make_ops("cuda", check=True) if name == "cuda+check"
+                       else name)
+            rt = backlog_runtime(device, items, backend=backend,
+                                 exchange=exchange, lanes=lanes,
+                                 capacity=capacity, max_steal=max_steal)
+            check(rt.ops.resolved == name.split("+")[0],
+                  f"{name}: routing {rt.ops.resolved!r}")
+            check(rt._check == name.endswith("check"),
+                  f"{name}: sanitizer armed {rt._check}")
+            before = sanitize.queues_fingerprint(rt.queues)
+            for fn in counters.values():
+                fn.launches = 0
+            sync(device)
+            t0 = time.perf_counter()
+            rt.run_fused(rounds)  # raises SanitizerError on a violation
+            sync(device)
+            wall = time.perf_counter() - t0
+            if name == "relaxed":
+                out["launches_relaxed"][exchange] = {
+                    k: fn.launches for k, fn in counters.items()
+                    if k != "dd_expand"}
+            sanitize.check_conserved(
+                before, sanitize.queues_fingerprint(rt.queues),
+                context=f"{name}/{exchange}")
+            runs.setdefault(name, []).append(queue_to_numpy(rt.queues))
+            out["ms_per_superstep"].setdefault(f"{name}/{exchange}", []) \
+                .append(wall * 1e3 / rounds)
+        q0 = runs["cuda"][0]
+        for name, q in ((n, q) for n, qs in runs.items() for q in qs):
+            for k in items:
+                check(np.array_equal(q.buf[k], q0.buf[k]),
+                      f"{name}/{exchange}: ring {k} differs from cuda's")
+            check(np.array_equal(q.lo, q0.lo)
+                  and np.array_equal(q.size, q0.size),
+                  f"{name}/{exchange}: cursors differ from cuda's")
+    check(sanitize.violations() == (),
+          f"sanitizer violations: {sanitize.violations()[:3]}")
+    if device.type == "cuda":
+        n = out["launches_relaxed"]
+        check(n["compact"]["ring_gather"] > 0 and n["dense"]["ring_gather"] > 0,
+              "K1 never launched under the relaxed backend")
+        check(n["compact"]["ring_transfer"] > 0,
+              "K4 never launched under the relaxed backend")
+    return out
+
+
+def checkers_linearize(device, counter, *, geometries=((4, 2), (8, 4))):
+    """The exhaustive model checker on ``device``: every history of the
+    reference, kernel and relaxed backends at the pinned counts, none
+    violating, and every seeded reconcile mutation caught."""
+    from repro_torch.analysis import linearize
+
+    backends = ("reference", "cuda", "relaxed")
+    counts = {}
+    counter.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    total, bad = linearize.check_all(backends, geometries=geometries,
+                                     device=device, counts=counts)
+    caught = linearize.run_mutations(device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    for (backend, cap, ms), n in counts.items():
+        check(n == linearize.expected_histories(backend),
+              f"linearize {backend} at ({cap}, {ms}): {n} histories")
+    check(not bad, f"linearize: {len(bad)} violating histories, e.g. "
+                   f"{bad[:1]}")
+    check(all(n > 0 for n in caught.values()),
+          f"linearize: a seeded mutation went uncaught: {caught}")
+    if device.type == "cuda":
+        check(counter.launches > 0, "K1 never launched in the sweep")
+    return {"histories": {f"{b}@{cap},{ms}": n
+                          for (b, cap, ms), n in counts.items()},
+            "total": total, "violations": len(bad),
+            "mutations_caught": caught, "ring_gather_launches":
+                counter.launches, "wall_s": wall}
+
+
+def checkers_paged(device, *, capacity: int = 16384, n_items: int = 131072,
+                   batch: int = 1024, pops: int = 5000, seed: int = 0):
+    """``PagedQueue`` past its ring: ``n_items`` distinct ids pushed in
+    batches of ``batch`` into one int32 ring of ``capacity`` rows (pages of
+    ``capacity // 2``), a quarter stolen, ``pops`` popped one by one with
+    the low watermark an eighth below the top (refills, partial ones
+    among them), the rest stolen; every id must come back exactly once, with the
+    sanitizer's spill/refill audit armed and no violation.  The same
+    pushes without the sanitizer give the plain time per push."""
+    import torch
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.ops import make_ops
+    from repro_torch.core.queue import PagedQueue
+
+    ids = np.random.default_rng(seed).permutation(n_items).astype(np.int32) + 1
+    dev_ids = torch.from_numpy(ids).to(device)
+    spec = torch.zeros((), dtype=torch.int32)
+    sanitize.reset_violations()
+    push_ms = {}
+    for name, check_on in (("plain", False), ("check", True)):
+        pq = PagedQueue(capacity, spec,
+                        low_watermark=capacity - capacity // 8,
+                        backend=make_ops("cuda", check=check_on),
+                        device=device)
+        check(pq._check == check_on, f"{name}: audit armed {pq._check}")
+        sync(device)
+        t0 = time.perf_counter()
+        for at in range(0, n_items, batch):
+            pq.push(dev_ids[at:at + batch], batch)
+        sync(device)
+        push_ms[name] = (time.perf_counter() - t0) * 1e3 / (n_items // batch)
+        check(pq.total_size() == n_items, f"{name}: {pq.total_size()} held")
+    stolen = pq.steal_bulk(0.25)
+    popped = [pq.pop_item() for _ in range(pops)]
+    check(None not in popped, "a pop found the queue empty")
+    while pq.total_size() >= 2:
+        stolen += pq.steal_bulk(1.0)
+    while (item := pq.pop_item()) is not None:
+        popped.append(item)
+    back = np.sort(np.asarray(stolen + popped, np.int64))
+    check(back.size == n_items and np.array_equal(back, np.sort(ids)),
+          f"{back.size} ids came back for {n_items}, not each exactly once")
+    check(sanitize.violations() == (),
+          f"sanitizer violations: {sanitize.violations()[:3]}")
+    check(pq.spills > 0 and pq.refills > 0,
+          f"spills {pq.spills}, refills {pq.refills}")
+    return {"capacity": capacity, "items": n_items, "batch": batch,
+            "ring_multiple": n_items // capacity, "pops": len(popped),
+            "stolen": len(stolen), "spills": pq.spills,
+            "spilled_items": pq.spilled_items, "refills": pq.refills,
+            "refilled_items": pq.refilled_items,
+            "ms_per_push": push_ms["plain"],
+            "ms_per_push_checked": push_ms["check"]}
+
+
+def phase_checkers(device, counters, *, lanes: int, capacity: int,
+                   backlog: int, max_steal: int, rounds: int,
+                   geometries=((4, 2), (8, 4)), paged=None):
+    """The relaxed backend and the three checkers on the card: (a) the
+    backlog, (b) the model checker, (c) ``PagedQueue`` past its ring."""
+    return {"backlog": checkers_backlog(
+                device, counters, lanes=lanes, capacity=capacity,
+                backlog=backlog, max_steal=max_steal, rounds=rounds),
+            "linearize": checkers_linearize(
+                device, counters["ring_gather"], geometries=geometries),
+            "paged": checkers_paged(device, **(paged or {}))}
 
 
 # ----------------------------------------------- phase 3: the DD solver
@@ -1613,6 +1815,12 @@ def main() -> int:
     check(n["ring_scatter"] == n["ring_slice"] + 1,
           f"K2 launched {n['ring_scatter']} times for {n['ring_slice'] + 1} "
           f"pushes, not once per push")
+    checkers = phase_checkers(device, counters, lanes=LANES,
+                              capacity=CONFIG.queue_capacity,
+                              backlog=CONFIG.bench_initial_size,
+                              max_steal=CONFIG.max_steal, rounds=8)
+    print(json.dumps({"phase": "checkers", "card": card,
+                      "result": checkers}), flush=True)
     from repro_torch import configs
     serving = {}
     for phase, fn, kw in (("serve", phase_serve, PHASE4),

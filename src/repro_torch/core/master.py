@@ -179,7 +179,9 @@ def superstep(
     caller must derive it from the size vector before any cursor moved.
     ``donate=True`` splices into the ring tensors of ``q`` in place (the
     runtime's own loop); ``donate=False`` leaves ``q`` untouched.  Nothing
-    here reads a device value on the host.
+    here reads a device value on the host, unless ``ops`` is the
+    sanitizer's wrapper (``check=True`` or ``REPRO_CHECK=1``), which adds
+    the conservation check of the sizes.
     """
     if ops is None:
         ops = bulk_ops.make_ops(policy.backend)
@@ -199,6 +201,12 @@ def superstep(
         raise ValueError(
             f"unknown exchange {exchange!r}; expected 'compact' or 'dense'")
 
+    if ops.checked:
+        # Sanitizer on: this round must conserve its sizes.
+        from repro_torch.analysis import sanitize
+
+        sanitize.trace_check_superstep(
+            sizes, q.size, capacity=tree_leaves(q.buf)[0].shape[1])
     stats = RebalanceStats(
         sizes_before=sizes,
         sizes_after=q.size,

@@ -21,6 +21,12 @@ and transfer) whose implementations are named backends:
     (environment) overrides what ``"auto"`` resolves to, with a one-shot
     :class:`BackendFallbackWarning`; explicitly named backends are never
     overridden.
+``"relaxed"``
+    The fence-free steal of :mod:`repro_torch.core.relaxed` (optimistic
+    window read, then reconcile), registered by ``repro_torch.core``.
+
+``make_ops(..., check=True)`` (or ``REPRO_CHECK=1``) wraps any of them in
+the runtime sanitizer, :class:`repro_torch.analysis.sanitize.CheckedBulkOps`.
 
 Operation contract
 ------------------
@@ -73,6 +79,7 @@ __all__ = [
     "steal_counted",
     "DEFAULT_QUEUE_LIMIT",
     "BACKEND_ENV_VAR",
+    "CHECK_ENV_VAR",
     "BackendFallbackWarning",
     "reset_fallback_warnings",
 ]
@@ -85,6 +92,9 @@ DEFAULT_QUEUE_LIMIT = 2
 
 # Environment override for what "auto" resolves to.
 BACKEND_ENV_VAR = "REPRO_QUEUE_BACKEND"
+
+# Environment switch for the runtime sanitizer (``make_ops(check=None)``).
+CHECK_ENV_VAR = "REPRO_CHECK"
 
 
 class BackendFallbackWarning(UserWarning):
@@ -313,14 +323,19 @@ def _steal_plan(size: torch.Tensor, proportion, queue_limit: int,
     0 when ``size < queue_limit``.  ``1 - proportion`` is float32
     arithmetic for a float32 tensor and is rounded to float32 from a
     Python float, exactly as the JAX package computes it."""
+    n = torch.minimum(torch.clamp(size - _keep(size, proportion), min=0),
+                      torch.clamp(size, max=max_steal))
+    return torch.where(size < queue_limit, torch.zeros_like(n), n)
+
+
+def _keep(size: torch.Tensor, proportion) -> torch.Tensor:
+    """``floor(float32(size) * (1 - proportion))``: the items Listing 4
+    leaves with the owner, in float32 (see :func:`_steal_plan`)."""
     if isinstance(proportion, torch.Tensor):
         keep_frac = 1.0 - f32_scalar(proportion, size.device)
     else:
         keep_frac = f32_scalar(1.0 - float(proportion), size.device)
-    keep = torch.floor(size.to(torch.float32) * keep_frac).to(I32)
-    n = torch.minimum(torch.clamp(size - keep, min=0),
-                      torch.clamp(size, max=max_steal))
-    return torch.where(size < queue_limit, torch.zeros_like(n), n)
+    return torch.floor(size.to(torch.float32) * keep_frac).to(I32)
 
 
 def _steal(q: QueueState, proportion, *, max_steal: int, queue_limit: int,
@@ -422,6 +437,10 @@ class BulkOps:
     reading the flag on the host.
     """
 
+    # True only for the sanitizer's wrapper: the runtime, the superstep
+    # and PagedQueue arm their own checks exactly when it is set.
+    checked = False
+
     def __init__(self, name: str, *, kernel: bool):
         self.name = name
         self.kernel = bool(kernel)
@@ -436,10 +455,10 @@ class BulkOps:
         return f"BulkOps({self.name!r}, kernel={self.kernel})"
 
     def __eq__(self, other) -> bool:
-        return isinstance(other, BulkOps) and self.kernel == other.kernel
+        return isinstance(other, BulkOps) and self.resolved == other.resolved
 
     def __hash__(self) -> int:
-        return hash(self.kernel)
+        return hash(self.resolved)
 
     @contextlib.contextmanager
     def gated(self, active: torch.Tensor):
@@ -540,14 +559,16 @@ class BulkOps:
 # Registry
 # ---------------------------------------------------------------------------
 
-# A factory takes no arguments and returns a configured BulkOps.
-BackendFactory = Callable[[], BulkOps]
+# A factory takes the geometry keywords of make_ops and returns a BulkOps.
+BackendFactory = Callable[..., BulkOps]
 
 _REGISTRY: Dict[str, BackendFactory] = {}
 
 
 def register_backend(name: str, factory: BackendFactory) -> None:
-    """Register a named backend factory."""
+    """Register a named backend factory.  The factory receives the
+    geometry keywords of :func:`make_ops` (``capacity`` / ``max_steal``,
+    each possibly ``None``)."""
     _REGISTRY[name] = factory
 
 
@@ -555,21 +576,41 @@ def available_backends() -> Tuple[str, ...]:
     return tuple(sorted(_REGISTRY))
 
 
-register_backend("reference", lambda: BulkOps("reference", kernel=False))
-register_backend("cuda", lambda: BulkOps("cuda", kernel=True))
-register_backend("auto", lambda: BulkOps("auto", kernel=True))
+# The kernels compute every physical row from the lane's cursors, so the
+# fenced routings take no geometry (an extent past 32 bits raises at
+# launch); only the relaxed backend's predicate reads it.
+register_backend("reference", lambda **_: BulkOps("reference", kernel=False))
+register_backend("cuda", lambda **_: BulkOps("cuda", kernel=True))
+register_backend("auto", lambda **_: BulkOps("auto", kernel=True))
 
 
-def make_ops(backend: Optional[str] = "auto") -> BulkOps:
+def _env_check() -> bool:
+    return os.environ.get(CHECK_ENV_VAR, "").strip().lower() in (
+        "1", "true", "yes", "on")
+
+
+def make_ops(backend: Optional[str] = "auto", *,
+             capacity: Optional[int] = None,
+             max_steal: Optional[int] = None,
+             check: Optional[bool] = None) -> BulkOps:
     """Construct a :class:`BulkOps` backend.
 
     ``backend`` is a registry name or an existing :class:`BulkOps`
-    (returned unchanged).  ``"auto"`` (also ``None``) is the kernel
-    routing unless the ``REPRO_QUEUE_BACKEND`` environment variable names
-    another backend; explicit names are never overridden.
+    (returned unchanged, or wrapped when ``check``).  ``"auto"`` (also
+    ``None``) is the kernel routing unless the ``REPRO_QUEUE_BACKEND``
+    environment variable names another backend; explicit names are never
+    overridden.  The geometry keywords reach the backend's factory; only
+    ``"relaxed"`` reads them (its window must fit the ring).
+
+    ``check=True`` (default: the ``REPRO_CHECK`` environment switch)
+    wraps the backend in the runtime sanitizer
+    (:class:`repro_torch.analysis.sanitize.CheckedBulkOps`): every op
+    validated against the sequential contract, lane by lane.
     """
+    if check is None:
+        check = _env_check()
     if isinstance(backend, BulkOps):
-        return backend
+        return _maybe_checked(backend, check)
     if backend is None:
         backend = "auto"
     if backend == "auto":
@@ -586,4 +627,15 @@ def make_ops(backend: Optional[str] = "auto") -> BulkOps:
         raise ValueError(
             f"unknown queue backend {backend!r}; "
             f"available: {available_backends()}") from None
-    return factory()
+    ops = factory(capacity=capacity, max_steal=max_steal)
+    return _maybe_checked(ops, check)
+
+
+def _maybe_checked(ops: BulkOps, check: bool) -> BulkOps:
+    if not check:
+        return ops
+    from repro_torch.analysis.sanitize import CheckedBulkOps  # no cycle
+
+    if isinstance(ops, CheckedBulkOps):
+        return ops
+    return CheckedBulkOps(ops)

@@ -37,10 +37,19 @@ Properties of the hot path:
   :meth:`BulkOps.gated` with the flag False, so they move nothing, and
   the carry and the proportion are kept by ``torch.where``; the host
   trims the block to the rounds that ran.
+
+With the sanitizer on (``REPRO_CHECK=1``, or a backend made with
+``check=True``), every op of a round is checked lane by lane
+(:mod:`repro_torch.analysis.sanitize`) and its violations are recorded;
+after the block's read-back the runtime checks each round's size vector,
+and for rounds with no worker body the multiset of live items across all
+lanes, then raises :class:`~repro_torch.analysis.sanitize.SanitizerError`
+on anything recorded.  These checks read back per op.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Any, Callable, List, Optional, Tuple
 
@@ -93,7 +102,10 @@ class StealRuntime:
       backend: optional :class:`~repro_torch.core.ops.BulkOps` backend
         override (a registry name or an instance); by default
         ``policy.backend``.  ``"auto"`` is the kernel routing unless
-        ``REPRO_QUEUE_BACKEND`` names another backend.
+        ``REPRO_QUEUE_BACKEND`` names another backend.  The ring's
+        geometry (``capacity``, ``policy.max_steal``) reaches the
+        backend's factory, so ``"relaxed"`` gets its optimistic steal
+        where the window fits.
       device: where the lanes live; ``None`` means CUDA and raises without
         it.
 
@@ -114,7 +126,11 @@ class StealRuntime:
         base = policy or StealPolicy()
         if backend is None:
             backend = base.backend  # honour a pinned policy.backend
-        self.ops = bulk_ops.make_ops(backend)
+        self.ops = bulk_ops.make_ops(backend, capacity=self.capacity,
+                                     max_steal=base.max_steal)
+        # The sanitizer's round checkpoints are armed exactly when
+        # make_ops wrapped the backend (REPRO_CHECK=1 or check=True).
+        self._check = self.ops.checked
         self.policy = dataclasses.replace(base, backend=self.ops.name)
         self.queues = make_sharded_queues(n_workers, capacity, item_spec,
                                           device=self.device)
@@ -210,14 +226,54 @@ class StealRuntime:
         """
         carry = self._default_carry(carry)
         proportion = self.proportion
-        self.queues, carry, stats = self._step(worker_fn, self.queues, carry,
-                                               self._p())
+        snap = self._pre_dispatch_snapshot(worker_fn)
+        with self._deferred():
+            self.queues, carry, stats = self._step(worker_fn, self.queues,
+                                                   carry, self._p())
         host = master_ops.RebalanceStats(*_read_back(*stats))
+        if self._check:
+            self._post_dispatch_checks([host], snap,
+                                       context="StealRuntime.round")
         self._record(host, proportion)
         if self.controller is not None:
             self.controller.update(host.sizes_after)
         self.rounds_run += 1
         return carry, stats
+
+    def _deferred(self):
+        """With the sanitizer on, the block's op violations are recorded
+        and raised at its read-back; otherwise nothing."""
+        if not self._check:
+            return contextlib.nullcontext()
+        from repro_torch.analysis import sanitize
+
+        return sanitize.deferred()
+
+    def _pre_dispatch_snapshot(self, worker_fn):
+        """With the sanitizer on and no worker body (a pure rebalance),
+        fingerprint the live items for the post-block conservation
+        check."""
+        if not self._check or worker_fn is not None:
+            return None
+        from repro_torch.analysis import sanitize
+
+        return sanitize.queues_fingerprint(self.queues)
+
+    def _post_dispatch_checks(self, round_stats, snap, *, context) -> None:
+        """The sanitizer's checkpoint after a block's read-back: each
+        round's sizes, the multiset for pure rebalances, then whatever
+        the ops recorded."""
+        from repro_torch.analysis import sanitize
+
+        for stats_r in round_stats:
+            sanitize.check_round_stats(stats_r, n_workers=self.n_workers,
+                                       capacity=self.capacity,
+                                       context=context)
+        if snap is not None:
+            sanitize.check_conserved(
+                snap, sanitize.queues_fingerprint(self.queues),
+                context=context)
+        sanitize.raise_pending(context)
 
     def _record(self, host_stats, proportion: float) -> None:
         """One RoundRecord from a round's host-side stats."""
@@ -247,6 +303,36 @@ class StealRuntime:
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         carry = self._default_carry(carry)
+        snap = self._pre_dispatch_snapshot(worker_fn)
+        with self._deferred():
+            carry, per_round, ran, p = self._fused_rounds(
+                k, worker_fn, carry, until_drained)
+
+        stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
+            *(stats for stats, _ in per_round))))
+        props = torch.stack([q for _, q in per_round])
+        host_ran, p_final, props, *host = _read_back(ran, p, props, *stacked)
+        rounds = int(host_ran) if until_drained else k
+        host_rounds = [master_ops.RebalanceStats(*(x[r] for x in host))
+                       for r in range(rounds)]
+        if self._check:
+            self._post_dispatch_checks(
+                host_rounds, snap,
+                context=f"StealRuntime.run_fused[{rounds} rounds]")
+        for r, host_r in enumerate(host_rounds):
+            self._record(host_r, float(props[r]))
+        if self.controller is not None and rounds > 0:
+            self.controller.absorb(props[:rounds], float(p_final))
+        self.rounds_run += rounds
+        if until_drained:
+            stacked = master_ops.RebalanceStats(*(x[:rounds] for x in stacked))
+            return carry, stacked, rounds
+        return carry, stacked
+
+    def _fused_rounds(self, k: int, worker_fn, carry, until_drained: bool):
+        """The k rounds of :meth:`run_fused` on the device, no read-back:
+        ``(carry, [(stats, proportion)] per round, rounds run, final
+        proportion)``."""
         qs, p = self.queues, self._p()
         config = self.controller.config if self.controller else None
         active = torch.ones((), dtype=torch.bool, device=self.device)
@@ -268,22 +354,7 @@ class StealRuntime:
                                         config=config)
                 p = torch.where(active, p_new, p)
         self.queues = qs
-
-        stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
-            *(stats for stats, _ in per_round))))
-        props = torch.stack([q for _, q in per_round])
-        host_ran, p_final, props, *host = _read_back(ran, p, props, *stacked)
-        rounds = int(host_ran) if until_drained else k
-        for r in range(rounds):
-            self._record(master_ops.RebalanceStats(*(x[r] for x in host)),
-                         float(props[r]))
-        if self.controller is not None and rounds > 0:
-            self.controller.absorb(props[:rounds], float(p_final))
-        self.rounds_run += rounds
-        if until_drained:
-            stacked = master_ops.RebalanceStats(*(x[:rounds] for x in stacked))
-            return carry, stacked, rounds
-        return carry, stacked
+        return carry, per_round, ran, p
 
     def run(self, worker_fn: Optional[WorkerFn] = None,
             carry: Optional[Pytree] = None, *,

@@ -2,8 +2,10 @@
 its plain version, DD layer expansion (K5) and its redesign, the fused DD
 explore, flash attention (K6) and the SSD scan (K7, both routes) against
 their plain versions, the kernel backend against the reference backend on
-CUDA tensors, the solver on the GPU against the same solver on the CPU,
-and the serving models' prefill on the GPU against the CPU.
+CUDA tensors, the relaxed and the sanitized backends against the kernel
+backend and the linearizability sweep on the card, the solver on the GPU
+against the same solver on the CPU, and the serving models' prefill on
+the GPU against the CPU.
 Each skips where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so on a GPU machine it runs on its own:
 
@@ -186,6 +188,63 @@ def test_solver_on_the_card_matches_the_cpu():
     on_gpu = parallel_solve(inst, device=dev, backend="cuda", **kw)
     on_cpu = parallel_solve(inst, device="cpu", backend="cuda", **kw)
     assert on_gpu == on_cpu
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("exchange", ["compact", "dense"])
+def test_relaxed_and_checked_supersteps_match_cuda_on_the_card(exchange):
+    """Rebalancing rounds from a seeded backlog on the card: the relaxed
+    backend and the kernel backend under the sanitizer end bit-equal to
+    the plain kernel backend, with no violation; the relaxed steal went
+    through K1."""
+    from repro_torch.analysis import sanitize
+    from repro_torch.core.policy import StealPolicy
+    from repro_torch.runtime.executor import StealRuntime
+
+    dev = _cuda()
+    rng = np.random.default_rng(1)
+    ids = torch.tensor(rng.permutation(4 * 700) + 1, dtype=torch.int32)
+    spec = {"id": torch.zeros((), dtype=torch.int32),
+            "w": torch.zeros((), dtype=torch.float32)}
+    sanitize.reset_violations()
+    out = {}
+    for name in ("cuda", "relaxed", "cuda+check"):
+        backend = (tops.make_ops("cuda", check=True) if name == "cuda+check"
+                   else name)
+        rt = StealRuntime(8, 1024, spec, backend=backend, device=dev,
+                          policy=StealPolicy(max_steal=512,
+                                             exchange=exchange))
+        assert rt.ops.resolved == name.split("+")[0]
+        for j in range(4):
+            part = ids[j * 700:(j + 1) * 700]
+            rt.push(2 * j, {"id": part, "w": part.float() / 7}, 700)
+        steal_gather.launches = 0
+        rt.run_fused(6)
+        rt.round()
+        if name == "relaxed":
+            assert steal_gather.launches > 0
+        out[name] = rt.queues
+    for name in ("relaxed", "cuda+check"):
+        for a, b in zip(tree_leaves(out[name]), tree_leaves(out["cuda"])):
+            assert torch.equal(_bits(a), _bits(b)), name
+    assert sanitize.violations() == ()
+
+
+@pytest.mark.cuda
+def test_linearize_sweep_on_the_card():
+    """The model checker at (4, 2) with the shared queue on the card: the
+    pinned history counts, no violation, both mutations caught."""
+    from repro_torch.analysis import linearize
+
+    dev = _cuda()
+    counts = {}
+    _, bad = linearize.check_all(("reference", "cuda", "relaxed"),
+                                 geometries=((4, 2),), device=dev,
+                                 counts=counts)
+    assert bad == [], bad[:3]
+    assert counts == {("reference", 4, 2): 330, ("cuda", 4, 2): 330,
+                      ("relaxed", 4, 2): 636}
+    assert all(n > 0 for n in linearize.run_mutations(device=dev).values())
 
 
 @pytest.mark.cuda

@@ -44,7 +44,12 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "for m in ('repro_torch.models.transformer',\n"
         "          'repro_torch.kernels.flash_attention.ops',\n"
         "          'repro_torch.serve.engine', 'repro_torch.launch.serve',\n"
-        "          'repro_torch.core.host_queue', 'repro_torch.configs'):\n"
+        "          'repro_torch.core.host_queue', 'repro_torch.configs',\n"
+        "          'repro_torch.core.relaxed', 'repro_torch.core.queue',\n"
+        "          'repro_torch.analysis.sanitize',\n"
+        "          'repro_torch.analysis.linearize',\n"
+        "          'repro_torch.analysis.lint', 'repro_torch.data.pipeline',\n"
+        "          'repro_torch.data.synthetic'):\n"
         "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -76,6 +81,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     from repro_torch.models.attention import make_cache as attn_make_cache
     from repro_torch.models.zoo import build_model
     from repro_torch.runtime.executor import StealRuntime
+    from repro_torch.analysis.linearize import check_backend
+    from repro_torch.core.queue import PagedQueue
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     spec = torch.zeros((), dtype=torch.int32)
@@ -84,6 +91,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                  lambda: make_queue(8, spec),
                  lambda: make_sharded_queues(2, 8, spec),
                  lambda: make_queue(8, spec, device="cuda"),
+                 lambda: PagedQueue(8, spec),
+                 lambda: check_backend("reference", capacity=4, max_steal=2),
                  lambda: serve_main([]),
                  lambda: attn_make_cache(1, 2, 8, AttnConfig(2, 1, 4),
                                          torch.float32),

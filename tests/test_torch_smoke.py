@@ -92,6 +92,28 @@ def test_queue_phase_agrees_across_backends_and_conserves():
                                             "reference/compact"}
 
 
+def test_checkers_phase_holds_every_check():
+    """Phase 7 at a CPU size: the relaxed and the sanitized backlog equal
+    to the kernel backend's, the model checker at (4, 2), and the paged
+    queue at 8x a 256-row ring."""
+    smoke = _chip_smoke()
+    _, counters = smoke._port()
+    out = smoke.phase_checkers(
+        CPU, counters, lanes=8, capacity=512, backlog=300, max_steal=256,
+        rounds=8, geometries=((4, 2),),
+        paged=dict(capacity=256, n_items=2048, batch=64, pops=200))
+    assert set(out["backlog"]["ms_per_superstep"]) == {
+        f"{b}/{x}" for b in ("cuda", "relaxed", "cuda+check")
+        for x in ("compact", "dense")}
+    lin = out["linearize"]
+    assert lin["histories"] == {"reference@4,2": 330, "cuda@4,2": 330,
+                                "relaxed@4,2": 636}
+    assert lin["violations"] == 0 and min(lin["mutations_caught"].values())
+    paged = out["paged"]
+    assert paged["pops"] + paged["stolen"] == 2048
+    assert paged["spills"] > 0 and paged["refills"] > 1
+
+
 def test_solver_phase_matches_reference():
     smoke = _chip_smoke()
     _, counters = smoke._port()

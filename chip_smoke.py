@@ -97,6 +97,31 @@ check that does not hold:
    popped through spills and refills, every id back exactly once under
    the sanitizer's spill/refill audit; ms per push with and without it.
 
+3b. The sequential solver (``{"phase": "solver_sequential"}``, after phase
+   3): ``bnb.solve`` on phase 3's instance at its defaults (width 32,
+   batch 16) must return the JAX package's optimum and counts, with one
+   launch of the fused explore per step; ms per step.
+8. Resilience at the backlog's size (``{"phase": "resilience"}``, after
+   phase 7).  The Fig. 9 DAG (262,144 nodes, fan-out 4, pops of 128, one
+   root on lane 0) on phase 2's 64 int32 lanes of 16,384 rows, drained in
+   blocks of 16 rounds: (a) flat, lane 3 killed at round 6, lane 17
+   delayed for rounds 4-7, round 8's exchange dropped; (b) the same in 8
+   pods of 8 with lane 3 dead at round 6 (recovery within its pod) and
+   pod 5 (lanes 40-47) at round 10 (recovery across pods).  Each explores
+   every node exactly once, leaves the dead lanes empty, and matches the
+   JAX package's pinned rounds, telemetry summary, per-lane carry, final
+   sizes and digests of the proportion history, rings and cursors; K1 and
+   K4 launch 2 times a round flat and 4 times in pods, K3 and K2 once a
+   worker body.  ms per round of the unarmed, the armed flat and the armed
+   hierarchical runtime, drained in turns.  (c) ``run_resilient`` crashes
+   at round 6, restarts from the snapshot of round 4 and lands on (a)'s
+   rings, cursors and round count; a flat snapshot of round 8 restores
+   into a hierarchical runtime, which finishes the drain.  (d) ``shrink``
+   64 -> 56 lanes and ``grow`` back, and a live resize of a runtime padded
+   from 48 to 64 lanes, keep the exact item multiset, and the live resize
+   leaves ``compile_count`` unchanged (a count that cannot move until the
+   port captures CUDA graphs: it says only that the library is loaded).
+
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -104,8 +129,10 @@ the card's name and power limit, and the result line
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import gc
+import io
 import json
 import subprocess
 import sys
@@ -157,6 +184,69 @@ SERVE_TOL_BF16 = 2e-2  # reported: share of logits outside it
 SERVE_BF16_RATIO = 1.1
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
+# The sequential solver (``bnb.solve``) on PHASE3's instance at its
+# defaults (width 32, batch 16): what the JAX package's
+# repro.core.dd.bnb.solve returns in a CPU run (commit bc2d671, jax 0.9.0).
+PHASE3B = dict(n_items=30, seed=3, width=32, batch=16)
+PHASE3B_EXPECT = dict(optimum=1260, explored=8781, pruned=7976,
+                      generated=8781, supersteps=550)
+# The resilience phase: phase 2's geometry (64 int32 lanes of 16,384
+# rows, max_steal 8,192), the Fig. 9 DAG of tests/test_resilience.py at
+# 262,144 nodes (fan-out 4, pops of 128) from one item on lane 0, drained
+# in blocks of 16 rounds; (a) flat under kill / delay / drop, (b) in 8
+# pods of 8 with lane 3 dead at round 6 and pod 5 (lanes 40-47) at 10.
+PHASE8 = dict(
+    lanes=LANES, capacity=CAP, max_steal=MAX_STEAL, n_nodes=262144,
+    fanout=4, pop=128, block=16, pod_size=8,
+    policy=dict(proportion=0.5, low_watermark=4, high_watermark=32),
+    flat_plan=dict(kills=((3, 6),), delays=((17, 4, 4),), drops=(8,)),
+    hier_plan=dict(kills=((3, 6),) + tuple((w, 10) for w in range(40, 48)),
+                   delays=((17, 4, 4),), drops=(8,)))
+# The CPU rehearsal's size (tests/test_torch_smoke.py).
+PHASE8_SMALL = dict(
+    PHASE8, lanes=8, capacity=256, max_steal=64, n_nodes=600, pop=16,
+    pod_size=4,
+    flat_plan=dict(kills=((3, 6),), delays=((5, 4, 4),), drops=(8,)),
+    hier_plan=dict(kills=((1, 6), (4, 10), (5, 10), (6, 10), (7, 10)),
+                   delays=((2, 3, 2),), drops=(9,)))
+# What the JAX package returns for PHASE8 (scripts/resilience_pins.py, a
+# CPU run at commit bc2d671, jax 0.9.0): history, rings and lo are
+# SHA-256 digests of the float32 proportion history, the rings and the lo
+# cursors.
+PHASE8_EXPECT = {
+    "flat": dict(
+        rounds=46,
+        summary={"rounds": 46, "steals": 293, "items_transferred": 51691,
+            "bytes_transferred": 206764, "bytes_moved": 1376256,
+            "proportion_mean": 0.3314742659745009, "proportion_final":
+            0.578439474105835, "imbalance_final": 0.0, "straggler_steps": 0,
+            "faults": {"planned_kill": 1}},
+        carry=[4477, 4451, 4711, 180, 4660, 4648, 4784, 4540, 4469, 4171,
+            4577, 4477, 4623, 4415, 4433, 4299, 4173, 3985, 4225, 4380, 4272,
+            4213, 4186, 4363, 4236, 4097, 4166, 4110, 3727, 4239, 4293, 4017,
+            4254, 3981, 4051, 3985, 3842, 4139, 4163, 4132, 3963, 4127, 4043,
+            3760, 4072, 4003, 3945, 3898, 3811, 4080, 4156, 4282, 4180, 3881,
+            3689, 3934, 3837, 3688, 3730, 3932, 3849, 4005, 4456, 3679],
+        sizes=[0] * 64,
+        history="139e784d584c3470", history_len=47,
+        rings="e08149583bb558d8", lo="12cb843fad323bc7"),
+    "hier": dict(
+        rounds=82,
+        summary={"rounds": 82, "steals": 551, "items_transferred": 72469,
+            "bytes_transferred": 289876, "bytes_moved": 4128768,
+            "proportion_mean": 0.43298117689243176, "proportion_final":
+            0.749976396560669, "imbalance_final": 0.0, "straggler_steps": 0,
+            "faults": {"planned_kill": 9}},
+        carry=[8006, 8327, 7909, 90, 7613, 7780, 7563, 7271, 6901, 6454, 5919,
+            4917, 4683, 4164, 4505, 3966, 7357, 6996, 6410, 5854, 5196, 5057,
+            4947, 5143, 6008, 4954, 4186, 3104, 2790, 2480, 2782, 2435, 6697,
+            5243, 3943, 3839, 3264, 3696, 3896, 3239, 144, 191, 0, 0, 0, 0, 0, 0,
+            5799, 4187, 3352, 2645, 2413, 2320, 2415, 2184, 6407, 5274, 4346,
+            3621, 3122, 3127, 2577, 2436],
+        sizes=[0] * 64,
+        history="9000d66e6e7513c9", history_len=83,
+        rings="4bf3c98d6eb3c8ce", lo="5f3c43e51895c24d"),
+}
 # int32 operations: half the data sheet's 67 TFLOP/s float32 rate outside
 # the tensor cores, as a Hopper SM has 64 int32 lanes to 128 float32 ones
 # (NVIDIA's Hopper architecture white paper).
@@ -1490,6 +1580,306 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
             "ms_per_superstep": warm * 1e3 / st["supersteps"]}
 
 
+def phase_sequential(device, counter, *, n_items: int, seed: int,
+                     width: int, batch: int, expect=None):
+    """Phase 3b: the sequential solver (``bnb.solve``), one launch of the
+    fused explore (``counter``) per step; the JAX package's results."""
+    from repro_torch.core.dd.bnb import solve
+    from repro_torch.core.dd.knapsack import dp_solve, random_instance
+
+    inst = random_instance(n_items, seed=seed)
+    counter.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    opt, st = solve(inst, width=width, batch=batch, device=device)
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = counter.launches
+    got = dict(optimum=opt, **st)
+    check(opt == dp_solve(inst), f"sequential optimum {opt} != dp_solve")
+    if expect is not None:
+        check(got == expect, f"sequential solver {got} != {expect}")
+    if device.type == "cuda":
+        check(launches == st["supersteps"],
+              f"the fused explore launched {launches} times in "
+              f"{st['supersteps']} steps, not once per step")
+    return {**got, "launches": launches, "wall_s": wall,
+            "ms_per_step": wall * 1e3 / st["supersteps"]}
+
+
+# -------------------------------------------- phase 8: resilience
+
+
+def dag_body(ops, *, n_nodes: int, pop: int, fanout: int):
+    """The Fig. 9 DAG's worker body on the stacked lanes (the JAX
+    package's ``tests/test_resilience.py`` body): pop up to ``pop`` nodes
+    a lane (one K3 launch), push their children below ``n_nodes`` (one
+    K2 launch); the carry counts the nodes each lane explored."""
+    import torch
+
+    def body(q, carry):
+        q, nodes, n_popped = ops.pop_bulk(q, pop, pop, donate=True)
+        w, dev = q.size.shape[0], q.size.device
+        valid = (torch.arange(pop, dtype=torch.int32, device=dev)[None, :]
+                 < n_popped[:, None])
+        kids = (nodes[:, :, None] * fanout + 1
+                + torch.arange(fanout, dtype=torch.int32, device=dev))
+        live = valid[:, :, None] & (kids < n_nodes)
+        flat, flive = kids.reshape(w, -1), live.reshape(w, -1)
+        order = torch.argsort((~flive).to(torch.int32), dim=1, stable=True)
+        flat = torch.where(flive.gather(1, order), flat.gather(1, order), 0)
+        q, _ = ops.push(q, flat, flive.sum(1).to(torch.int32), donate=True)
+        return q, carry + valid.sum(1).to(torch.int32)
+    return body
+
+
+def _digest(a) -> str:
+    import hashlib
+    return hashlib.sha256(np.ascontiguousarray(a).tobytes()).hexdigest()[:16]
+
+
+def _dag_runtime(device, cfg, plan, pod_size=None, seed_root=True):
+    import torch
+    from repro_torch.core.policy import StealPolicy
+    from repro_torch.runtime import FaultPlan, StealRuntime
+
+    rt = StealRuntime(cfg["lanes"], cfg["capacity"],
+                      torch.zeros((), dtype=torch.int32),
+                      policy=StealPolicy(backend="cuda",
+                                         max_steal=cfg["max_steal"],
+                                         **cfg["policy"]),
+                      pod_size=pod_size, device=device,
+                      fault_plan=None if plan is None else FaultPlan(**plan))
+    if seed_root:
+        rt.push(0, torch.zeros((1,), dtype=torch.int32), 1)
+    return rt
+
+
+def _drain(rt, body, carry, block: int):
+    """``run_fused(block, until_drained=True)`` blocks to the drain:
+    ``(carry, rounds run, rounds dispatched)``."""
+    rounds = dispatched = 0
+    while rt.total_size() > 0 and rounds < 10_000:
+        carry, _, r = rt.run_fused(block, body, carry, until_drained=True)
+        rounds, dispatched = rounds + r, dispatched + block
+    return carry, rounds, dispatched
+
+
+def _live_items(rt) -> np.ndarray:
+    """Every live item of every lane, sorted (the multiset)."""
+    from repro_torch.core.ops import queue_to_numpy
+    q = queue_to_numpy(rt.queues)
+    cap = q.buf.shape[1]
+    return np.sort(np.concatenate(
+        [q.buf[w][(q.lo[w] + np.arange(q.size[w])) % cap]
+         for w in range(len(q.lo))]))
+
+
+def _pins(rt, carry, rounds) -> dict:
+    """What scripts/resilience_pins.py reports for the JAX package."""
+    from repro_torch.core.ops import queue_to_numpy
+    q = queue_to_numpy(rt.queues)
+    return {"rounds": rounds, "summary": rt.telemetry.summary(),
+            "carry": carry.cpu().tolist(), "sizes": q.size.tolist(),
+            "history": _digest(np.asarray(rt.controller.history,
+                                          np.float32)),
+            "history_len": len(rt.controller.history),
+            "rings": _digest(q.buf), "lo": _digest(q.lo)}
+
+
+RESILIENCE_KERNELS = ("ring_gather", "ring_transfer", "ring_slice",
+                      "ring_scatter")
+
+
+def _replay(device, counters, cfg, plan, pod_size):
+    """One drain of the DAG from lane 0's root, the path's launch counters
+    zeroed just before it and read just after it."""
+    import torch
+    rt = _dag_runtime(device, cfg, plan, pod_size)
+    body = dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
+                    fanout=cfg["fanout"])
+    for name in RESILIENCE_KERNELS:
+        counters[name].launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    carry, rounds, dispatched = _drain(
+        rt, body, torch.zeros((cfg["lanes"],), dtype=torch.int32,
+                              device=device), cfg["block"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    launches = {name: counters[name].launches for name in RESILIENCE_KERNELS}
+    check(int(carry.sum()) == cfg["n_nodes"],
+          f"{int(carry.sum())} nodes explored, not {cfg['n_nodes']} once each")
+    check((rt.sizes()[rt.dead_lanes()] == 0).all(), "a dead lane holds work")
+    return rt, carry, rounds, dispatched, launches, wall
+
+
+def phase_resilience(device, counters, cfg, expect=None, turns: int = 3):
+    """Phase 8: fault replays, snapshots and elastic resize on the card
+    (see the module docstring)."""
+    import tempfile
+
+    import torch
+    from repro_torch.distributed import elastic
+    from repro_torch.launch.resilient import run_resilient
+    from repro_torch.runtime import FaultPlan
+    from repro_torch.train import checkpoint
+
+    t_phase = time.perf_counter()
+    out = {}
+    # (a) flat and (b) hierarchical replays, against the JAX package's
+    # pins, with the kernels' launches per dispatched round: K3 and K2
+    # once a worker body, K1 and K4 once a superstep (normal and recovery
+    # flat; intra and cross-pod, each twice, in pods).
+    for name, plan, pod, per in (
+            ("flat", cfg["flat_plan"], None, 2),
+            ("hier", cfg["hier_plan"], cfg["pod_size"], 4)):
+        rt, carry, rounds, dispatched, launches, wall = _replay(
+            device, counters, cfg, plan, pod)
+        got = _pins(rt, carry, rounds)
+        if expect is not None:
+            check(got == expect[name],
+                  f"resilience {name}: {got} != {expect[name]}")
+        if device.type == "cuda":
+            want_l = {"ring_gather": per * dispatched,
+                      "ring_transfer": per * dispatched,
+                      "ring_slice": dispatched, "ring_scatter": dispatched}
+            check(launches == want_l,
+                  f"resilience {name}: launches {launches} != {want_l}")
+        out[name] = {**got, "dispatched": dispatched, "launches": launches,
+                     "dead": int(rt.dead_lanes().sum())}
+        if name == "flat":
+            flat_rt, flat = rt, got
+
+    # The fault layer's cost: the unarmed flat runtime, the armed flat and
+    # the armed hierarchical one, drained in turns.
+    ms = {"unarmed": [], "flat": [], "hier": []}
+    for _ in range(turns):
+        for key, plan, pod in (("unarmed", None, None),
+                               ("flat", cfg["flat_plan"], None),
+                               ("hier", cfg["hier_plan"], cfg["pod_size"])):
+            rt, _, rounds, dispatched, launches, wall = _replay(
+                device, counters, cfg, plan, pod)
+            if key == "unarmed" and device.type == "cuda":
+                check(launches["ring_gather"] == dispatched
+                      and launches["ring_transfer"] == dispatched,
+                      f"unarmed launches {launches} in {dispatched} rounds")
+            ms[key].append(wall * 1e3 / rounds)
+    out["ms_per_round"] = ms
+
+    with tempfile.TemporaryDirectory() as tmp:
+        # (c) run_resilient crashes at round 6 (blocks of 2 rounds,
+        # snapshots every 4), restarts from the snapshot of round 4 and
+        # lands on (a)'s rings, cursors and round count.
+        snap = str(Path(tmp) / "crash")
+        crashed, final = [], {}
+
+        def make_runtime():
+            return _dag_runtime(device, cfg, cfg["flat_plan"],
+                                seed_root=checkpoint.latest_step(snap)
+                                is None)
+
+        def drive(rt, should_stop):
+            body = dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
+                            fanout=cfg["fanout"])
+            carry = torch.zeros((cfg["lanes"],), dtype=torch.int32,
+                                device=device)
+            while rt.total_size() > 0 and not should_stop():
+                if not crashed and rt.rounds_run >= 6:
+                    crashed.append(rt.rounds_run)
+                    raise RuntimeError("simulated crash at round 6")
+                carry, _, _ = rt.run_fused(2, body, carry,
+                                           until_drained=True)
+            final.update(rt=rt, carry=carry)
+            return rt.rounds_run
+
+        # One restart is allowed, and it must be the simulated crash's: any
+        # other exception ends the phase (a second one propagates out of
+        # the supervisor).  The supervisor prints the caught traceback.
+        caught = []
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rounds = run_resilient(
+                make_runtime, drive, snapshot_dir=snap, snapshot_every=4,
+                max_restarts=1, on_restart=lambda _, e: caught.append(e))
+        check(len(caught) == 1 and str(caught[0]) == "simulated crash at "
+              "round 6" and err.getvalue().count("Traceback") == 1,
+              f"run_resilient caught {caught!r}, stderr:\n{err.getvalue()}")
+        resumed = _pins(final["rt"], final["carry"], rounds)
+        check(crashed == [6] and rounds == flat["rounds"]
+              and resumed["rings"] == flat["rings"]
+              and resumed["lo"] == flat["lo"]
+              and resumed["sizes"] == flat["sizes"],
+              f"crash-resume {resumed} != the uninterrupted run")
+        restarts = final["rt"].telemetry.fault_events.get("restart", 0)
+        check(restarts == 1, f"{restarts} restarts recorded, not 1")
+
+        # A flat snapshot of round 8 restores into a fresh hierarchical
+        # runtime, which finishes the drain with the exact multiset.
+        rt = _dag_runtime(device, cfg, cfg["flat_plan"])
+        body = dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
+                        fanout=cfg["fanout"])
+        carry, _ = rt.run_fused(8, body, torch.zeros(
+            (cfg["lanes"],), dtype=torch.int32, device=device))
+        before = _live_items(rt)
+        rt.save_state(str(Path(tmp) / "flat"))
+        hier = _dag_runtime(device, cfg, {}, cfg["pod_size"],
+                            seed_root=False)
+        check(hier.restore_state(str(Path(tmp) / "flat")) == 8,
+              "the flat snapshot did not restore at round 8")
+        check(np.array_equal(_live_items(hier), before)
+              and np.array_equal(hier.fault.kill_round, rt.fault.kill_round),
+              "the flat snapshot restored another state")
+        carry, rounds_h, _ = _drain(hier, body, carry, cfg["block"])
+        check(int(carry.sum()) == cfg["n_nodes"]
+              and hier.total_size() == 0,
+              "the hierarchical runtime did not finish the flat drain")
+    out["snapshots"] = {"crash_at": crashed[0], "resumed_rounds": rounds,
+                        "restarts": restarts, "flat_to_hier_items":
+                        int(before.size), "hier_rounds": rounds_h}
+
+    # (d) elastic: shrink 64 -> 56 and grow back, and a live resize of a
+    # padded runtime, each keeping the exact multiset; the live resize
+    # builds and captures nothing.
+    lanes = cfg["lanes"]
+    rt = _dag_runtime(device, cfg, {})
+    body = dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
+                    fanout=cfg["fanout"])
+    rt.run_fused(8, body, torch.zeros((lanes,), dtype=torch.int32,
+                                      device=device))
+    before = _live_items(rt)
+    small = elastic.shrink(rt, range(lanes - lanes // 8, lanes))
+    check(small.n_workers == lanes - lanes // 8
+          and np.array_equal(_live_items(small), before),
+          "shrink lost or duplicated items")
+    big = elastic.grow(small, lanes // 8)
+    check(big.n_workers == lanes and np.array_equal(_live_items(big), before),
+          "grow lost or duplicated items")
+    pad = elastic.padded_runtime(
+        lanes * 3 // 4, cfg["capacity"], torch.zeros((), dtype=torch.int32),
+        w_max=lanes, policy=rt.policy, device=device)
+    pad.push(0, torch.zeros((1,), dtype=torch.int32), 1)
+    pad.run_fused(8, body, torch.zeros((lanes,), dtype=torch.int32,
+                                       device=device))
+    before_pad = _live_items(pad)
+    c0 = elastic.compile_count(pad)
+    grown = elastic.live_grow(pad, lanes // 4)
+    pad.run_fused(4)
+    evac = elastic.live_shrink(pad, range(lanes // 8))
+    pad.run_fused(4)
+    check(np.array_equal(_live_items(pad), before_pad),
+          "the live resize lost or duplicated items")
+    check(elastic.compile_count(pad) == c0,
+          "the live resize built or captured something")
+    out["elastic"] = {"items": int(before.size), "shrunk_to": small.n_workers,
+                      "grown_to": big.n_workers,
+                      "padded_items": int(before_pad.size),
+                      "live_grown": len(grown), "evacuation_rounds": evac,
+                      "live": elastic.n_live(pad), "compile_count": c0}
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------ phases 4-6: serving
 
 
@@ -1815,12 +2205,20 @@ def main() -> int:
     check(n["ring_scatter"] == n["ring_slice"] + 1,
           f"K2 launched {n['ring_scatter']} times for {n['ring_slice'] + 1} "
           f"pushes, not once per push")
+    sequential = phase_sequential(device, counters["dd_expand"],
+                                  expect=PHASE3B_EXPECT, **PHASE3B)
+    print(json.dumps({"phase": "solver_sequential", "result": sequential}),
+          flush=True)
     checkers = phase_checkers(device, counters, lanes=LANES,
                               capacity=CONFIG.queue_capacity,
                               backlog=CONFIG.bench_initial_size,
                               max_steal=CONFIG.max_steal, rounds=8)
     print(json.dumps({"phase": "checkers", "card": card,
                       "result": checkers}), flush=True)
+    resilience = phase_resilience(device, counters, PHASE8,
+                                  expect=PHASE8_EXPECT)
+    print(json.dumps({"phase": "resilience", "card": card,
+                      "result": resilience}), flush=True)
     from repro_torch import configs
     serving = {}
     for phase, fn, kw in (("serve", phase_serve, PHASE4),

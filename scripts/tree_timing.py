@@ -14,7 +14,11 @@ and runs this checkout's ``chip_smoke.py`` code on it.  ``--part``:
 - ``ssd``: K7 (``ssd``, on whichever route the tree gives bfloat16) at
   the SSM slice's and zamba2-7b's prefill shapes, checked against the
   plain version first, then phase 5 (mamba2-2.7b serving 24 requests) and
-  phase 6 (one zamba2-7b wave), with their launch and first-wave checks.
+  phase 6 (one zamba2-7b wave), with their launch and first-wave checks;
+- ``resilience``: phase 8 (the fault replays held to ``PHASE8_EXPECT``,
+  with their launches per round, and ms per round of the unarmed, the
+  armed flat and the armed hierarchical runtime in three turns; then the
+  snapshot and elastic checks).
 
 Prints one JSON line tagged with ``--label`` and the card.  To compare a
 parent commit with this one, unpack the parent into a directory that
@@ -116,9 +120,16 @@ def ssd_part(smoke, device) -> dict:
     return phases
 
 
+def resilience_part(smoke, device) -> dict:
+    out = smoke.phase_resilience(device, solver_counters(), smoke.PHASE8,
+                                 expect=smoke.PHASE8_EXPECT)
+    return {"resilience": {k: out[k] for k in ("ms_per_round", "wall_s")
+                           if k in out}}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--part", choices=("ring", "ssd"), required=True)
+    ap.add_argument("--part", choices=("ring", "ssd", "resilience"), required=True)
     ap.add_argument("--src", default=str(ROOT / "src"))
     ap.add_argument("--label", default="")
     args = ap.parse_args()
@@ -139,7 +150,8 @@ def main() -> int:
 
     device = torch.device("cuda")
     _lib.library()
-    part = (ring_part if args.part == "ring" else ssd_part)(smoke, device)
+    part = {"ring": ring_part, "ssd": ssd_part,
+            "resilience": resilience_part}[args.part](smoke, device)
     print(json.dumps({"label": args.label, "part": args.part,
                       "src": str(src), "card": smoke.card_line(), **part}))
     return 0

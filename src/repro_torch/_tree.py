@@ -7,11 +7,12 @@ NamedTuple of such.
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, Optional
+from typing import Any, Callable, List, Optional, Tuple
 
 import torch
 
-__all__ = ["tree_map", "tree_leaves", "resolve_device"]
+__all__ = ["tree_map", "tree_leaves", "tree_leaves_with_path",
+           "tree_unflatten", "resolve_device"]
 
 
 def tree_leaves(tree: Any) -> List[Any]:
@@ -20,6 +21,43 @@ def tree_leaves(tree: Any) -> List[Any]:
     if isinstance(tree, (tuple, list)):
         return [leaf for x in tree for leaf in tree_leaves(x)]
     return [tree]
+
+
+def tree_leaves_with_path(tree: Any, prefix: str = ""
+                          ) -> List[Tuple[str, Any]]:
+    """``(key, leaf)`` pairs in :func:`tree_leaves` order, each key the
+    JAX package's checkpoint path key: entry names joined by ``/`` — a
+    dict's key, a NamedTuple's field name, a sequence's index."""
+    def join(name) -> str:
+        return f"{prefix}/{name}" if prefix else str(name)
+
+    if isinstance(tree, dict):
+        return [kv for k in sorted(tree)
+                for kv in tree_leaves_with_path(tree[k], join(k))]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [kv for name, x in zip(tree._fields, tree)
+                for kv in tree_leaves_with_path(x, join(name))]
+    if isinstance(tree, (tuple, list)):
+        return [kv for i, x in enumerate(tree)
+                for kv in tree_leaves_with_path(x, join(i))]
+    return [(prefix, tree)]
+
+
+def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
+    """``template``'s structure with its leaves replaced, in
+    :func:`tree_leaves` order."""
+    it = iter(leaves)
+
+    def build(t):
+        if isinstance(t, dict):
+            return {k: build(t[k]) for k in sorted(t)}
+        if isinstance(t, tuple) and hasattr(t, "_fields"):
+            return type(t)(*(build(x) for x in t))
+        if isinstance(t, (tuple, list)):
+            return type(t)(build(x) for x in t)
+        return next(it)
+
+    return build(template)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

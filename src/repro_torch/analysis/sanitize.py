@@ -183,10 +183,13 @@ def _concat(a: Sequence[np.ndarray], b: Sequence[np.ndarray]
 
 
 def _mirror_steal_plan(size: int, proportion, queue_limit: int,
-                       max_steal: int) -> int:
+                       max_steal: int, donate: bool = False) -> int:
     """Host mirror of ``ops._steal_plan``'s float32 arithmetic:
     ``floor(float32(size) * (1 - p))`` stay, never in float64 (the
-    relaxed claim settles to the same count)."""
+    relaxed claim settles to the same count).  With ``donate`` a Python
+    float is rounded to float32 before the subtraction, as the op does."""
+    if isinstance(proportion, (int, float)) and donate:
+        proportion = np.float32(proportion)
     if isinstance(proportion, (int, float)):
         mult = np.float32(1.0 - float(proportion))
     else:  # a float32 tensor: subtract in float32 like the op
@@ -321,7 +324,7 @@ class CheckedBulkOps(bulk_ops.BulkOps):
         b = _snapshot(q)
         g = self._gate_on()
         exp = [_mirror_steal_plan(int(s), proportion, queue_limit,
-                                  max_steal) * g for s in b.size]
+                                  max_steal, donate) * g for s in b.size]
         q2, batch, n = self.inner.steal(q, proportion, max_steal=max_steal,
                                         queue_limit=queue_limit,
                                         donate=donate)

@@ -12,23 +12,27 @@ the fused DD explore (``kernels/dd_expand/explore.cu``): every layer of
 all three DDs for the whole batch.  Its plain version,
 :func:`explore_batch_plain`, takes the batch along the leading axis with
 the layer ``lax.scan`` as a Python loop over the ``n_vars`` layers, in
-plain PyTorch on any device; CPU tensors take it.  The sequential
-``solve`` oracle is not ported yet.
+plain PyTorch on any device; CPU tensors take it.  :func:`solve` is the
+sequential (single-stack) branch-and-bound oracle the parallel solver is
+held against, one :func:`explore_batch` per step.
 """
 
 from __future__ import annotations
 
-from typing import Dict, NamedTuple
+from typing import Dict, NamedTuple, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch._tree import resolve_device
 from repro_torch.core.dd.diagram import (DEAD, NEG, build_bounds,
                                          expand_layer_plain, reduce_exact,
                                          root_pool, where_pool)
+from repro_torch.core.dd.knapsack import Knapsack
 from repro_torch.kernels.dd_expand import ops as dd_expand
 
 __all__ = ["Subproblem", "exact_frontier", "explore", "explore_batch",
-           "explore_batch_plain"]
+           "explore_batch_plain", "solve"]
 
 
 class Subproblem(NamedTuple):
@@ -123,3 +127,59 @@ def explore_batch_plain(subs: Subproblem, valid: torch.Tensor, weights,
     )
     return {"primal": primal, "dual": dual,
             "exact": out["exact"] & valid, "children": children}
+
+
+def solve(inst: Knapsack, width: int = 32, batch: int = 16,
+          max_steps: int = 10_000, *, device=None) -> Tuple[int, dict]:
+    """Sequential (single-stack) DD branch-and-bound — the oracle the
+    parallel master-worker solver must agree with.  ``device=None`` means
+    CUDA (one launch of the fused explore per step) and raises without
+    it; ``device="cpu"`` runs :func:`explore_batch_plain`.
+
+    The JAX package's loop, step for step: take the first ``batch``
+    subproblems of the stack, pad the batch with ``-1`` rows, raise the
+    incumbent to the batch's best primal bound, prune a subproblem whose
+    dual bound does not beat the incumbent (unless it was solved
+    exactly), and append the others' children in row order.  Each step
+    uploads the batch once and reads the incumbent and the decision
+    arrays back in one packed transfer.  Returns ``(optimum, stats)``
+    with the JAX package's ``explored`` / ``pruned`` / ``generated`` /
+    ``supersteps`` counts.
+    """
+    dev = resolve_device(device)
+    w = torch.tensor(inst.weights, dtype=torch.int32, device=dev)
+    p = torch.tensor(inst.profits, dtype=torch.int32, device=dev)
+    stack = [(0, inst.capacity, 0)]
+    incumbent = -(2 ** 30)
+    stats = {"explored": 0, "pruned": 0, "generated": 1, "supersteps": 0}
+    valid_rows = torch.arange(batch, device=dev)
+
+    while stack and stats["explored"] < max_steps:
+        take, stack = stack[:batch], stack[batch:]
+        n_take = len(take)
+        arr = np.full((3, batch), -1, np.int32)
+        arr[:, :n_take] = np.asarray(take, np.int32).T
+        sub = torch.from_numpy(arr).to(dev)
+        out = explore_batch(Subproblem(sub[0], sub[1], sub[2]),
+                            valid_rows < n_take, w, p, width=width,
+                            n_vars=inst.n)
+        ch = out["children"]
+        packed = torch.cat([
+            out["primal"].amax().reshape(1), out["dual"],
+            out["exact"].to(torch.int32),
+            ch.layer.reshape(-1), ch.state.reshape(-1),
+            ch.value.reshape(-1)]).cpu().numpy()
+        stats["explored"] += n_take
+        stats["supersteps"] += 1
+        incumbent = max(incumbent, int(packed[0]))
+        duals, exact = packed[1:1 + batch], packed[1 + batch:1 + 2 * batch]
+        kids = packed[1 + 2 * batch:].reshape(3, batch, -1)
+        for e in range(n_take):
+            if duals[e] <= incumbent and not exact[e]:
+                stats["pruned"] += 1
+                continue
+            for j in np.flatnonzero(kids[0, e] >= 0):
+                stack.append((int(kids[0, e, j]), int(kids[1, e, j]),
+                              int(kids[2, e, j])))
+                stats["generated"] += 1
+    return incumbent, stats

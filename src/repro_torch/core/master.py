@@ -37,7 +37,17 @@ One round:
          exchange oracle; its ``bytes_moved`` keeps the JAX package's
          ``W * max_steal * item_bytes`` all_to_all payload accounting.
 
-``hierarchical_superstep`` and ``exchange_probe`` are not ported yet.
+Two-level rounds.  :func:`hierarchical_superstep` runs the same plan
+within each pod and then across the pods' lane-0 representatives (the
+paper's planned coordinator per machine group, §II.B).  The JAX package
+vmaps one lane's view over a ``(pod, worker)`` grid; here a level is a
+``(G, L)`` view of the stacked lanes — ``(P, W/P)`` for the pods,
+``(W/P, P)`` for the rows that cross them — whose G plans
+:func:`~repro_torch.core.policy.plan_transfers` computes at once and
+whose group-local indices map to global lane indices, so each level is
+ONE K1 window read and ONE K4 splice over all W lanes, never a loop over
+pods.  :func:`exchange_probe` is the superstep's plan-and-exchange
+prefix, collapsed by :func:`probe_token`; it never commits state.
 """
 
 from __future__ import annotations
@@ -52,7 +62,8 @@ from repro_torch.core import ops as bulk_ops
 from repro_torch.core.ops import QueueState
 from repro_torch.core.policy import StealPolicy, plan_transfers
 
-__all__ = ["RebalanceStats", "superstep", "gather_sizes"]
+__all__ = ["RebalanceStats", "superstep", "hierarchical_superstep",
+           "gather_sizes", "exchange_probe", "probe_token", "Level"]
 
 Pytree = Any
 I32 = torch.int32
@@ -66,15 +77,32 @@ class RebalanceStats(NamedTuple):
     exchange (items x item bytes): ``W * max_steal * item_bytes`` for the
     dense exchange, unconditionally, and ``max_steal * item_bytes`` for
     the compact exchange on rounds that transfer, 0 on rounds that do not
-    (int32, saturated at INT32_MAX).  The JAX package's ``*_xpod`` fields
-    belong to the hierarchical superstep, which is not ported yet.
+    (int32, saturated at INT32_MAX).
+
+    Under :func:`hierarchical_superstep` the counters follow the JAX
+    package's accounting, held once where it replicates them: the
+    intra-pod share (``n_transferred``, ``n_steals``, ``bytes_moved``) is
+    ``(P,)``, one value per pod (the JAX package's lane ``(p, 0)``), and
+    the cross-pod share (``*_xpod``) is 0-d, the value its pod
+    representatives hold (lane ``(p, 0)`` for any ``p``; the JAX lanes
+    ``l > 0`` hold zeros there).  The exact totals are then
+    ``sum(intra) + xpod``, and the busiest lane's payload
+    ``max(bytes_moved) + bytes_moved_xpod``
+    (:func:`repro_torch.runtime.telemetry.reduce_round_stats`).  The flat
+    superstep fills the ``*_xpod`` fields with 0-d zeros.
+    ``sizes_before`` / ``sizes_after`` are the ``(W,)`` size vectors in
+    lane order at both levels (the JAX package's lanes hold their pod's
+    slice of the first, and the pod-level gather as the second).
     """
 
     sizes_before: torch.Tensor   # (W,) int32
     sizes_after: torch.Tensor    # (W,) int32
-    n_transferred: torch.Tensor  # () int32
-    n_steals: torch.Tensor       # () int32
-    bytes_moved: torch.Tensor    # () int32
+    n_transferred: torch.Tensor  # () int32, (P,) hierarchical
+    n_steals: torch.Tensor       # () int32, (P,) hierarchical
+    bytes_moved: torch.Tensor    # () int32, (P,) hierarchical
+    n_transferred_xpod: Any = 0  # () int32
+    n_steals_xpod: Any = 0       # () int32
+    bytes_moved_xpod: Any = 0    # () int32
 
 
 def gather_sizes(q: QueueState) -> torch.Tensor:
@@ -160,6 +188,17 @@ def _compact_exchange(q, ops, policy, sizes, src, amt, donate
     return q, bytes_moved
 
 
+def _exchange(q, ops, policy, sizes, src, amt, exchange, donate
+              ) -> Tuple[QueueState, torch.Tensor]:
+    """The block exchange of a plan given in global lane indices."""
+    if exchange == "dense":
+        return _dense_exchange(q, ops, policy, src, amt, donate)
+    if exchange == "compact":
+        return _compact_exchange(q, ops, policy, sizes, src, amt, donate)
+    raise ValueError(
+        f"unknown exchange {exchange!r}; expected 'compact' or 'dense'")
+
+
 def superstep(
     q: QueueState,
     policy: StealPolicy,
@@ -191,27 +230,200 @@ def superstep(
     if plan is None:
         plan = plan_transfers(sizes, policy)
     src, amt = plan[:, 0], plan[:, 1]
-
-    if exchange == "dense":
-        q, bytes_moved = _dense_exchange(q, ops, policy, src, amt, donate)
-    elif exchange == "compact":
-        q, bytes_moved = _compact_exchange(q, ops, policy, sizes, src, amt,
-                                           donate)
-    else:
-        raise ValueError(
-            f"unknown exchange {exchange!r}; expected 'compact' or 'dense'")
-
-    if ops.checked:
-        # Sanitizer on: this round must conserve its sizes.
-        from repro_torch.analysis import sanitize
-
-        sanitize.trace_check_superstep(
-            sizes, q.size, capacity=tree_leaves(q.buf)[0].shape[1])
+    q, bytes_moved = _exchange(q, ops, policy, sizes, src, amt, exchange,
+                               donate)
+    _check_level(ops, sizes, q)
+    zero = torch.zeros((), dtype=I32, device=q.size.device)
     stats = RebalanceStats(
         sizes_before=sizes,
         sizes_after=q.size,
         n_transferred=torch.where(amt > 0, amt, 0).sum().to(I32),
         n_steals=(amt > 0).sum().to(I32),
         bytes_moved=bytes_moved,
+        n_transferred_xpod=zero,
+        n_steals_xpod=zero,
+        bytes_moved_xpod=zero,
     )
+    return q, stats
+
+
+def _check_level(ops, sizes_before, q) -> None:
+    if ops.checked:
+        # Sanitizer on: this level's exchange must conserve its sizes.
+        from repro_torch.analysis import sanitize
+
+        sanitize.trace_check_superstep(
+            sizes_before, q.size, capacity=tree_leaves(q.buf)[0].shape[1])
+
+
+def probe_token(q: QueueState) -> torch.Tensor:
+    """Collapse a queue into one float32 value per lane that depends on
+    its cursors AND its ring contents (one element per ring leaf) — the
+    sink of the phase probe's prefix programs.  ``(W,)`` for stacked
+    lanes, 0-d for one queue."""
+    token = q.size.to(torch.float32) + q.lo.to(torch.float32)
+    for leaf in tree_leaves(q.buf):
+        token = token + leaf.reshape(q.size.shape + (-1,))[..., 0].to(
+            torch.float32)
+    return token
+
+
+def exchange_probe(
+    q: QueueState,
+    policy: StealPolicy,
+    *,
+    ops: Optional[bulk_ops.BulkOps] = None,
+    exchange: Optional[str] = None,
+    plan: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The superstep's size read + plan + block-exchange PREFIX, reduced by
+    :func:`probe_token`: the same plan and the same exchange
+    :func:`superstep` runs, on a copy of the rings (``donate=False``), so
+    it never commits state.  Stats, the sanitizer hook and the
+    post-exchange sizes belong to the tail the phase probe attributes by
+    subtraction."""
+    if ops is None:
+        ops = bulk_ops.make_ops(policy.backend)
+    if exchange is None:
+        exchange = policy.exchange
+    sizes = gather_sizes(q)
+    if plan is None:
+        plan = plan_transfers(sizes, policy)
+    q, _ = _exchange(q, ops, policy, sizes, plan[:, 0], plan[:, 1],
+                     exchange, donate=False)
+    return probe_token(q)
+
+
+class Level:
+    """One level of a two-level round: the W stacked lanes seen as G
+    groups of L lanes.  ``Level(W, pod_size)`` is the pods, ``(P, W/P)``;
+    ``Level(W, pod_size, across=True)`` is the rows across the pods,
+    ``(W/P, P)``, whose group ``l`` is lane ``l`` of every pod."""
+
+    def __init__(self, n_workers: int, pod_size: int, *,
+                 across: bool = False):
+        self.shape = (n_workers // pod_size, pod_size)
+        self.across = across
+        self.group_size = self.shape[0] if across else self.shape[1]
+
+    def view(self, v: torch.Tensor) -> torch.Tensor:
+        """A ``(W,)`` vector as ``(G, L)`` (a view, or a transposed one)."""
+        g = v.reshape(self.shape)
+        return g.T if self.across else g
+
+    def unview(self, g: torch.Tensor) -> torch.Tensor:
+        """The inverse of :meth:`view`: ``(G, L)`` back to ``(W,)``."""
+        return (g.T if self.across else g).reshape(-1)
+
+    def global_plan(self, plan: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """``(src, amt)`` in global lane indices from G group-local plans
+        ``(G, L, 2)``."""
+        w = self.shape[0] * self.shape[1]
+        members = self.view(torch.arange(w, dtype=torch.int64,
+                                         device=plan.device))
+        src = members.gather(-1, plan[..., 0].long()).to(I32)
+        return self.unview(src), self.unview(plan[..., 1])
+
+    def exchange(self, q, sizes, plan, *, ops, policy, exchange, donate
+                 ) -> Tuple[QueueState, RebalanceStats]:
+        """Execute G group plans ``(G, L, 2)`` planned from ``sizes``
+        (``(W,)``, the sizes the victims' and the thieves' clamps read) as
+        one exchange over all W lanes; the counters are per group."""
+        src, amt = self.global_plan(plan)
+        q_sized = QueueState(q.buf, q.lo, sizes)
+        q_out, _ = _exchange(q_sized, ops, policy, sizes, src, amt,
+                             exchange, donate)
+        amt_g = plan[..., 1]
+        if exchange == "dense":
+            per = _payload(q, self.group_size * policy.max_steal)
+            bytes_moved = torch.full(amt_g.shape[:1], per, dtype=I32,
+                                     device=amt_g.device)
+        else:
+            bytes_moved = ((amt_g > 0).any(-1).to(I32)
+                           * _payload(q, policy.max_steal))
+        stats = RebalanceStats(
+            sizes_before=sizes, sizes_after=q_out.size,
+            n_transferred=torch.where(amt_g > 0, amt_g, 0).sum(-1).to(I32),
+            n_steals=(amt_g > 0).sum(-1).to(I32),
+            bytes_moved=bytes_moved)
+        # the exchange moved the cursors by the sizes' change
+        q_out = QueueState(q_out.buf, q_out.lo,
+                           q.size + (q_out.size - sizes))
+        return q_out, stats
+
+
+def _noop_plan_like(plan: torch.Tensor) -> torch.Tensor:
+    idx = torch.arange(plan.shape[-2], dtype=I32, device=plan.device)
+    return torch.stack([idx.expand(plan.shape[:-1]),
+                        torch.zeros(plan.shape[:-1], dtype=I32,
+                                    device=plan.device)], dim=-1)
+
+
+def _unless_dropped(plan: torch.Tensor,
+                    drop: Optional[torch.Tensor]) -> torch.Tensor:
+    """``plan``, or the plan that moves nothing where the 0-d ``drop`` is
+    set (a dropped round of the fault layer); ``drop=None``: ``plan``."""
+    if drop is None:
+        return plan
+    return torch.where(drop, _noop_plan_like(plan), plan)
+
+
+def hierarchical_superstep(
+    q: QueueState,
+    policy: StealPolicy,
+    *,
+    pod_size: int,
+    ops: Optional[bulk_ops.BulkOps] = None,
+    exchange: Optional[str] = None,
+    donate: bool = False,
+    dead: Optional[torch.Tensor] = None,
+    drop: Optional[torch.Tensor] = None,
+) -> Tuple[QueueState, RebalanceStats]:
+    """Two-level rebalancing of the W stacked lanes in pods of
+    ``pod_size``: the flat superstep within each pod, then one across the
+    pods, where each pod's lane 0 is its representative and every other
+    lane advertises the sentinel ``low_watermark + 1`` ("full enough not
+    to be idle, small enough not to be a victim") so the plan ignores
+    it.  Each level is one exchange over all W lanes (see :class:`Level`);
+    ``ops``, ``exchange`` and ``donate`` as in :func:`superstep`, shared
+    by both levels.  The stats follow :class:`RebalanceStats`'
+    hierarchical layout.
+
+    The fault layer's round passes ``dead`` (``(W,)`` bool) and ``drop``
+    (0-d bool): dead lanes advertise the sentinel within their pod, a pod
+    whose representative is dead abstains across the pods, and a dropped
+    round plans no move at either level."""
+    if ops is None:
+        ops = bulk_ops.make_ops(policy.backend)
+    if exchange is None:
+        exchange = policy.exchange
+    w = q.size.shape[0]
+    if w % pod_size:
+        raise ValueError(f"n_workers={w} not divisible by pod_size={pod_size}")
+    pods, rows = Level(w, pod_size), Level(w, pod_size, across=True)
+    kw = dict(ops=ops, policy=policy, exchange=exchange, donate=donate)
+    sentinel = policy.low_watermark + 1
+
+    sizes = gather_sizes(q)
+    planned = sizes if dead is None else torch.where(dead, sentinel,
+                                                     sizes).to(I32)
+    plan = _unless_dropped(plan_transfers(pods.view(planned), policy), drop)
+    q, intra = pods.exchange(q, sizes, plan, **kw)
+    _check_level(ops, sizes, q)
+
+    # Across pods: only lane 0 of each pod takes part with its true size.
+    rep = torch.arange(w, device=q.size.device) % pod_size == 0
+    if dead is not None:
+        rep = rep & ~dead
+    eff = torch.where(rep, q.size, sentinel).to(I32)
+    mid = q.size
+    xplan = _unless_dropped(plan_transfers(rows.view(eff), policy), drop)
+    q, xpod = rows.exchange(q, eff, xplan, **kw)
+    _check_level(ops, mid, q)
+    stats = intra._replace(
+        sizes_after=q.size,
+        n_transferred_xpod=xpod.n_transferred[0],
+        n_steals_xpod=xpod.n_steals[0],
+        bytes_moved_xpod=xpod.bytes_moved[0])
     return q, stats

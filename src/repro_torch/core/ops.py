@@ -316,22 +316,26 @@ def _gather_block(q: QueueState, n: torch.Tensor, max_steal: int,
 
 
 def _steal_plan(size: torch.Tensor, proportion, queue_limit: int,
-                max_steal: int) -> torch.Tensor:
+                max_steal: int, donate: bool = False) -> torch.Tensor:
     """Items to steal, following the paper's Listing 4 arithmetic:
     ``n_skip = floor(float32(size) * (1 - proportion))`` stay with the
     owner, the rest is stolen, clamped to ``[0, min(size, max_steal)]``;
     0 when ``size < queue_limit``.  ``1 - proportion`` is float32
-    arithmetic for a float32 tensor and is rounded to float32 from a
-    Python float, exactly as the JAX package computes it."""
-    n = torch.minimum(torch.clamp(size - _keep(size, proportion), min=0),
-                      torch.clamp(size, max=max_steal))
+    arithmetic for a float32 tensor and for a donating steal, and is
+    rounded to float32 from a Python float otherwise, exactly as the JAX
+    package computes it (its donating steal is jitted, which traces a
+    Python float as float32)."""
+    n = torch.minimum(
+        torch.clamp(size - _keep(size, proportion, donate), min=0),
+        torch.clamp(size, max=max_steal))
     return torch.where(size < queue_limit, torch.zeros_like(n), n)
 
 
-def _keep(size: torch.Tensor, proportion) -> torch.Tensor:
+def _keep(size: torch.Tensor, proportion, donate: bool = False
+          ) -> torch.Tensor:
     """``floor(float32(size) * (1 - proportion))``: the items Listing 4
     leaves with the owner, in float32 (see :func:`_steal_plan`)."""
-    if isinstance(proportion, torch.Tensor):
+    if isinstance(proportion, torch.Tensor) or donate:
         keep_frac = 1.0 - f32_scalar(proportion, size.device)
     else:
         keep_frac = f32_scalar(1.0 - float(proportion), size.device)
@@ -339,13 +343,15 @@ def _keep(size: torch.Tensor, proportion) -> torch.Tensor:
 
 
 def _steal(q: QueueState, proportion, *, max_steal: int, queue_limit: int,
-           kernel: bool, gate=None
+           kernel: bool, gate=None, donate: bool = False
            ) -> Tuple[QueueState, Pytree, torch.Tensor]:
     """Bulk steal of ``~proportion`` of each lane from the tail (oldest
     side).  The single ``lo += n`` cursor bump is the linearization
-    point."""
+    point.  ``donate`` picks the rounding of a Python-float proportion
+    (see :func:`_steal_plan`); a steal writes no ring."""
     cap = _capacity(q)
-    n = _gated(_steal_plan(q.size, proportion, queue_limit, max_steal), gate)
+    n = _gated(_steal_plan(q.size, proportion, queue_limit, max_steal,
+                           donate), gate)
     batch = _gather_block(q, n, max_steal, kernel)
     return (QueueState(buf=q.buf, lo=(q.lo + n) % cap, size=q.size - n),
             batch, n)
@@ -508,12 +514,14 @@ class BulkOps:
               donate: bool = False
               ) -> Tuple[QueueState, Pytree, torch.Tensor]:
         """Proportional bulk steal from the tail; returns
-        ``(state, batch, n_stolen)``."""
-        del donate
+        ``(state, batch, n_stolen)``.  A steal writes no ring: ``donate``
+        only rounds a Python-float proportion to float32 before ``1 - p``,
+        as the JAX package's jitted donating steal does."""
         qs, single = _lanes(q)
         qs, batch, n = _steal(qs, proportion, max_steal=max_steal,
                               queue_limit=queue_limit,
-                              kernel=self.kernel, gate=self._gate)
+                              kernel=self.kernel, gate=self._gate,
+                              donate=donate)
         return _unlane(qs, single), _unlane(batch, single), \
             _unlane(n, single)
 

@@ -72,18 +72,19 @@ def adaptive_chunk(n_idle: int, n_busy: int, base: float = 0.5) -> float:
 
 def plan_transfers(sizes: torch.Tensor, policy: StealPolicy) -> torch.Tensor:
     """A deterministic (victim -> thief) transfer plan from the int32
-    ``(W,)`` size vector.
+    ``(W,)`` size vector, or from a ``(G, W)`` matrix of G independent
+    groups planned at once (the hierarchical superstep's pods).
 
-    Returns int32 ``(W, 2)``: ``plan[i] = (src, n)`` means worker ``i``
-    *receives* ``n`` items stolen from ``src`` (``src == i``, ``n == 0``
-    when no transfer).  The k-th most idle worker pairs with the k-th
-    busiest victim — at most ONE steal per victim per round, the
-    single-stealer invariant at superstep granularity.  Ranks use stable
-    sorts on int keys, so ties break by lane index exactly as
-    ``jnp.argsort`` breaks them; the steal count is
+    Returns int32 ``(..., W, 2)``: ``plan[i] = (src, n)`` means worker
+    ``i`` *receives* ``n`` items stolen from ``src`` (``src == i``,
+    ``n == 0`` when no transfer); indices are within the group.  The k-th
+    most idle worker pairs with the k-th busiest victim — at most ONE
+    steal per victim per round, the single-stealer invariant at superstep
+    granularity.  Ranks use stable sorts on int keys, so ties break by
+    lane index exactly as ``jnp.argsort`` breaks them; the steal count is
     ``floor(float32(size) * float32(proportion))``.
     """
-    n = sizes.shape[0]
+    n = sizes.shape[-1]
     dev = sizes.device
     idx = torch.arange(n, dtype=torch.int32, device=dev)
 
@@ -92,21 +93,24 @@ def plan_transfers(sizes: torch.Tensor, policy: StealPolicy) -> torch.Tensor:
 
     # Rank idle workers (emptiest first) and victims (fullest first).
     big = 2 ** 30
-    idle_order = torch.argsort(torch.where(idle, sizes, big), stable=True)
-    victim_order = torch.argsort(torch.where(victim, -sizes, big),
+    idle_order = torch.argsort(torch.where(idle, sizes, big), dim=-1,
+                               stable=True)
+    victim_order = torch.argsort(torch.where(victim, -sizes, big), dim=-1,
                                  stable=True)
-    n_pairs = torch.minimum(idle.sum(), victim.sum())
-    live = idx < n_pairs
+    n_pairs = torch.minimum(idle.sum(-1), victim.sum(-1))
+    live = idx < n_pairs[..., None]
 
     prop = f32_scalar(policy.proportion, dev)
-    steal_n = torch.floor(sizes[victim_order].to(torch.float32) * prop)
+    steal_n = torch.floor(torch.take_along_dim(sizes, victim_order, -1)
+                          .to(torch.float32) * prop)
     steal_n = torch.clamp(steal_n.to(torch.int32), max=policy.max_steal)
     steal_n = torch.where(live, steal_n, 0)
 
     # Scatter the plan back to per-worker rows (thief-indexed); the idle
     # order is a permutation, so every row is written exactly once.
-    src = idx.clone().scatter_(
-        0, idle_order, torch.where(live, victim_order, idle_order).to(
+    src = idx.expand(sizes.shape).clone().scatter_(
+        -1, idle_order, torch.where(live, victim_order, idle_order).to(
             torch.int32))
-    amt = torch.zeros_like(idx).scatter_(0, idle_order, steal_n)
+    amt = torch.zeros(sizes.shape, dtype=torch.int32,
+                      device=dev).scatter_(-1, idle_order, steal_n)
     return torch.stack([src, amt], dim=-1)

@@ -152,13 +152,14 @@ class RelaxedBulkOps(bulk_ops.BulkOps):
               donate: bool = False
               ) -> Tuple[QueueState, Pytree, torch.Tensor]:
         """The claim is Listing 4's arithmetic without the fenced clamp:
-        keep ``floor(float32(size) * (1 - p))``, claim the rest."""
-        del donate  # a steal writes no ring
+        keep ``floor(float32(size) * (1 - p))``, claim the rest.  A steal
+        writes no ring; ``donate`` rounds a Python-float ``p`` as the fenced
+        steal does."""
 
         def claim(qs):
             size = qs.size
             return torch.where(size < queue_limit, torch.zeros_like(size),
-                               size - _keep(size, proportion))
+                               size - _keep(size, proportion, donate))
 
         return self._settle(q, claim, max_steal)
 

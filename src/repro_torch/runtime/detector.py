@@ -59,9 +59,8 @@ class DetectorPolicy:
       boost_rounds / boost_factor: the ``note_straggler`` proportion
         boost parameters the owner applies per ``on_suspect`` firing.
       wall_clock: ALSO classify real measured dispatch wall times fed
-        through :meth:`FailureDetector.observe_wall` (the JAX package's
-        runtime feeds per-round dispatch walls when this is set; the
-        port's runtime does not yet).  Off by default: wall observations
+        through :meth:`FailureDetector.observe_wall` (the runtime feeds
+        each block's wall time per round when this is set).  Off by default: wall observations
         are inherently non-deterministic.
       wall_slow_factor: a wall observation is "slow" when it exceeds
         this multiple of the lane's rolling baseline (median of its

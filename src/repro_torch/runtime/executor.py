@@ -4,7 +4,7 @@ lanes on one GPU (PyTorch port of ``repro.runtime.executor``).
 A *round* is::
 
     [worker body: pop_bulk -> compute -> push]   (optional)
-    master.superstep                             (bulk steal rebalance)
+    master.superstep / hierarchical_superstep    (bulk steal rebalance)
 
 Lane contract.  The JAX package writes ONE lane's view of a round and maps
 it with ``jax.vmap(axis_name=...)``, so worker bodies and the master use
@@ -38,6 +38,17 @@ Properties of the hot path:
   the carry and the proportion are kept by ``torch.where``; the host
   trims the block to the rounds that ran.
 
+Resilience (:mod:`repro_torch.runtime.resilience`): built with a
+:class:`~repro_torch.runtime.resilience.FaultPlan`, every round also runs
+the dead-ring recovery superstep, dead and delayed lanes' worker bodies
+are discarded, and ``kill_lane`` / ``revive_lane`` / ``note_straggler``
+and an attached failure detector give the host live control; the
+schedule of a block is uploaded once before it.  ``pod_size`` groups the
+lanes into pods (:func:`~repro_torch.core.master.hierarchical_superstep`).
+Snapshots (``save_state`` / ``restore_state`` / ``attach_snapshots``)
+ride :mod:`repro_torch.train.checkpoint` with the JAX package's keys and
+layout, so a snapshot of either package restores into the other.
+
 With the sanitizer on (``REPRO_CHECK=1``, or a backend made with
 ``check=True``), every op of a round is checked lane by lane
 (:mod:`repro_torch.analysis.sanitize`) and its violations are recorded;
@@ -51,7 +62,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Any, Callable, List, Optional, Tuple
+import time
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -61,8 +73,10 @@ from repro_torch.core import master as master_ops
 from repro_torch.core import ops as bulk_ops
 from repro_torch.core.policy import StealPolicy
 from repro_torch.core.sharded_queue import make_sharded_queues
+from repro_torch.runtime import resilience
 from repro_torch.runtime.adaptive import (AdaptiveConfig, AdaptiveController,
                                           adaptive_update)
+from repro_torch.runtime.resilience import FaultPlan, FaultState
 from repro_torch.runtime.telemetry import Telemetry, reduce_round_stats
 
 Pytree = Any
@@ -108,9 +122,19 @@ class StealRuntime:
         where the window fits.
       device: where the lanes live; ``None`` means CUDA and raises without
         it.
+      pod_size: if set, lanes are grouped into pods of this size and each
+        round runs :func:`~repro_torch.core.master.hierarchical_superstep`
+        (within each pod, then across the pods' lane-0 representatives).
+      fault_plan: arm the resilience layer with a deterministic
+        :class:`~repro_torch.runtime.resilience.FaultPlan`.  An EMPTY
+        ``FaultPlan()`` schedules nothing but still arms the machinery —
+        live :meth:`kill_lane` / :meth:`revive_lane` and the per-round
+        recovery superstep.  ``None`` (default) runs the unarmed round.
+        Composes with ``pod_size``: a dead lane drains within its pod, an
+        entirely dead pod across pods.
 
-    Faults, the phase probe, snapshots, the failure detector and
-    hierarchical pods of the JAX runtime are not ported yet.
+    The JAX runtime's phase probe and ``metrics()`` are not ported yet
+    (they wait for the observability slice).
     """
 
     def __init__(self, n_workers: int, capacity: int, item_spec: Pytree, *,
@@ -118,11 +142,17 @@ class StealRuntime:
                  adaptive: bool = True,
                  adaptive_config: Optional[AdaptiveConfig] = None,
                  backend: str | bulk_ops.BulkOps | None = None,
-                 device=None):
+                 device=None,
+                 pod_size: Optional[int] = None,
+                 fault_plan: Optional[FaultPlan] = None):
+        if pod_size is not None and n_workers % pod_size != 0:
+            raise ValueError(
+                f"n_workers={n_workers} not divisible by pod_size={pod_size}")
         self.device = resolve_device(device)
         self.n_workers = int(n_workers)
         self.capacity = int(capacity)
         self.item_spec = item_spec
+        self.pod_size = pod_size
         base = policy or StealPolicy()
         if backend is None:
             backend = base.backend  # honour a pinned policy.backend
@@ -139,13 +169,39 @@ class StealRuntime:
         self.telemetry = Telemetry(item_bytes=bulk_ops.item_nbytes(item_spec),
                                    capacity=capacity)
         self.rounds_run = 0
+        # Resilience: the host-side fault schedule (None = machinery off).
+        if fault_plan is not None:
+            # The dead-lane sentinel (low_watermark + 1) must be neither
+            # idle-eligible nor a victim, or masked plans would route
+            # work into corpses.
+            lo = self.policy.low_watermark + 1
+            hi = max(self.policy.high_watermark, self.policy.queue_limit)
+            if not (self.policy.low_watermark < lo < hi):
+                raise ValueError(
+                    f"fault injection needs low_watermark + 1 ="
+                    f" {lo} strictly between low_watermark and"
+                    f" max(high_watermark, queue_limit) = {hi}")
+            self.fault: Optional[FaultState] = FaultState(fault_plan,
+                                                          self.n_workers)
+            if fault_plan.kills:
+                self.telemetry.record_fault("planned_kill",
+                                            len(fault_plan.kills))
+        else:
+            self.fault = None
+        self.detector = None  # attach_detector
+        self._snapshot_dir: Optional[str] = None
+        self._snapshot_every = 0
+        self._snapshot_keep = 3
+        self._last_snapshot_round = -1
+        self._resilient: Dict[Any, Callable] = {}
 
     # -- state access --------------------------------------------------------
 
     @property
     def proportion(self) -> float:
-        """The steal proportion the NEXT round will use."""
-        return (self.controller.proportion if self.controller
+        """The steal proportion the NEXT round will use (including any
+        temporary straggler boost the controller is applying)."""
+        return (self.controller.effective_proportion if self.controller
                 else self.policy.proportion)
 
     def sizes(self) -> np.ndarray:
@@ -192,17 +248,240 @@ class StealRuntime:
             out.append(items)
         return out
 
+    # -- resilience: live faults, stragglers ---------------------------------
+
+    def _require_fault(self) -> FaultState:
+        if self.fault is None:
+            raise RuntimeError(
+                "fault layer not armed — construct the runtime with "
+                "fault_plan=FaultPlan() to enable kill/revive")
+        return self.fault
+
+    def kill_lane(self, lane: int, at_round: Optional[int] = None) -> None:
+        """Declare lane ``lane`` dead from round ``at_round`` (default: the
+        next round).  Its worker body stops producing, it leaves every
+        plan, and the recovery superstep drains its ring into the
+        survivors at proportion 1.0 over the following rounds.  Killing an
+        already-dead lane raises (the schedule is the replay contract)."""
+        fault = self._require_fault()
+        at = self.rounds_run if at_round is None else at_round
+        if bool(fault.dead_at(max(at, self.rounds_run))[lane]):
+            raise ValueError(
+                f"lane {lane} is already dead (kill_round="
+                f"{int(fault.kill_round[lane])}); revive_lane first")
+        fault.kill(lane, at)
+        self.telemetry.record_fault("kill", lane=lane)
+
+    def revive_lane(self, lane: int) -> None:
+        """Re-admit a killed lane: it rejoins plans from the next round
+        with whatever its (drained) ring holds, and its straggler penalty
+        is cleared."""
+        self._require_fault().revive(lane)
+        if self.controller is not None:
+            self.controller.clear_straggler(lane)
+        if self.detector is not None:
+            self.detector.revive(lane)
+        self.telemetry.record_fault("revive", lane=lane)
+
+    def dead_lanes(self) -> np.ndarray:
+        """(W,) bool: lanes dead as of the next round to run."""
+        if self.fault is None:
+            return np.zeros((self.n_workers,), bool)
+        return self.fault.dead_at(self.rounds_run)
+
+    def note_straggler(self, rounds: int = 4, factor: float = 1.5,
+                       lane: Optional[int] = None) -> None:
+        """Record a detected straggler: counts into telemetry and boosts
+        the adaptive steal proportion for ``rounds`` rounds; ``lane``
+        attributes the boost so :meth:`revive_lane` can clear it."""
+        self.telemetry.record_fault("straggler", lane=lane)
+        if self.controller is not None:
+            self.controller.flag_straggler(rounds=rounds, factor=factor,
+                                           lane=lane)
+
+    def attach_detector(self, policy=None):
+        """Arm the failure detector (:mod:`repro_torch.runtime.detector`):
+        per-lane delay streaks replayed from the fault schedule escalate
+        suspected -> dead — a suspected lane gets a :meth:`note_straggler`
+        boost, a lane past ``dead_after`` slow rounds a real
+        :meth:`kill_lane`.  With ``DetectorPolicy.wall_clock`` each
+        block's measured wall time per round also feeds every live lane's
+        wall baseline (suspicion only, unless ``wall_kill``).  Requires
+        the fault layer.  Returns the detector (also at :attr:`detector`).
+        """
+        from repro_torch.runtime.detector import (DetectorPolicy,
+                                                  FailureDetector)
+
+        self._require_fault()
+        pol = policy or DetectorPolicy()
+
+        def on_suspect(lane: int) -> None:
+            self.telemetry.record_fault("suspect", lane=lane)
+            self.note_straggler(rounds=pol.boost_rounds,
+                                factor=pol.boost_factor, lane=lane)
+
+        def on_dead(lane: int) -> None:
+            if not bool(self.dead_lanes()[lane]):
+                self.kill_lane(lane)
+                self.telemetry.record_fault("auto_kill", lane=lane)
+
+        def on_revive(lane: int) -> None:
+            if self.controller is not None:
+                self.controller.clear_straggler(lane)
+
+        self.detector = FailureDetector(self.n_workers, pol,
+                                        on_suspect=on_suspect,
+                                        on_dead=on_dead,
+                                        on_revive=on_revive)
+        return self.detector
+
+    def _feed_detector(self, round0: int, n_rounds: int,
+                       wall_s: Optional[float] = None) -> None:
+        """One observation per (round, live lane) from the replayed delay
+        schedule — deterministic, so the same schedule converts to the
+        same kills at the same rounds as in the JAX package — plus, with
+        ``wall_clock``, the block's wall time per round."""
+        if self.detector is None or self.fault is None:
+            return
+        f = self.fault
+        for r in range(round0, round0 + n_rounds):
+            dead, slow = f.dead_at(r), f.delayed_at(r)
+            for w in range(self.n_workers):
+                if not dead[w]:  # corpses emit no heartbeats
+                    self.detector.observe(w, bool(slow[w]))
+        if (wall_s is not None and n_rounds > 0
+                and self.detector.policy.wall_clock):
+            dead = f.dead_at(round0 + n_rounds)
+            for w in range(self.n_workers):
+                if not dead[w]:
+                    self.detector.observe_wall(w, wall_s / n_rounds)
+
+    def _controller_sizes(self, sizes: np.ndarray) -> np.ndarray:
+        """The sizes the host controller servos on: dead lanes masked to
+        the sentinel, as the fused loop masks them on the device."""
+        if self.fault is None:
+            return sizes
+        dead = self.fault.dead_at(self.rounds_run + 1)
+        return np.where(dead, np.int32(self.policy.low_watermark + 1),
+                        np.asarray(sizes, np.int32))
+
+    # -- resilience: snapshot / restore --------------------------------------
+
+    def state_dict(self) -> Dict[str, Any]:
+        """The checkpointable state: the stacked queues, the servo
+        proportion (un-boosted), the global round counter and, when
+        armed, the fault schedule — the JAX package's keys.  Taken only at
+        round boundaries, where no item is mid-exchange."""
+        p = (self.controller.proportion if self.controller is not None
+             else self.policy.proportion)
+        out: Dict[str, Any] = {
+            "queues": self.queues,
+            "proportion": torch.tensor(p, dtype=torch.float32),
+            "rounds_run": torch.tensor(self.rounds_run, dtype=torch.int32),
+        }
+        if self.fault is not None:
+            out["fault"] = {k: torch.from_numpy(v.copy())
+                            for k, v in self.fault.state_dict().items()}
+        return out
+
+    def load_state_dict(self, state: Dict[str, Any]) -> None:
+        self.queues = tree_map(
+            lambda x: torch.as_tensor(x).to(self.device).contiguous(),
+            state["queues"])
+        p = float(state["proportion"])
+        if self.controller is not None:
+            self.controller.proportion = p
+            self.controller.history.append(p)
+        self.rounds_run = int(state["rounds_run"])
+        if self.fault is not None and "fault" in state:
+            self.fault.load_state({
+                k: bulk_ops.to_numpy(torch.as_tensor(v))
+                for k, v in state["fault"].items()})
+
+    def save_state(self, ckpt_dir: str, *, keep: int = 3) -> int:
+        """Atomic snapshot at the current round boundary
+        (:mod:`repro_torch.train.checkpoint`: tmp dir + rename, keep-k).
+        Returns the step (= ``rounds_run``) it was saved under."""
+        from repro_torch.train import checkpoint
+
+        extra = {"n_workers": self.n_workers, "capacity": self.capacity,
+                 "fault_events": dict(self.telemetry.fault_events),
+                 "straggler_steps": self.telemetry.straggler_steps}
+        checkpoint.save(ckpt_dir, self.rounds_run, self.state_dict(),
+                        extra=extra, keep=keep)
+        return self.rounds_run
+
+    def restore_state(self, ckpt_dir: str, *, step: Optional[int] = None
+                      ) -> int:
+        """Restore queues, proportion, round counter (and fault schedule)
+        from the latest (or given) snapshot, onto this runtime's device —
+        a snapshot of a flat runtime restores into a hierarchical one.
+        Returns the restored round index."""
+        from repro_torch.train import checkpoint
+
+        state, _step, extra = checkpoint.restore(
+            ckpt_dir, self.state_dict(), step=step, device=self.device)
+        self.load_state_dict(state)
+        for kind, n in (extra.get("fault_events") or {}).items():
+            self.telemetry.fault_events.setdefault(kind, 0)
+            self.telemetry.fault_events[kind] = max(
+                self.telemetry.fault_events[kind], int(n))
+        self.telemetry.straggler_steps = max(
+            self.telemetry.straggler_steps,
+            int(extra.get("straggler_steps", 0)))
+        self.telemetry.record_fault("restore")
+        self._last_snapshot_round = self.rounds_run
+        return self.rounds_run
+
+    def attach_snapshots(self, ckpt_dir: str, *, every: int = 8,
+                         keep: int = 3) -> None:
+        """Snapshot the queue state every ``every`` rounds (checked after
+        each :meth:`round` / :meth:`run_fused`, at a round boundary)."""
+        self._snapshot_dir = ckpt_dir
+        self._snapshot_every = max(int(every), 1)
+        self._snapshot_keep = keep
+        self._last_snapshot_round = self.rounds_run
+
+    def _maybe_snapshot(self) -> None:
+        if self._snapshot_dir is None:
+            return
+        if self.rounds_run - self._last_snapshot_round >= self._snapshot_every:
+            self.save_state(self._snapshot_dir, keep=self._snapshot_keep)
+            self._last_snapshot_round = self.rounds_run
+
     # -- the round -----------------------------------------------------------
 
     def _step(self, worker_fn: Optional[WorkerFn], qs, carry,
-              proportion: torch.Tensor):
+              proportion: torch.Tensor, faults=None):
         """One round on the stacked lanes, on the device: worker body, then
-        the superstep at the float32 ``proportion``, splicing in place."""
+        the superstep(s) at the float32 ``proportion``, splicing in place.
+        ``faults`` is the round's :class:`~repro_torch.runtime.resilience.
+        RoundFaults` when the fault layer is armed."""
+        if self.fault is not None:
+            fn = self._resilient.get(worker_fn)
+            if fn is None:
+                fn = self._resilient[worker_fn] = (
+                    resilience.make_resilient_round(
+                        self.policy, self.ops, worker_fn,
+                        pod_size=self.pod_size))
+            return fn(qs, carry, proportion, faults)
         if worker_fn is not None:
             qs, carry = worker_fn(qs, carry)
         pol = dataclasses.replace(self.policy, proportion=proportion)
-        qs, stats = master_ops.superstep(qs, pol, ops=self.ops, donate=True)
+        if self.pod_size is not None:
+            qs, stats = master_ops.hierarchical_superstep(
+                qs, pol, pod_size=self.pod_size, ops=self.ops, donate=True)
+        else:
+            qs, stats = master_ops.superstep(qs, pol, ops=self.ops,
+                                             donate=True)
         return qs, carry, stats
+
+    def _ctx(self, k: int):
+        """The fault schedule of the next ``k`` rounds on the device (one
+        upload), or None when the fault layer is off."""
+        if self.fault is None:
+            return None
+        return self.fault.ctx(self.rounds_run, k, device=self.device)
 
     def _default_carry(self, carry):
         if carry is None:
@@ -227,17 +506,24 @@ class StealRuntime:
         carry = self._default_carry(carry)
         proportion = self.proportion
         snap = self._pre_dispatch_snapshot(worker_fn)
+        ctx = self._ctx(1)
+        t0 = time.perf_counter()
         with self._deferred():
-            self.queues, carry, stats = self._step(worker_fn, self.queues,
-                                                   carry, self._p())
+            self.queues, carry, stats = self._step(
+                worker_fn, self.queues, carry, self._p(),
+                None if ctx is None else ctx.round(0))
         host = master_ops.RebalanceStats(*_read_back(*stats))
+        wall_s = time.perf_counter() - t0
         if self._check:
             self._post_dispatch_checks([host], snap,
                                        context="StealRuntime.round")
         self._record(host, proportion)
         if self.controller is not None:
-            self.controller.update(host.sizes_after)
+            self.controller.update(self._controller_sizes(host.sizes_after))
+        r0 = self.rounds_run
         self.rounds_run += 1
+        self._feed_detector(r0, 1, wall_s=wall_s)
+        self._maybe_snapshot()
         return carry, stats
 
     def _deferred(self):
@@ -277,7 +563,8 @@ class StealRuntime:
 
     def _record(self, host_stats, proportion: float) -> None:
         """One RoundRecord from a round's host-side stats."""
-        n_steals, n_transferred, bytes_moved = reduce_round_stats(host_stats)
+        n_steals, n_transferred, bytes_moved = reduce_round_stats(
+            host_stats, n_workers=self.n_workers, pod_size=self.pod_size)
         self.telemetry.record(sizes=host_stats.sizes_after, n_steals=n_steals,
                               n_transferred=n_transferred,
                               proportion=proportion, bytes_moved=bytes_moved)
@@ -289,8 +576,10 @@ class StealRuntime:
 
         The proportion is updated on the device after every round
         (:func:`~repro_torch.runtime.adaptive.adaptive_update`, the same
-        float32 computation the host controller runs) and per-round
-        telemetry is read back once at the end.
+        float32 computation the host controller runs, on sizes with dead
+        lanes masked) and per-round telemetry is read back once at the
+        end.  Under a fault plan the block's schedule is uploaded once
+        before it.
 
         With ``until_drained=False`` (default) exactly ``k`` rounds run and
         ``(carry_out, stats)`` is returned, ``stats`` leaves leading with
@@ -304,6 +593,7 @@ class StealRuntime:
             raise ValueError(f"k must be >= 1, got {k}")
         carry = self._default_carry(carry)
         snap = self._pre_dispatch_snapshot(worker_fn)
+        t0 = time.perf_counter()
         with self._deferred():
             carry, per_round, ran, p = self._fused_rounds(
                 k, worker_fn, carry, until_drained)
@@ -312,6 +602,7 @@ class StealRuntime:
             *(stats for stats, _ in per_round))))
         props = torch.stack([q for _, q in per_round])
         host_ran, p_final, props, *host = _read_back(ran, p, props, *stacked)
+        wall_s = time.perf_counter() - t0
         rounds = int(host_ran) if until_drained else k
         host_rounds = [master_ops.RebalanceStats(*(x[r] for x in host))
                        for r in range(rounds)]
@@ -323,7 +614,10 @@ class StealRuntime:
             self._record(host_r, float(props[r]))
         if self.controller is not None and rounds > 0:
             self.controller.absorb(props[:rounds], float(p_final))
+        r0 = self.rounds_run
         self.rounds_run += rounds
+        self._feed_detector(r0, rounds, wall_s=wall_s)
+        self._maybe_snapshot()
         if until_drained:
             stacked = master_ops.RebalanceStats(*(x[:rounds] for x in stacked))
             return carry, stacked, rounds
@@ -335,22 +629,28 @@ class StealRuntime:
         proportion)``."""
         qs, p = self.queues, self._p()
         config = self.controller.config if self.controller else None
+        ctx = self._ctx(k)
         active = torch.ones((), dtype=torch.bool, device=self.device)
         ran = torch.zeros((), dtype=torch.int32, device=self.device)
         per_round = []
-        for _ in range(k):
+        for i in range(k):
+            faults = None if ctx is None else ctx.round(i)
             if until_drained:
                 active = active & (qs.size.sum() > 0)
                 with self.ops.gated(active):
-                    qs, new_carry, stats = self._step(worker_fn, qs, carry, p)
+                    qs, new_carry, stats = self._step(worker_fn, qs, carry,
+                                                      p, faults)
                 carry = tree_map(lambda new, old: torch.where(active, new, old),
                                  new_carry, carry)
                 ran = ran + active.to(torch.int32)
             else:
-                qs, carry, stats = self._step(worker_fn, qs, carry, p)
+                qs, carry, stats = self._step(worker_fn, qs, carry, p, faults)
             per_round.append((stats, p))
             if self.controller is not None:
-                p_new = adaptive_update(p, qs.size, policy=self.policy,
+                sizes = resilience.mask_sizes(
+                    qs.size, None if ctx is None else ctx.dead[i + 1],
+                    self.policy)
+                p_new = adaptive_update(p, sizes, policy=self.policy,
                                         config=config)
                 p = torch.where(active, p_new, p)
         self.queues = qs

@@ -35,13 +35,29 @@ __all__ = ["reduce_round_stats", "RoundRecord", "WaveRecord",
            "RequestRecord", "Telemetry"]
 
 
-def reduce_round_stats(stats) -> tuple:
+def reduce_round_stats(stats, *, n_workers: Optional[int] = None,
+                       pod_size: Optional[int] = None) -> tuple:
     """Exact ``(n_steals, n_transferred, bytes_moved)`` of one round from a
-    ``RebalanceStats`` with host (numpy) leaves.  Flat mode: the counters
-    are one value for all lanes (element 0 if a per-lane copy is given)."""
-    return tuple(int(np.asarray(x).reshape(-1)[0])
-                 for x in (stats.n_steals, stats.n_transferred,
-                           stats.bytes_moved))
+    ``RebalanceStats`` with host (numpy) leaves.
+
+    Flat mode (``pod_size=None``): the counters are one value for all
+    lanes (element 0 if a per-lane copy is given).  Hierarchical mode:
+    the intra-pod counters are one per pod — the port's ``(P,)``, or the
+    JAX package's per-lane copies, whose lane ``(p, 0)`` is read — and
+    the cross-pod share is added ONCE (its first element); ``bytes_moved``
+    is the busiest lane's injection, its pod's intra-level payload plus
+    the pod-level share."""
+    if pod_size is None:
+        return tuple(int(np.asarray(x).reshape(-1)[0])
+                     for x in (stats.n_steals, stats.n_transferred,
+                               stats.bytes_moved))
+    n_pods = n_workers // pod_size
+    rep = lambda x: np.asarray(x).reshape(n_pods, -1)[:, 0]  # noqa: E731
+    once = lambda x: int(np.asarray(x).reshape(-1)[0])  # noqa: E731
+    return (int(rep(stats.n_steals).sum()) + once(stats.n_steals_xpod),
+            int(rep(stats.n_transferred).sum())
+            + once(stats.n_transferred_xpod),
+            int(rep(stats.bytes_moved).max()) + once(stats.bytes_moved_xpod))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,2 +1,4 @@
-"""Training-side controls (port of ``repro.train``): the straggler monitor
-the serving engine uses; the trainer waits for the training slice."""
+"""Training-side controls (port of ``repro.train``): the straggler
+monitor, ``GracefulExit`` and ``run_supervised`` (``fault``) and the
+atomic checkpoints the runtime's snapshots ride (``checkpoint``); the
+trainer waits for the training slice."""

@@ -480,3 +480,56 @@ def test_ssm_prefill_on_the_card_matches_the_cpu():
                         tree_leaves({k: v for k, v in want_cache.items()
                                      if k != "pos"})):
             torch.testing.assert_close(a.cpu(), b, atol=1e-4, rtol=1e-4)
+
+
+def _dag_replay(device, plan, pod_size):
+    """chip_smoke's Fig. 9 DAG at its CPU size, drained on ``device``:
+    ``(runtime, carry, rounds dispatched, launches)``."""
+    smoke = _chip_smoke()
+    cfg = smoke.PHASE8_SMALL
+    rt = smoke._dag_runtime(device, cfg, plan, pod_size)
+    body = smoke.dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
+                          fanout=cfg["fanout"])
+    for fn in COUNTERS:
+        fn.launches = 0
+    carry, _, dispatched = smoke._drain(
+        rt, body, torch.zeros((cfg["lanes"],), dtype=torch.int32,
+                              device=device), cfg["block"])
+    launches = [fn.launches for fn in COUNTERS]
+    return rt, carry, dispatched, launches
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hier", [False, True])
+def test_fault_replays_on_the_card_match_the_cpu(hier):
+    """The flat and the hierarchical fault replays on CUDA tensors are bit
+    for bit the same program on the CPU, with K1 and K4 launched 2 (flat)
+    or 4 (pods) times a round and K3 and K2 once a worker body."""
+    dev = _cuda()
+    cfg = _chip_smoke().PHASE8_SMALL
+    plan = cfg["hier_plan"] if hier else cfg["flat_plan"]
+    pod = cfg["pod_size"] if hier else None
+    gpu, gcarry, dispatched, launches = _dag_replay(dev, plan, pod)
+    cpu, ccarry, _, _ = _dag_replay(torch.device("cpu"), plan, pod)
+    assert gcarry.cpu().tolist() == ccarry.tolist()
+    assert int(ccarry.sum()) == cfg["n_nodes"]
+    for a, b in zip(gpu.queues, cpu.queues):
+        assert torch.equal(a.cpu(), b)
+    assert gpu.telemetry.summary() == cpu.telemetry.summary()
+    assert gpu.controller.history == cpu.controller.history
+    per = 4 if hier else 2
+    # steal_gather, push_scatter, pop_slice, transfer_splice
+    assert launches == [per * dispatched, dispatched, dispatched,
+                        per * dispatched]
+
+
+@pytest.mark.cuda
+def test_sequential_solver_on_the_card_matches_the_cpu():
+    from repro_torch.core.dd.bnb import solve
+
+    _cuda()
+    inst = random_instance(20, seed=2)
+    explore_fused.launches = 0
+    got = solve(inst)
+    assert explore_fused.launches == got[1]["supersteps"]
+    assert got == solve(inst, device="cpu")

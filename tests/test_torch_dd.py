@@ -143,3 +143,16 @@ def test_knapsack_copy_matches_reference():
         assert (mine.weights, mine.profits, mine.capacity) == (
             theirs.weights, theirs.profits, theirs.capacity)
         assert dp_solve(mine) == jax_dp_solve(theirs)
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_sequential_solve_matches_reference(seed):
+    """The sequential oracle: the JAX package's ``bnb.solve`` at its test
+    size (12 items, width 8) and at its defaults on 16 items, optimum and
+    every stats counter equal, and the optimum equal to ``dp_solve``."""
+    for n, kw in ((12, dict(width=8)), (16, {})):
+        jopt, jst = jbnb.solve(jax_random_instance(n, seed=seed), **kw)
+        inst = random_instance(n, seed=seed)
+        topt, tst = tbnb.solve(inst, device="cpu", **kw)
+        assert topt == jopt == dp_solve(inst), (n, seed)
+        assert tst == jst, (n, seed)

@@ -114,3 +114,38 @@ def test_chip_smoke_fails_without_a_gpu_and_without_the_repo(tmp_path):
     res = _run(["chip_smoke.py"], cwd=tmp_path, PYTHONPATH="")
     assert res.returncode != 0
     assert '"ok"' not in res.stdout
+
+
+def test_resilience_modules_import_alone_and_default_to_cuda(monkeypatch):
+    """The resilience slice's modules load without JAX, and its entry
+    points (the runtime armed or in pods, the padded runtime, the
+    sequential solver, the resilient launcher) refuse to run on the CPU
+    unless asked."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('repro_torch.runtime.resilience',\n"
+        "          'repro_torch.train.checkpoint', 'repro_torch.train.fault',\n"
+        "          'repro_torch.distributed', 'repro_torch.distributed.elastic',\n"
+        "          'repro_torch.launch.resilient', 'repro_torch.core.dd.bnb'):\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+    from repro_torch.core.dd.bnb import solve
+    from repro_torch.core.dd.knapsack import paper_example
+    from repro_torch.distributed.elastic import padded_runtime
+    from repro_torch.launch.resilient import main as resilient_main
+    from repro_torch.runtime import FaultPlan, StealRuntime
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    spec = torch.zeros((), dtype=torch.int32)
+    for call in (lambda: solve(paper_example()),
+                 lambda: StealRuntime(4, 8, spec, pod_size=2,
+                                      fault_plan=FaultPlan()),
+                 lambda: padded_runtime(2, 8, spec, w_max=4),
+                 lambda: resilient_main([])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -222,3 +222,81 @@ def test_python_float_and_float32_proportions_follow_the_jax_paths():
     assert int(jref.steal(jq(), 1 / 3, donate=True, **kw)[2]) == 2
     assert int(tref.steal(tq, 1 / 3, **kw)[2]) == 1
     assert int(tref.steal(tq, tops.f32_scalar(1 / 3, CPU), **kw)[2]) == 2
+
+
+# The port's backend -> the JAX backend of the same routing it is held to
+# (the port's "cuda" is the JAX package's kernel routing, "auto" there).
+_C6_BACKENDS = {"reference": "reference", "cuda": "auto", "auto": "auto",
+                "relaxed": "relaxed"}
+
+
+def _c6_programs():
+    """The ring of the reproduction (8 rows, size 3) and seeded rings of
+    64 rows at sizes 0-64, each with its lo."""
+    yield np.arange(1, 9, dtype=np.int32), 0, 3
+    rng = np.random.default_rng(6)
+    for size in range(65):
+        ring = rng.integers(1, 1 << 20, 64).astype(np.int32)
+        yield ring, int(rng.integers(0, 64)), size
+
+
+@pytest.mark.parametrize("backend", [*_C6_BACKENDS, "check"])
+def test_donated_steal_rounds_a_python_float_as_the_jax_jit_does(backend):
+    """With ``donate=True`` the JAX package's steal is jitted, which traces
+    a Python-float proportion as float32, so ``1 - p`` is a float32
+    subtraction (3 items at p = 1/3: 2 stolen); without it the pure path
+    rounds ``1 - p`` from float64 (1 stolen).  Every port backend follows
+    both paths for a Python float and for a float32 tensor; the checked
+    backend (whose mirror must follow the op it wraps) is held to the
+    port's unchecked one."""
+    from repro.core import ops as jops
+    import repro.core  # noqa: F401  (registers the JAX relaxed backend)
+
+    if backend == "check":
+        ops = tops.make_ops("cuda", capacity=64, max_steal=64, check=True)
+        want_ops, jax_ops = tops.make_ops("cuda"), None
+    else:
+        ops = tops.make_ops(backend, capacity=64, max_steal=64)
+        jax_ops = jops.make_ops(_C6_BACKENDS[backend], capacity=64,
+                                max_push=64, max_steal=64)
+    counts = {}
+    for ring, lo, size in _c6_programs():
+        cap = ring.shape[0]
+        for p in (1 / 3, 0.1, 0.9, 0.7):
+            for donate in (False, True):
+                for as_tensor in (False, True):
+                    tq = tops.QueueState(torch.from_numpy(ring.copy()),
+                                         torch.tensor(lo, dtype=torch.int32),
+                                         torch.tensor(size,
+                                                      dtype=torch.int32))
+                    tp = tops.f32_scalar(p, CPU) if as_tensor else p
+                    kw = dict(max_steal=cap, queue_limit=0, donate=donate)
+                    q2, batch, n = ops.steal(tq, tp, **kw)
+                    if jax_ops is None:
+                        wq, wbatch, wn = want_ops.steal(
+                            tops.QueueState(torch.from_numpy(ring.copy()),
+                                            torch.tensor(lo,
+                                                         dtype=torch.int32),
+                                            torch.tensor(size,
+                                                         dtype=torch.int32)),
+                            tp, **kw)
+                        want = (int(wn), int(wq.lo), wbatch.numpy())
+                    else:
+                        jq = jops.QueueState(jnp.asarray(ring),
+                                             jnp.int32(lo), jnp.int32(size))
+                        jp = jnp.float32(p) if as_tensor else p
+                        jq2, jbatch, jn = jax_ops.steal(jq, jp, **kw)
+                        want = (int(jn), int(jq2.lo), np.asarray(jbatch))
+                    what = (backend, size, p, donate, as_tensor)
+                    assert int(n) == want[0], what
+                    assert int(q2.lo) == want[1], what
+                    assert int(q2.size) == size - want[0], what
+                    np.testing.assert_array_equal(batch.numpy(), want[2],
+                                                  err_msg=str(what))
+                    np.testing.assert_array_equal(q2.buf.numpy(), ring,
+                                                  err_msg=str(what))
+                    counts[(cap, size, p, donate, as_tensor)] = int(n)
+    # the reproduction: 1 stolen without donation, 2 with it (a Python
+    # float), 2 either way from a float32 tensor
+    assert [counts[(8, 3, 1 / 3, d, t)] for d in (False, True)
+            for t in (False, True)] == [1, 2, 2, 2]

@@ -135,6 +135,46 @@ def test_solver_phase_matches_reference():
                                     "dd_expand"}
 
 
+def test_sequential_solver_phase_matches_reference():
+    """Phase 3b at a CPU size: ``bnb.solve`` against the JAX package's."""
+    from repro.core.dd.bnb import solve as jax_solve
+
+    smoke = _chip_smoke()
+    cfg = dict(smoke.PHASE3B, n_items=16)
+    opt, st = jax_solve(jax_random_instance(16, seed=cfg["seed"]),
+                        width=cfg["width"], batch=cfg["batch"])
+    _, counters = smoke._port()
+    out = smoke.phase_sequential(CPU, counters["dd_expand"],
+                                 expect=dict(optimum=opt, **st), **cfg)
+    assert out["supersteps"] == st["supersteps"] and out["launches"] == 0
+
+
+def test_resilience_phase_matches_the_pins_script_at_a_cpu_size():
+    """Phase 8 at ``PHASE8_SMALL``, held to what
+    ``scripts/resilience_pins.py`` computes from the JAX package at that
+    size (the card's run is held to the same script's full-size run,
+    pinned in ``PHASE8_EXPECT``)."""
+    smoke = _chip_smoke()
+    spec = importlib.util.spec_from_file_location(
+        "resilience_pins", ROOT / "scripts" / "resilience_pins.py")
+    pins = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pins)
+    cfg = smoke.PHASE8_SMALL
+    expect = {"flat": pins.pins(cfg, cfg["flat_plan"]),
+              "hier": pins.pins(cfg, cfg["hier_plan"], cfg["pod_size"])}
+    _, counters = smoke._port()
+    out = smoke.phase_resilience(CPU, counters, cfg, expect=expect, turns=1)
+    assert out["flat"]["rounds"] == expect["flat"]["rounds"]
+    assert out["hier"]["dead"] == 5 and out["flat"]["dead"] == 1
+    assert set(out["ms_per_round"]) == {"unarmed", "flat", "hier"}
+    assert out["snapshots"]["crash_at"] == 6
+    assert out["snapshots"]["restarts"] == 1
+    assert out["elastic"]["shrunk_to"] == 7 and out["elastic"]["live"] == 7
+    # the card's pins come from the same script at PHASE8's size
+    assert set(smoke.PHASE8_EXPECT) == {"flat", "hier"}
+    assert set(smoke.PHASE8_EXPECT["flat"]) == set(expect["flat"])
+
+
 def _assert_first_wave_is_the_plain_computation(out):
     """On the CPU every wrapper takes its plain version: nothing launches,
     and the two first-wave prefills are the same computation."""

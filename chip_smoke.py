@@ -121,6 +121,21 @@ check that does not hold:
    from 48 to 64 lanes, keep the exact item multiset, and the live resize
    leaves ``compile_count`` unchanged (a count that cannot move until the
    port captures CUDA graphs: it says only that the library is loaded).
+9. One lane per process (``{"phase": "mesh"}``, after phase 8;
+   ``repro_torch.distributed``).  (a) 8 ranks under ``gloo``, all on the
+   one card, run ``parallel_solve(execution="mesh")`` on phase 3's
+   instance and geometry with 8 workers (phase 3 stacks 64; one card
+   hosts 8 ranks): every rank must return the JAX package's integers
+   (``PHASE9_EXPECT``, ``scripts/mesh_pins.py``) and the stacked 8-lane
+   run's in this process, and each rank must launch the fused explore,
+   K3, K2, K1 and K4 once per dispatched round on its own lane (K2 once
+   more on rank 0, the seed push).  (b) Phase 2's backlog on 8 ranks, 8
+   supersteps, compact and dense, flat and in 2 pods of 4: digests of the
+   rings, ``lo``, sizes and telemetry equal the stacked runtime's on the
+   card.  (c) ``parallel_solve(n_workers=1, execution="mesh")`` under
+   ``nccl`` equals the stacked run at one lane.  ms per superstep on the
+   mesh and stacked, not gated; gloo stages each collective through the
+   host (the line names the transport).
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
@@ -131,7 +146,9 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
+import hashlib
 import io
 import json
 import subprocess
@@ -247,6 +264,38 @@ PHASE8_EXPECT = {
         history="9000d66e6e7513c9", history_len=83,
         rings="4bf3c98d6eb3c8ce", lo="5f3c43e51895c24d"),
 }
+# Phase 9: one lane per process (repro_torch.distributed).  (a) phase 3's
+# instance and geometry through parallel_solve(execution="mesh") on 8
+# lanes, one per rank — 8 gloo ranks share the one card, so 8 lanes where
+# phase 3 stacks 64; (b) phase 2's backlog on 8 ranks (the even lanes
+# holding 10,000 items each, 8 supersteps at proportion 0.5), compact and
+# dense, flat and in 2 pods of 4; (c) one rank under nccl (NCCL refuses
+# two ranks on one device), on a 20-item instance of phase 3's seed.
+PHASE9 = dict(
+    solver=dict(n_items=30, seed=3, n_workers=8, explore_width=16, batch=8,
+                capacity=CAP, max_steal=MAX_STEAL),
+    backlog=dict(lanes=8, capacity=CAP, backlog=10000, max_steal=MAX_STEAL,
+                 rounds=8, pod_size=4),
+    single=dict(n_items=20, seed=3, n_workers=1, explore_width=16, batch=8,
+                capacity=CAP, max_steal=MAX_STEAL),
+    single_backend="nccl", timeout=600)
+# The CPU rehearsal's size (tests/test_torch_smoke.py): 4 gloo CPU ranks,
+# and gloo in (c).
+PHASE9_SMALL = dict(
+    solver=dict(n_items=16, seed=3, n_workers=4, explore_width=4, batch=2,
+                capacity=1024, max_steal=1024),
+    backlog=dict(lanes=4, capacity=256, backlog=100, max_steal=64, rounds=8,
+                 pod_size=2),
+    single=dict(n_items=14, seed=3, n_workers=1, explore_width=4, batch=2,
+                capacity=256, max_steal=256),
+    single_backend="gloo", timeout=240)
+# What the JAX package's parallel_solve returns for PHASE9's solver
+# (scripts/mesh_pins.py, a CPU run at commit e6b620b, jax 0.9.0).
+PHASE9_EXPECT = dict(optimum=1260, supersteps=267, explored=16335,
+                     transferred=3823, steals=107,
+                     per_worker_explored=[2056, 2053, 2036, 2059, 2019, 2042,
+                                          2047, 2023])
+
 # int32 operations: half the data sheet's 67 TFLOP/s float32 rate outside
 # the tensor cores, as a Hopper SM has 64 int32 lanes to 128 float32 ones
 # (NVIDIA's Hopper architecture white paper).
@@ -1275,13 +1324,15 @@ def backlog_items(lanes: int, backlog: int, seed: int) -> dict:
 
 
 def backlog_runtime(device, items, *, backend, exchange: str, lanes: int,
-                    capacity: int, max_steal: int):
+                    capacity: int, max_steal: int, execution: str = "vmap",
+                    pod_size=None):
     """A runtime of the repo's steal policy on ``backend`` with the even
-    lanes holding ``items``, ``backlog`` rows each (the seed pushes)."""
+    lanes holding ``items``, ``backlog`` rows each (the seed pushes):
+    stacked on ``device``, or one lane per rank (``execution="mesh"``,
+    every rank calling this)."""
     import torch
     from repro_torch.configs.paper_lfq import CONFIG
     from repro_torch.core.policy import StealPolicy
-    from repro_torch.runtime.executor import StealRuntime
 
     policy = StealPolicy(proportion=CONFIG.steal_proportion,
                          queue_limit=CONFIG.queue_limit,
@@ -1289,8 +1340,15 @@ def backlog_runtime(device, items, *, backend, exchange: str, lanes: int,
                          high_watermark=CONFIG.high_watermark,
                          max_steal=max_steal, exchange=exchange)
     spec = {k: torch.zeros((), dtype=torch.int32) for k in items}
-    rt = StealRuntime(lanes, capacity, spec, policy=policy, backend=backend,
-                      device=device)
+    if execution == "mesh":
+        from repro_torch.distributed import launch_runtime
+        rt = launch_runtime(lanes, capacity, spec, pod_size=pod_size,
+                            policy=policy, backend=backend,
+                            device=_runtime_device(device, execution))
+    else:  # a tree before the mesh has no launch_runtime
+        from repro_torch.runtime.executor import StealRuntime
+        rt = StealRuntime(lanes, capacity, spec, pod_size=pod_size,
+                          policy=policy, backend=backend, device=device)
     full = list(range(0, lanes, 2))
     backlog = items["layer"].size // len(full)
     for j, lane in enumerate(full):
@@ -1528,6 +1586,56 @@ def phase_checkers(device, counters, *, lanes: int, capacity: int,
 # ----------------------------------------------- phase 3: the DD solver
 
 
+def _runtime_device(device, execution: str):
+    """A runtime's ``device`` argument: the stacked lanes' device, or on a
+    mesh each rank's own CUDA device (None) or the CPU."""
+    if execution == "mesh" and device.type == "cuda":
+        return None
+    return device
+
+
+def solve_counted(device, counters, cfg, execution: str) -> dict:
+    """``parallel_solve`` on the kernel routing, stacked or one lane per
+    rank (every rank calls it), twice: this process's launch counters are
+    zeroed just before the first run and read just after it, and the
+    second run (warm: a mesh's communicators are up) is timed."""
+    from repro_torch.core.dd.knapsack import random_instance
+    from repro_torch.core.dd.parallel import parallel_solve
+    from repro_torch.core.policy import StealPolicy
+
+    inst = random_instance(cfg["n_items"], seed=cfg["seed"])
+    policy = StealPolicy(proportion=0.5, high_watermark=4, low_watermark=0,
+                         max_steal=cfg["max_steal"])
+
+    def solve():
+        return parallel_solve(inst, n_workers=cfg["n_workers"],
+                              explore_width=cfg["explore_width"],
+                              batch=cfg["batch"], capacity=cfg["capacity"],
+                              policy=policy, backend="cuda",
+                              execution=execution,
+                              device=_runtime_device(device, execution))
+
+    for fn in counters.values():
+        fn.launches = 0
+    sync(device)
+    t0 = time.perf_counter()
+    opt, st = solve()
+    sync(device)
+    first = time.perf_counter() - t0
+    launches = {name: fn.launches for name, fn in counters.items()}
+    check(st["backend"] == "cuda", f"routing {st['backend']!r} is not cuda")
+    t0 = time.perf_counter()
+    solve()
+    sync(device)
+    wall = time.perf_counter() - t0
+    return dict(optimum=opt, supersteps=st["supersteps"],
+                explored=st["explored"], transferred=st["transferred"],
+                steals=st["telemetry"]["steals"],
+                per_worker_explored=st["per_worker_explored"],
+                launches=launches, wall_s_first=first, wall_s=wall,
+                ms_per_superstep=wall * 1e3 / st["supersteps"])
+
+
 def phase_solver(device, counters, *, n_items: int, seed: int,
                  n_workers: int, explore_width: int, batch: int,
                  capacity: int, max_steal: int, expect=None, off_path=None):
@@ -1535,35 +1643,18 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
     kernels (``counters``: each must launch) and of ``off_path`` (none may)
     are zeroed just before the run and read just after it."""
     from repro_torch.core.dd.knapsack import dp_solve, random_instance
-    from repro_torch.core.dd.parallel import parallel_solve
-    from repro_torch.core.policy import StealPolicy
-
-    inst = random_instance(n_items, seed=seed)
-    policy = StealPolicy(proportion=0.5, high_watermark=4, low_watermark=0,
-                         max_steal=max_steal)
-
-    def solve():
-        return parallel_solve(inst, n_workers=n_workers,
-                              explore_width=explore_width, batch=batch,
-                              capacity=capacity, policy=policy,
-                              backend="cuda", device=device)
 
     off_path = off_path or {}
-    for fn in (*counters.values(), *off_path.values()):
-        fn.launches = 0
-    sync(device)
-    t0 = time.perf_counter()
-    opt, st = solve()
-    sync(device)
-    wall = time.perf_counter() - t0
-    launches = {name: fn.launches for name, fn in counters.items()}
-    off = {name: fn.launches for name, fn in off_path.items()}
-
-    got = dict(optimum=opt, supersteps=st["supersteps"],
-               explored=st["explored"], transferred=st["transferred"],
-               steals=st["telemetry"]["steals"])
-    check(opt == dp_solve(inst), f"optimum {opt} != dp_solve")
-    check(st["backend"] == "cuda", f"routing {st['backend']!r} is not cuda")
+    out = solve_counted(device, {**counters, **off_path}, dict(
+        n_items=n_items, seed=seed, n_workers=n_workers,
+        explore_width=explore_width, batch=batch, capacity=capacity,
+        max_steal=max_steal), "vmap")
+    launches = {name: out["launches"][name] for name in counters}
+    off = {name: out["launches"][name] for name in off_path}
+    got = {k: out[k] for k in ("optimum", "supersteps", "explored",
+                               "transferred", "steals")}
+    check(got["optimum"] == dp_solve(random_instance(n_items, seed=seed)),
+          f"optimum {got['optimum']} != dp_solve")
     if expect is not None:
         check(got == expect, f"solver results {got} != {expect}")
     if device.type == "cuda":
@@ -1571,13 +1662,9 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
             check(n > 0, f"{name} never launched on the solver path")
     for name, n in off.items():
         check(n == 0, f"{name} launched {n} times on the solver path")
-    t0 = time.perf_counter()
-    solve()
-    sync(device)
-    warm = time.perf_counter() - t0
     return {**got, "launches": launches, "launches_off_path": off,
-            "wall_s_first": wall, "wall_s": warm,
-            "ms_per_superstep": warm * 1e3 / st["supersteps"]}
+            **{k: out[k] for k in ("wall_s_first", "wall_s",
+                                   "ms_per_superstep")}}
 
 
 def phase_sequential(device, counter, *, n_items: int, seed: int,
@@ -1878,6 +1965,170 @@ def phase_resilience(device, counters, cfg, expect=None, turns: int = 3):
                       "live": elastic.n_live(pad), "compile_count": c0}
     out["wall_s"] = time.perf_counter() - t_phase
     return out
+
+
+# ------------------------------------------- phase 9: one lane per process
+
+
+def _rank_device(rank: int, device_type: str):
+    import torch
+    if device_type == "cuda":
+        return torch.device("cuda", rank % torch.cuda.device_count())
+    return torch.device("cpu")
+
+
+def _transport(rt) -> str:
+    import torch.distributed as dist
+    if rt.lanes.stacked:
+        return "stacked"
+    where = "staged through the host" if rt.lanes.staged else "on the device"
+    return f"{dist.get_backend(rt.lanes.group)}, {where}"
+
+
+def _run_digests(rt) -> dict:
+    """SHA-256 digests of the W lanes' rings, ``lo``, sizes and telemetry
+    records."""
+    from repro_torch.core.ops import queue_to_numpy
+    q = queue_to_numpy(rt.gathered_queues())
+    records = json.dumps([dataclasses.astuple(r)
+                          for r in rt.telemetry.rounds]).encode()
+    return {"rings": _digest(np.concatenate(
+                [q.buf[k].reshape(-1) for k in sorted(q.buf)])),
+            "lo": _digest(q.lo), "sizes": _digest(q.size),
+            "telemetry": hashlib.sha256(records).hexdigest()[:16]}
+
+
+def mesh_backlog(device, cfg, execution: str) -> dict:
+    """Phase 2's backlog at ``cfg``'s size through ``rounds`` supersteps,
+    compact and dense, flat and in pods; each configuration runs twice
+    and the second run is timed."""
+    items = backlog_items(cfg["lanes"], cfg["backlog"], seed=0)
+    out = {}
+    for pod_size in (None, cfg["pod_size"]):
+        for exchange in ("compact", "dense"):
+            for _ in range(2):  # the first run warms up
+                rt = backlog_runtime(device, items, backend="cuda",
+                                     exchange=exchange, lanes=cfg["lanes"],
+                                     capacity=cfg["capacity"],
+                                     max_steal=cfg["max_steal"],
+                                     execution=execution, pod_size=pod_size)
+                sync(device)
+                t0 = time.perf_counter()
+                rt.run_fused(cfg["rounds"])
+                sync(device)
+                wall = time.perf_counter() - t0
+            out[f"{'pods' if pod_size else 'flat'}/{exchange}"] = dict(
+                _run_digests(rt), moved=rt.telemetry.total_transferred,
+                ms_per_superstep=wall * 1e3 / cfg["rounds"],
+                transport=_transport(rt))
+    return out
+
+
+def _mesh_rank(rank: int, cfg: dict, device_type: str) -> dict:
+    """One rank of phase 9 (a) and (b)."""
+    _, counters = _port()
+    device = _rank_device(rank, device_type)
+    return {"solver": solve_counted(device, counters, cfg["solver"],
+                                    "mesh"),
+            "backlog": mesh_backlog(device, cfg["backlog"], "mesh")}
+
+
+def _single_rank(rank: int, cfg: dict, device_type: str) -> dict:
+    """Phase 9 (c): the solver on a mesh of one rank."""
+    _, counters = _port()
+    return solve_counted(_rank_device(rank, device_type), counters,
+                       cfg["single"], "mesh")
+
+
+SOLVER_PINS = ("optimum", "supersteps", "explored", "transferred", "steals",
+               "per_worker_explored")
+
+
+def phase_mesh(device, counters, cfg, expect=None) -> dict:
+    """Phase 9: (a) the solver and (b) the backlog on one lane per gloo
+    rank, each held to the stacked runtime's run in this process (and (a)
+    to ``expect``); every rank's launch counters, read by the rank itself;
+    (c) the solver on one rank under ``cfg["single_backend"]``."""
+    from repro_torch.core.dd.knapsack import dp_solve, random_instance
+    from repro_torch.launch.mesh import run_workers
+
+    n = cfg["solver"]["n_workers"]
+    t0 = time.perf_counter()
+    ranks = run_workers(functools.partial(_mesh_rank, cfg=cfg,
+                                          device_type=device.type),
+                        n, backend="gloo", timeout=cfg["timeout"])
+    wall = time.perf_counter() - t0
+
+    # (a) the solver: every rank's result, the stacked run's, the pins
+    pins = lambda r: {k: r[k] for k in SOLVER_PINS}  # noqa: E731
+    got = pins(ranks[0]["solver"])
+    for r, res in enumerate(ranks):
+        check(pins(res["solver"]) == got, f"rank {r}'s solver results "
+              f"{pins(res['solver'])} differ from rank 0's {got}")
+    stacked = solve_counted(device, counters, cfg["solver"], "vmap")
+    check(pins(stacked) == got,
+          f"mesh solver {got} != stacked {pins(stacked)}")
+    inst = random_instance(cfg["solver"]["n_items"],
+                           seed=cfg["solver"]["seed"])
+    check(got["optimum"] == dp_solve(inst), "mesh optimum != dp_solve")
+    if expect is not None:
+        check(got == expect, f"mesh solver {got} != {expect}")
+    # run() drives blocks of 8 rounds until one drains early: every round
+    # of every block launches the body's K3, fused explore and K2 push
+    # and the superstep's K1 window and K4 splice, on each rank's lane
+    s = got["supersteps"]
+    dispatched = 8 * (s // 8 + 1)
+    launches = [res["solver"]["launches"] for res in ranks]
+    if device.type == "cuda":
+        for r, lr in enumerate(launches):
+            want = {"dd_expand": dispatched, "ring_slice": dispatched,
+                    "ring_gather": dispatched, "ring_transfer": dispatched,
+                    "ring_scatter": dispatched + (r == 0)}  # + seed push
+            check(lr == want, f"rank {r} launched {lr}, not {want} in "
+                  f"{dispatched} dispatched rounds")
+
+    # (b) the backlog: digests equal to the stacked runtime's
+    backlog = mesh_backlog(device, cfg["backlog"], "vmap")
+    keys = ("rings", "lo", "sizes", "telemetry", "moved")
+    for name, want in backlog.items():
+        for r, res in enumerate(ranks):
+            mine = res["backlog"][name]
+            check({k: mine[k] for k in keys} == {k: want[k] for k in keys},
+                  f"backlog {name}: rank {r}'s {mine} != stacked {want}")
+        check(want["moved"] > 0, f"backlog {name} moved nothing")
+
+    # (c) one rank under cfg["single_backend"]
+    t1 = time.perf_counter()
+    [single] = run_workers(functools.partial(_single_rank, cfg=cfg,
+                                             device_type=device.type),
+                           1, backend=cfg["single_backend"],
+                           timeout=cfg["timeout"])
+    single_wall = time.perf_counter() - t1
+    single_stacked = solve_counted(device, counters, cfg["single"], "vmap")
+    check(pins(single) == pins(single_stacked),
+          f"{cfg['single_backend']} mesh of one {pins(single)} != stacked "
+          f"{pins(single_stacked)}")
+
+    return {
+        "ranks": n, "cut": f"{n} lanes, one per rank on one card, where "
+        f"phase 3 stacks {LANES}",
+        "solver": {**got, "ms_per_superstep": {
+            "mesh": ranks[0]["solver"]["ms_per_superstep"],
+            "stacked": stacked["ms_per_superstep"]},
+            "launches_per_rank": launches, "dispatched_rounds": dispatched},
+        "backlog": {name: {
+            "digests": {k: want[k] for k in keys[:4]}, "moved": want["moved"],
+            "ms_per_superstep": {"mesh": ranks[0]["backlog"][name][
+                "ms_per_superstep"], "stacked": want["ms_per_superstep"]},
+            "transport": ranks[0]["backlog"][name]["transport"]}
+            for name, want in backlog.items()},
+        "single": {**pins(single), "backend": cfg["single_backend"],
+                   "ms_per_superstep": {
+                       "mesh": single["ms_per_superstep"],
+                       "stacked": single_stacked["ms_per_superstep"]},
+                   "wall_s_first": single["wall_s_first"],
+                   "wall_s": single_wall},
+        "wall_s": wall}
 
 
 # ------------------------------------------------ phases 4-6: serving
@@ -2219,6 +2470,9 @@ def main() -> int:
                                   expect=PHASE8_EXPECT)
     print(json.dumps({"phase": "resilience", "card": card,
                       "result": resilience}), flush=True)
+    mesh = phase_mesh(device, counters, PHASE9, expect=PHASE9_EXPECT)
+    print(json.dumps({"phase": "mesh", "card": card, "result": mesh}),
+          flush=True)
     from repro_torch import configs
     serving = {}
     for phase, fn, kw in (("serve", phase_serve, PHASE4),

@@ -7,16 +7,23 @@ generates children in BULK (one push for all lanes); the virtual master
 proportionally from busy workers to feed drained ones — the
 single-stealer, watermark-gated policy of §II.B.
 
-The solver runs on :class:`repro_torch.runtime.StealRuntime`.  Its worker
-body sees all W lanes at once (the runtime's lane contract) and drives the
-runtime's resolved :class:`~repro_torch.core.ops.BulkOps` backend, so on
-the ``"cuda"`` routing each superstep is:
+The solver runs on the runtime :func:`repro_torch.distributed.
+launch_runtime` builds: the W lanes stacked on one device
+(``execution="vmap"``) or one lane per rank of a ``torch.distributed``
+mesh (``execution="mesh"``).  Its worker body sees the lanes its process
+holds (all W, or one) and drives the runtime's resolved
+:class:`~repro_torch.core.ops.BulkOps` backend and lane collectives, so
+on the ``"cuda"`` routing each superstep is, on each process:
 
-  1. ops.pop_bulk(E)      — one K3 launch for the payload tree, all lanes
+  1. ops.pop_bulk(E)      — one K3 launch for the payload tree, all held
+                            lanes
   2. explore_batch        — restricted/relaxed DD bounds + exact frontier
-                            for all W x E popped subproblems: one launch
-                            of the fused DD explore (K5's redesign)
-  3. incumbent            — max over lanes (the JAX package's ``lax.pmax``)
+                            for the held lanes' x E popped subproblems:
+                            one launch of the fused DD explore (K5's
+                            redesign)
+  3. incumbent            — ``lanes.max`` over all W lanes (the JAX
+                            package's ``lax.pmax``; a max over the stack,
+                            or an all-reduce on a mesh)
   4. prune + compact      — children of dominated nodes are dropped
   5. ops.push(children)   — one K2 launch for the payload tree, in place
   6. master.superstep     — K1 window + K4 splice (appended by the runtime)
@@ -37,7 +44,7 @@ from repro_torch.core.dd.diagram import NEG
 from repro_torch.core.dd.knapsack import Knapsack
 from repro_torch.core.ops import BulkOps, QueueState
 from repro_torch.core.policy import StealPolicy
-from repro_torch.runtime.executor import StealRuntime
+from repro_torch.distributed.launch import launch_runtime
 
 __all__ = ["parallel_solve"]
 
@@ -49,9 +56,10 @@ def _item_spec():
     return {"layer": z, "state": z, "value": z}
 
 
-def _make_worker_body(weights, profits, ops: BulkOps, *, explore_width: int,
-                      batch: int, n_vars: int):
-    """The solver's slice of a superstep, on the W stacked lanes."""
+def _make_worker_body(weights, profits, ops: BulkOps, lanes, *,
+                      explore_width: int, batch: int, n_vars: int):
+    """The solver's slice of a superstep, on the lanes this process
+    holds."""
 
     def body(q: QueueState, carry):
         w = q.size.shape[0]
@@ -70,7 +78,7 @@ def _make_worker_body(weights, profits, ops: BulkOps, *, explore_width: int,
         # 3. global incumbent: max over lanes, every lane gets it
         local_best = torch.maximum(carry["incumbent"],
                                    out["primal"].reshape(w, batch).amax(-1))
-        incumbent = local_best.amax().expand(w).clone()
+        incumbent = lanes.max(local_best)
 
         # 4. prune: a subproblem's children survive iff dual > incumbent
         keep = (out["dual"].reshape(w, batch) > incumbent[:, None])[..., None]
@@ -100,14 +108,15 @@ def parallel_solve(inst: Knapsack, *, n_workers: int = 8,
                    fused_rounds: int = 8,
                    execution: str = "vmap",
                    device=None) -> Tuple[int, dict]:
-    """Solve on W stacked lanes of one device (``device=None`` means CUDA,
-    and raises without it; the tests pass ``device="cpu"``).
-
-    ``execution="vmap"`` is the one mode ported: the W lanes stacked on one
-    device, the counterpart of the JAX package's vmapped lanes.
-    ``execution="mesh"`` (one lane per device) raises until the port has a
-    ``torch.distributed`` runtime.  ``backend`` overrides the routing of
-    every queue op; by default ``policy.backend`` (``"auto"``) decides.
+    """Solve on W lanes: stacked on one device with ``execution="vmap"``
+    (the counterpart of the JAX package's vmapped lanes), or one lane per
+    rank with ``execution="mesh"``, where every rank of an initialised
+    process group calls this and gets the same result (the SPMD contract
+    of :mod:`repro_torch.distributed.executor`).  ``device=None`` means
+    CUDA (each rank's own device on a mesh), and raises without it; the
+    tests pass ``device="cpu"``.  Both modes run the same round and return
+    the same results.  ``backend`` overrides the routing of every queue
+    op; by default ``policy.backend`` (``"auto"``) decides.
     ``fused_rounds > 1`` advances up to that many supersteps per
     read-back.
 
@@ -115,33 +124,32 @@ def parallel_solve(inst: Knapsack, *, n_workers: int = 8,
     per-round rebalancing summary and ``stats["backend"]`` the resolved
     routing (``"cuda"`` for the kernels).
     """
-    if execution != "vmap":
-        raise NotImplementedError(
-            f"execution={execution!r}: only 'vmap' (stacked lanes on one "
-            f"device) is ported")
-    dev = resolve_device(device)
     policy = policy or StealPolicy(proportion=0.5, high_watermark=4,
                                    low_watermark=0,
                                    max_steal=min(capacity, 1024))
+    runtime = launch_runtime(
+        n_workers, capacity, _item_spec(), execution=execution,
+        policy=policy, adaptive=adaptive, backend=backend,
+        device=resolve_device(device) if execution == "vmap" else device)
+    dev, lanes = runtime.device, runtime.lanes
     w = torch.tensor(inst.weights, dtype=I32, device=dev)
     p = torch.tensor(inst.profits, dtype=I32, device=dev)
-
-    runtime = StealRuntime(n_workers, capacity, _item_spec(), policy=policy,
-                           adaptive=adaptive, backend=backend, device=dev)
     # seed: root subproblem on worker 0
     runtime.push(0, {"layer": torch.zeros((1,), dtype=I32),
                      "state": torch.full((1,), inst.capacity, dtype=I32),
                      "value": torch.zeros((1,), dtype=I32)}, 1)
 
-    body = _make_worker_body(w, p, runtime.ops, explore_width=explore_width,
-                             batch=batch, n_vars=inst.n)
-    carry = {"incumbent": torch.full((n_workers,), NEG, dtype=I32,
+    body = _make_worker_body(w, p, runtime.ops, lanes,
+                             explore_width=explore_width, batch=batch,
+                             n_vars=inst.n)
+    carry = {"incumbent": torch.full((lanes.n_local,), NEG, dtype=I32,
                                      device=dev),
-             "explored": torch.zeros((n_workers,), dtype=I32, device=dev)}
+             "explored": torch.zeros((lanes.n_local,), dtype=I32,
+                                     device=dev)}
     carry = runtime.run(body, carry, max_rounds=max_supersteps,
                         fused=fused_rounds)
 
-    explored = carry["explored"].cpu().tolist()
+    explored = lanes.all_gather(carry["explored"]).cpu().tolist()
     stats = {
         "supersteps": runtime.rounds_run,
         "explored": int(sum(explored)),

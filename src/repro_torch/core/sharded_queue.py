@@ -2,9 +2,10 @@
 
 The JAX package stacks W queues along a leading axis and maps the
 superstep over it with ``vmap`` (one device) or ``shard_map`` (one lane
-per device).  The port's lanes live stacked on one GPU and the superstep
-works on the stack directly (see :mod:`repro_torch.core.master`); one lane
-per GPU comes with ``torch.distributed`` later.
+per device).  The port builds the lanes a process holds: all W stacked on
+one device for the stacked runtime, ``(1, cap, ...)`` for the one lane of
+a mesh rank (:class:`repro_torch.distributed.MeshStealRuntime`); the
+superstep works on that stack (see :mod:`repro_torch.core.master`).
 """
 
 from __future__ import annotations
@@ -21,9 +22,10 @@ __all__ = ["make_sharded_queues"]
 
 def make_sharded_queues(n_workers: int, capacity: int, item_spec: Any, *,
                         device=None) -> QueueState:
-    """W empty queues stacked on a leading worker axis: leaves
-    ``(W, capacity, ...)``, int32 ``(W,)`` cursors.  ``device=None`` means
-    CUDA, and raises without it."""
+    """``n_workers`` empty queues stacked on a leading worker axis: leaves
+    ``(n_workers, capacity, ...)``, int32 ``(n_workers,)`` cursors — every
+    lane of a stacked runtime, or ``n_workers=1`` for a mesh rank's own
+    lane.  ``device=None`` means CUDA, and raises without it."""
     dev = resolve_device(device)
     buf = tree_map(
         lambda s: torch.zeros((n_workers, capacity) + tuple(s.shape),

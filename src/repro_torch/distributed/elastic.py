@@ -13,6 +13,14 @@ module turns that into fleet operations:
   telemetry stream and the global round counter.
 * :func:`grow` — the inverse: rebuild with extra empty, alive lanes.
 
+Both work in both modes: the stacked runtime just drops or adds lanes; a
+mesh runtime (:class:`~repro_torch.distributed.MeshStealRuntime`) is
+rebuilt on a mesh of the first ``n`` ranks, each taking its row of the
+gathered rings.  On a mesh they are collective over the whole world:
+every rank calls them, a rank outside the current mesh with ``rt=None``,
+and a rank outside the new mesh gets ``None`` back (it holds no
+runtime).
+
 Live resize (no rebuild): :func:`padded_runtime` builds the runtime at a
 fixed lane count ``w_max`` with only ``n_active`` lanes alive (the
 padding lanes are killed at round 0); :func:`live_shrink` /
@@ -21,10 +29,6 @@ a host-side write to the fault schedule.  :func:`compile_count` is the
 "nothing re-built, nothing re-captured" count a live resize must leave
 unchanged; until the port captures CUDA graphs it only says whether the
 kernel library is loaded.
-
-Only the stacked-lane :class:`~repro_torch.runtime.executor.StealRuntime`
-is resized here; the one-lane-per-device runtime comes with the port's
-``torch.distributed`` slice.
 """
 
 from __future__ import annotations
@@ -32,9 +36,12 @@ from __future__ import annotations
 from typing import Any, List, Optional, Sequence
 
 import numpy as np
+import torch.distributed as dist
 
 from repro_torch._tree import tree_map
 from repro_torch.core.ops import QueueState, to_numpy, from_numpy
+from repro_torch.distributed.executor import MeshStealRuntime
+from repro_torch.launch.mesh import make_worker_mesh
 from repro_torch.runtime.executor import StealRuntime
 from repro_torch.runtime.resilience import FaultPlan
 
@@ -76,69 +83,131 @@ def evacuate(rt: StealRuntime, lanes: Sequence[int], *,
 
 
 def _host_rows(rt: StealRuntime) -> QueueState:
-    """The stacked queue state as host numpy."""
-    return tree_map(to_numpy, rt.queues)
+    """The W lanes' stacked queue state as host numpy (a gather on a
+    mesh)."""
+    return tree_map(to_numpy, rt.gathered_queues())
 
 
-def _rebuild(rt: StealRuntime, n_workers: int) -> StealRuntime:
-    """A fresh runtime with ``n_workers`` lanes, the same policy, backend,
-    adaptive config and device, the fault layer armed (schedules do not
-    carry over: lane indices just changed meaning)."""
-    if type(rt) is not StealRuntime:
-        raise TypeError(
-            f"don't know how to resize {type(rt).__name__}: only the "
-            f"stacked-lane StealRuntime is ported (the one-lane-per-device "
-            f"runtime comes with torch.distributed)")
-    return StealRuntime(
-        n_workers, rt.capacity, rt.item_spec, policy=rt.policy,
-        adaptive=rt.controller is not None,
+def _carried(rt: Optional[StealRuntime]) -> dict:
+    """What a rebuilt runtime takes over from ``rt``.  For a mesh it comes
+    from the world's rank 0 (always lane 0), so a rank that holds no
+    runtime (``rt=None``) learns it too."""
+    out = None if rt is None else dict(
+        mesh=isinstance(rt, MeshStealRuntime), n_workers=rt.n_workers,
+        capacity=rt.capacity, item_spec=tree_map(lambda s: s.cpu(),
+                                                 rt.item_spec),
+        policy=rt.policy, adaptive=rt.controller is not None,
         adaptive_config=rt.controller.config if rt.controller else None,
-        backend=rt.ops, device=rt.device, fault_plan=FaultPlan())
+        device=(rt.mesh.requested_device
+                if isinstance(rt, MeshStealRuntime) else rt.device),
+        telemetry=rt.telemetry, rounds_run=rt.rounds_run,
+        proportion=rt.controller.proportion if rt.controller else None,
+        history=list(rt.controller.history) if rt.controller else None)
+    if rt is None or out["mesh"]:
+        box = [out]
+        dist.broadcast_object_list(box, src=0)
+        out = box[0]
+    return out
 
 
-def _carry_over(old: StealRuntime, new: StealRuntime, rows) -> StealRuntime:
-    new.queues = tree_map(lambda a: from_numpy(a, new.device), rows)
-    new.telemetry = old.telemetry
-    new.rounds_run = old.rounds_run
-    if new.controller is not None and old.controller is not None:
-        new.controller.proportion = old.controller.proportion
-        new.controller.history = list(old.controller.history)
+def _rebuild(rt: Optional[StealRuntime], n_workers: int, carried: dict
+             ) -> Optional[StealRuntime]:
+    """A fresh runtime of the same kind with ``n_workers`` lanes, the same
+    policy, backend, adaptive config and device, the fault layer armed
+    (schedules do not carry over: lane indices just changed meaning).  A
+    mesh runtime is rebuilt on the first ``n_workers`` ranks; a rank
+    outside them gets None."""
+    kwargs = dict(policy=carried["policy"], adaptive=carried["adaptive"],
+                  adaptive_config=carried["adaptive_config"],
+                  backend=carried["policy"].backend if rt is None else rt.ops,
+                  fault_plan=FaultPlan())
+    if not carried["mesh"]:
+        if type(rt) is not StealRuntime:
+            raise TypeError(f"don't know how to resize {type(rt).__name__}")
+        return StealRuntime(n_workers, rt.capacity, rt.item_spec,
+                            device=rt.device, **kwargs)
+    if rt is not None and type(rt) is not MeshStealRuntime:
+        raise TypeError(f"don't know how to resize {type(rt).__name__}")
+    mesh = make_worker_mesh(n_workers, device=carried["device"])
+    if not mesh.member:
+        return None
+    return MeshStealRuntime(mesh, carried["capacity"], carried["item_spec"],
+                            **kwargs)
+
+
+def _carry_over(carried: dict, new: Optional[StealRuntime], rows
+                ) -> Optional[StealRuntime]:
+    """``new`` with ``carried``'s telemetry, round counter and controller,
+    and its own lanes' rows of ``rows`` (the W lanes' host arrays; None:
+    keep its empty rings)."""
+    if new is None:
+        return None
+    if rows is not None:
+        new.queues = tree_map(lambda a: new.lanes.local(from_numpy(
+            a, new.device)).contiguous(), rows)
+    new.telemetry = carried["telemetry"]
+    new.rounds_run = carried["rounds_run"]
+    if new.controller is not None and carried["history"] is not None:
+        new.controller.proportion = carried["proportion"]
+        new.controller.history = list(carried["history"])
     return new
 
 
-def shrink(rt: StealRuntime, drop_lanes: Sequence[int]) -> StealRuntime:
+def shrink(rt: Optional[StealRuntime], drop_lanes: Sequence[int]
+           ) -> Optional[StealRuntime]:
     """Evacuate ``drop_lanes`` and rebuild the runtime without them.  Lane
     ``i`` of the result is the i-th SURVIVING lane of the input; the item
-    multiset is exactly preserved.  Returns the new runtime."""
+    multiset is exactly preserved.  Returns the new runtime (on a mesh,
+    None on the ranks past the smaller mesh)."""
     drop = sorted({int(w) for w in drop_lanes})
     if not drop:
         return rt
-    evacuate(rt, drop)
-    rows = tree_map(lambda x: np.delete(x, drop, axis=0), _host_rows(rt))
-    new = _carry_over(rt, _rebuild(rt, rt.n_workers - len(drop)), rows)
-    new.telemetry.record_fault("shrink", len(drop))
+    rows = None
+    if rt is not None:
+        _check_kind(rt)
+        evacuate(rt, drop)
+        rows = tree_map(lambda x: np.delete(x, drop, axis=0),
+                        _host_rows(rt))
+    carried = _carried(rt)
+    new = _carry_over(carried, _rebuild(rt, carried["n_workers"] - len(drop),
+                                        carried), rows)
+    if new is not None:
+        new.telemetry.record_fault("shrink", len(drop))
     return new
 
 
-def grow(rt: StealRuntime, n_new: int) -> StealRuntime:
+def grow(rt: Optional[StealRuntime], n_new: int) -> Optional[StealRuntime]:
     """Rebuild with ``n_new`` extra lanes, empty and alive.  Existing
     lanes keep their rings and indices; the next rounds route work into
-    the newcomers through the normal idle-thief plan."""
+    the newcomers through the normal idle-thief plan.  On a mesh the new
+    lanes are the next ranks of the world, which call this with
+    ``rt=None``."""
     n_new = int(n_new)
     if n_new <= 0:
         return rt
-    rows = _host_rows(rt)
-    new = _rebuild(rt, rt.n_workers + n_new)
+    rows = None
+    if rt is not None:
+        _check_kind(rt)
+        rows = _host_rows(rt)
+    carried = _carried(rt)
+    n = carried["n_workers"]
+    new = _rebuild(rt, n + n_new, carried)
 
-    def splice(old_arr, fresh_arr):
-        out = fresh_arr.copy()
-        out[: old_arr.shape[0]] = old_arr
+    def splice(old_arr):
+        out = np.zeros((n + n_new,) + old_arr.shape[1:], old_arr.dtype)
+        out[:n] = old_arr
         return out
 
-    rows = tree_map(splice, rows, _host_rows(new))
-    new = _carry_over(rt, new, rows)
-    new.telemetry.record_fault("grow", n_new)
+    new = _carry_over(carried, new,
+                      None if rows is None else tree_map(splice, rows))
+    if new is not None:
+        new.telemetry.record_fault("grow", n_new)
     return new
+
+
+def _check_kind(rt: StealRuntime) -> None:
+    if type(rt) not in (StealRuntime, MeshStealRuntime):
+        raise TypeError(f"don't know how to resize {type(rt).__name__}")
 
 
 # ---------------------------------------------------------------------------
@@ -154,14 +223,10 @@ def padded_runtime(n_active: int, capacity: int, item_spec: Any, *,
     every plan — so :func:`live_shrink` / :func:`live_grow` move the live
     count without building anything.  ``fault_plan`` schedules further
     failures on the active lanes; the padding kills are merged in.  Other
-    ``kwargs`` (policy, backend, pod_size, device, ...) go to
-    :class:`StealRuntime`.  ``execution`` is ``"vmap"`` (the stacked
-    lanes, the JAX package's name for them); ``"mesh"`` waits for the
-    port's ``torch.distributed`` runtime."""
-    if execution != "vmap":
-        raise NotImplementedError(
-            f"execution={execution!r}: only 'vmap' (stacked lanes on one "
-            f"device) is ported")
+    ``kwargs`` (policy, backend, pod_size, device, mesh, ...) go to
+    :func:`~repro_torch.distributed.launch.launch_runtime`, with
+    ``execution`` ``"vmap"`` (the stacked lanes, the JAX package's name for
+    them) or ``"mesh"`` (one lane per rank, ``w_max`` ranks)."""
     n_active, w_max = int(n_active), int(w_max)
     if not (1 <= n_active <= w_max):
         raise ValueError(
@@ -175,7 +240,10 @@ def padded_runtime(n_active: int, capacity: int, item_spec: Any, *,
     pad_kills = tuple((w, 0) for w in range(n_active, w_max))
     plan = FaultPlan(kills=base.kills + pad_kills, delays=base.delays,
                      drops=base.drops)
-    rt = StealRuntime(w_max, capacity, item_spec, fault_plan=plan, **kwargs)
+    from repro_torch.distributed.launch import launch_runtime
+
+    rt = launch_runtime(w_max, capacity, item_spec, execution=execution,
+                        fault_plan=plan, **kwargs)
     rt.telemetry.record_fault("padded_launch", w_max - n_active)
     return rt
 

@@ -1,0 +1,228 @@
+"""Worker meshes over ``torch.distributed`` (PyTorch port of
+``repro.launch.mesh``'s ``make_worker_mesh``) and a launcher of ranks.
+
+The JAX package's worker mesh is a ``jax.sharding.Mesh`` of devices with
+one axis (flat) or two (``(pods, workers)``).  Here a lane is a process:
+:func:`make_worker_mesh` takes the first ``n_workers`` ranks of the
+initialised default process group, gives each its lane and its device,
+and, in pods, the groups that stand for the two mesh axes — one group
+per pod, and one per row that crosses the pods (lane ``l`` of every
+pod).  :func:`run_workers` spawns ranks, joins them into a group and runs
+a function on each (the tests and ``chip_smoke.py`` use it).
+
+``make_production_mesh`` (tensor and data parallel for models) waits for
+the sharded model path.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import datetime
+import multiprocessing
+import os
+import queue as queue_mod
+import shutil
+import tempfile
+import time
+import traceback
+from typing import Any, Callable, List, Optional, Tuple
+
+import torch
+import torch.distributed as dist
+
+from repro_torch._tree import resolve_device
+from repro_torch.core.lanes import MeshLanes
+
+__all__ = ["WorkerMesh", "make_worker_mesh", "run_workers"]
+
+
+@dataclasses.dataclass(frozen=True)
+class WorkerMesh:
+    """The first ``n_workers`` ranks of the world as queue lanes: rank
+    ``i`` holds lane ``i`` on ``device``.  ``shape`` and ``axis_names``
+    are the JAX mesh's (``(W,)`` / ``(workers,)`` flat, ``(P, L)`` /
+    ``(pods, workers)`` in pods of ``pod_size``).  On a rank outside the
+    mesh ``lane`` and ``device`` are None and the groups are unusable."""
+
+    n_workers: int
+    pod_size: Optional[int]
+    shape: Tuple[int, ...]
+    axis_names: Tuple[str, ...]
+    rank: int
+    lane: Optional[int]
+    device: Optional[torch.device]
+    requested_device: Any
+    group: Any
+    pod_group: Any = None
+    row_group: Any = None
+
+    @property
+    def member(self) -> bool:
+        return self.lane is not None
+
+    def lanes(self, level: Optional[str] = None) -> MeshLanes:
+        """The lane collectives over the mesh (``level=None``), this
+        rank's pod (``"pods"``) or its row across the pods (``"rows"``)."""
+        if not self.member:
+            raise ValueError(
+                f"rank {self.rank} is outside the {self.n_workers}-lane mesh")
+        writer = self.lane == 0
+        if level is None:
+            return MeshLanes(self.group, self.n_workers, self.lane,
+                             writer=writer, levels=self._level)
+        if self.pod_size is None:
+            raise ValueError("a flat mesh has no pod levels")
+        if level == "pods":
+            return MeshLanes(self.pod_group, self.pod_size,
+                             self.lane % self.pod_size, writer=writer)
+        if level == "rows":
+            return MeshLanes(self.row_group, self.shape[0],
+                             self.lane // self.pod_size, writer=writer)
+        raise ValueError(f"unknown level {level!r}; expected 'pods' or "
+                         f"'rows'")
+
+    def _level(self, pod_size: int, across: bool) -> MeshLanes:
+        if pod_size != self.pod_size:
+            raise ValueError(f"the mesh's pods hold {self.pod_size} lanes, "
+                             f"not {pod_size}")
+        return self.lanes("rows" if across else "pods")
+
+
+def _lane_device(device) -> torch.device:
+    """``device`` as given, or ``cuda:{local rank % device_count}``;
+    raises where there is no CUDA and none was asked for."""
+    if device is not None:
+        return resolve_device(device)
+    resolve_device(None)
+    local = int(os.environ.get("LOCAL_RANK", dist.get_rank()))
+    return torch.device("cuda", local % torch.cuda.device_count())
+
+
+def make_worker_mesh(n_workers: int, *, pod_size: Optional[int] = None,
+                     axis_name: str = "workers", pod_axis: str = "pods",
+                     device=None) -> WorkerMesh:
+    """A queue-worker mesh over the first ``n_workers`` ranks of the
+    initialised default process group: flat, or ``n_workers // pod_size``
+    pods of ``pod_size`` when ``pod_size`` is set.  Every rank of the world
+    must call it (creating a group is collective over the world), in the
+    same order as the other ranks' calls.  ``device=None`` puts rank ``r``'s
+    lane on ``cuda:{local rank % device_count}`` (``LOCAL_RANK``, else the
+    rank), and raises without CUDA; ``device="cpu"`` asks for the CPU."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_worker_mesh needs an initialised default process group "
+            "(torch.distributed.init_process_group, or run_workers)")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    if world < n_workers:
+        raise ValueError(
+            f"make_worker_mesh(n_workers={n_workers}) needs at least that "
+            f"many ranks; the world has {world} (ranks 0-{world - 1})")
+    if pod_size is not None and n_workers % pod_size != 0:
+        raise ValueError(
+            f"n_workers={n_workers} not divisible by pod_size={pod_size}")
+    ranks = list(range(n_workers))
+    group = dist.group.WORLD if n_workers == world else dist.new_group(ranks)
+    pod_group = row_group = None
+    if pod_size is None:
+        shape, axes = (n_workers,), (axis_name,)
+    else:
+        n_pods = n_workers // pod_size
+        shape, axes = (n_pods, pod_size), (pod_axis, axis_name)
+        for p in range(n_pods):
+            g = dist.new_group(ranks[p * pod_size:(p + 1) * pod_size])
+            if rank // pod_size == p:
+                pod_group = g
+        for lane in range(pod_size):
+            g = dist.new_group(ranks[lane::pod_size])
+            if rank % pod_size == lane:
+                row_group = g
+    member = rank < n_workers
+    dev = _lane_device(device) if member else None
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return WorkerMesh(
+        n_workers=n_workers, pod_size=pod_size, shape=shape, axis_names=axes,
+        rank=rank, lane=rank if member else None, device=dev,
+        requested_device=device, group=group if member else None,
+        pod_group=pod_group if member else None,
+        row_group=row_group if member else None)
+
+
+# ---------------------------------------------------------------------------
+# Launching ranks
+
+
+def _rank_main(fn, rank, n, backend, init_method, timeout_s, results):
+    try:
+        torch.set_num_threads(1)  # n ranks share the host's cores
+        dist.init_process_group(
+            backend, init_method=init_method, rank=rank, world_size=n,
+            timeout=datetime.timedelta(seconds=timeout_s))
+        try:
+            out = fn(rank)
+        finally:
+            dist.destroy_process_group()
+    except BaseException:
+        results.put((rank, False, traceback.format_exc()))
+        raise
+    results.put((rank, True, out))
+
+
+def run_workers(fn: Callable[[int], Any], n: int, *, backend: str = "gloo",
+                init_method: Optional[str] = None,
+                timeout: float = 300.0) -> List[Any]:
+    """Spawn ``n`` ranks, join them into a ``backend`` process group and
+    return ``[fn(0), ..., fn(n - 1)]``, each computed on its rank.
+
+    ``fn`` must be picklable (a module-level function, or a
+    ``functools.partial`` of one); each rank runs with one intra-op
+    thread.  The group's rendezvous is a file under a fresh temporary
+    directory unless ``init_method`` names another.  A rank that raises,
+    dies or is still running after ``timeout`` seconds fails the call:
+    every rank is then stopped and a ``RuntimeError`` carries the first
+    failure's traceback."""
+    ctx = multiprocessing.get_context("spawn")
+    tmp = tempfile.mkdtemp(prefix="repro_ranks_")
+    init = init_method or f"file://{os.path.join(tmp, 'rendezvous')}"
+    results = ctx.Queue()
+    procs = [ctx.Process(target=_rank_main,
+                         args=(fn, r, n, backend, init, timeout, results),
+                         daemon=True) for r in range(n)]
+    out: dict = {}
+    failure = None
+    deadline = time.monotonic() + timeout
+    try:
+        for p in procs:
+            p.start()
+        while len(out) < n and failure is None:
+            try:
+                rank, ok, payload = results.get(timeout=1.0)
+            except queue_mod.Empty:
+                dead = [r for r, p in enumerate(procs)
+                        if p.exitcode not in (None, 0) and r not in out]
+                if dead:
+                    failure = (f"rank {dead[0]} exited with code "
+                               f"{procs[dead[0]].exitcode}")
+                elif time.monotonic() > deadline:
+                    failure = (f"ranks {sorted(set(range(n)) - set(out))} "
+                               f"still running after {timeout} s")
+                continue
+            if ok:
+                out[rank] = payload
+            else:
+                failure = f"rank {rank} failed:\n{payload}"
+    finally:
+        for p in procs:
+            if failure is None:
+                p.join(timeout=max(deadline - time.monotonic(), 1.0))
+            if p.is_alive():
+                p.terminate()
+                p.join(timeout=10)
+            if p.is_alive():
+                p.kill()
+                p.join()
+        results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
+    if failure is not None:
+        raise RuntimeError(f"run_workers({n} ranks, {backend}): {failure}")
+    return [out[r] for r in range(n)]

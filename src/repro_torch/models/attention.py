@@ -181,11 +181,12 @@ def make_cache(L: int, B: int, C: int, cfg: AttnConfig, dtype,
 
 
 def decode_attention_shardmap(*args, **kwargs):
-    """Flash-decoding over a sequence-sharded cache across devices: waits
-    for the multi-GPU slice (ROADMAP queue A item 9)."""
+    """Flash-decoding over a sequence-sharded cache across devices: its
+    one caller is the tensor-parallel decode of a sharded model, so it
+    waits for the sharded model path (ROADMAP queue A item 10)."""
     raise NotImplementedError(
-        "decode_attention_shardmap needs one lane per GPU over "
-        "torch.distributed (ROADMAP queue A item 9)")
+        "decode_attention_shardmap is the tensor-parallel decode of a "
+        "sharded model, which waits for ROADMAP queue A item 10")
 
 
 def decode_attention(p: Pytree, x: torch.Tensor, cache_k: torch.Tensor,

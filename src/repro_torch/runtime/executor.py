@@ -1,5 +1,5 @@
-"""The unified executor: adaptive rebalancing rounds over stacked queue
-lanes on one GPU (PyTorch port of ``repro.runtime.executor``).
+"""The unified executor: adaptive rebalancing rounds over queue lanes
+(PyTorch port of ``repro.runtime.executor``).
 
 A *round* is::
 
@@ -7,16 +7,21 @@ A *round* is::
     master.superstep / hierarchical_superstep    (bulk steal rebalance)
 
 Lane contract.  The JAX package writes ONE lane's view of a round and maps
-it with ``jax.vmap(axis_name=...)``, so worker bodies and the master use
-named-axis collectives.  Here the W lanes are stacked tensors and every
-function sees all of them at once:
+it with ``jax.vmap(axis_name=...)`` or ``shard_map``, so worker bodies and
+the master use named-axis collectives.  Here a runtime holds the lanes of
+its process and their collectives (:attr:`StealRuntime.lanes`,
+:mod:`repro_torch.core.lanes`):
 
-* a worker body is ``body(qs, carry) -> (qs, carry)`` on the stacked
-  :class:`~repro_torch.core.ops.QueueState` (cursors ``(W,)``, rings
-  ``(W, cap, ...)``) and a carry whose leaves lead with ``(W,)``;
-* a lane-axis ``all_gather`` is the stacked tensor itself;
-* ``lax.pmax`` over the lanes is ``max(dim=0)`` (broadcast back to W);
-* ``psum(1)`` over the lanes is ``W``.
+* a worker body is ``body(qs, carry) -> (qs, carry)`` on the held lanes'
+  :class:`~repro_torch.core.ops.QueueState` (cursors ``(n,)``, rings
+  ``(n, cap, ...)``) and a carry whose leaves lead with ``(n,)``, where
+  ``n`` is ``lanes.n_local``: all W on stacked lanes, 1 on a mesh rank
+  (:class:`repro_torch.distributed.MeshStealRuntime`);
+* a lane-axis ``all_gather`` is ``lanes.all_gather`` (on stacked lanes
+  the stacked tensor itself);
+* ``lax.pmax`` over the lanes is ``lanes.max`` (on stacked lanes
+  ``max(dim=0)`` broadcast back to W);
+* ``psum(1)`` over the lanes is ``lanes.n``, i.e. W.
 
 Properties of the hot path:
 
@@ -28,9 +33,11 @@ Properties of the hot path:
   ``donate=True`` and worker bodies may do the same, so no round copies a
   full-capacity ring.
 * **No host sync inside a round** — cursors, counts, the plan and the
-  float32 proportion stay on the device.  :meth:`StealRuntime.round`
-  reads back once at its end; :meth:`StealRuntime.run_fused` runs k
-  rounds and reads back once per block.  ``until_drained=True`` keeps a
+  float32 proportion stay on the device (on a mesh this holds under
+  ``nccl``; ``gloo`` stages every collective through the host).
+  :meth:`StealRuntime.round` reads back once at its end;
+  :meth:`StealRuntime.run_fused` runs k rounds and reads back once per
+  block.  ``until_drained=True`` keeps a
   device-side "still active" flag (every lane empty before a round ends
   the block, as the JAX package's ``lax.while_loop`` condition does) and
   a round counter: rounds past the drain run under
@@ -47,7 +54,9 @@ schedule of a block is uploaded once before it.  ``pod_size`` groups the
 lanes into pods (:func:`~repro_torch.core.master.hierarchical_superstep`).
 Snapshots (``save_state`` / ``restore_state`` / ``attach_snapshots``)
 ride :mod:`repro_torch.train.checkpoint` with the JAX package's keys and
-layout, so a snapshot of either package restores into the other.
+layout, so a snapshot of either package restores into the other, and a
+snapshot of a mesh (written by lane 0, all W lanes gathered) into the
+stacked runtime and back.
 
 With the sanitizer on (``REPRO_CHECK=1``, or a backend made with
 ``check=True``), every op of a round is checked lane by lane
@@ -71,6 +80,7 @@ import torch
 from repro_torch._tree import resolve_device, tree_map
 from repro_torch.core import master as master_ops
 from repro_torch.core import ops as bulk_ops
+from repro_torch.core.lanes import StackedLanes, stack_stats
 from repro_torch.core.policy import StealPolicy
 from repro_torch.core.sharded_queue import make_sharded_queues
 from repro_torch.runtime import resilience
@@ -103,8 +113,9 @@ def _read_back(*tensors: torch.Tensor) -> List[np.ndarray]:
 
 
 class StealRuntime:
-    """Owns W stacked per-worker queues on one device and drives adaptive
-    rebalancing rounds.
+    """Owns per-worker queues — all W stacked on one device, or this
+    process's one lane of a mesh — and drives adaptive rebalancing
+    rounds.
 
     Args:
       n_workers: number of queue lanes.
@@ -132,6 +143,15 @@ class StealRuntime:
         recovery superstep.  ``None`` (default) runs the unarmed round.
         Composes with ``pod_size``: a dead lane drains within its pod, an
         entirely dead pod across pods.
+      lanes: the lane collectives (:mod:`repro_torch.core.lanes`); by
+        default all ``n_workers`` lanes stacked on ``device``.
+        :class:`~repro_torch.distributed.MeshStealRuntime` passes its
+        mesh's.
+
+    On a mesh every rank makes the same calls in the same order (the
+    SPMD contract of :mod:`repro_torch.distributed.executor`); the
+    host-side results (``sizes``, stats, telemetry, ``drain``) are the
+    stacked runtime's on every rank.
 
     The JAX runtime's phase probe and ``metrics()`` are not ported yet
     (they wait for the observability slice).
@@ -144,12 +164,17 @@ class StealRuntime:
                  backend: str | bulk_ops.BulkOps | None = None,
                  device=None,
                  pod_size: Optional[int] = None,
-                 fault_plan: Optional[FaultPlan] = None):
+                 fault_plan: Optional[FaultPlan] = None,
+                 lanes=None):
         if pod_size is not None and n_workers % pod_size != 0:
             raise ValueError(
                 f"n_workers={n_workers} not divisible by pod_size={pod_size}")
         self.device = resolve_device(device)
         self.n_workers = int(n_workers)
+        self.lanes = lanes or StackedLanes(self.n_workers)
+        if self.lanes.n != self.n_workers:
+            raise ValueError(f"lanes span {self.lanes.n} workers, not "
+                             f"{self.n_workers}")
         self.capacity = int(capacity)
         self.item_spec = item_spec
         self.pod_size = pod_size
@@ -162,8 +187,8 @@ class StealRuntime:
         # make_ops wrapped the backend (REPRO_CHECK=1 or check=True).
         self._check = self.ops.checked
         self.policy = dataclasses.replace(base, backend=self.ops.name)
-        self.queues = make_sharded_queues(n_workers, capacity, item_spec,
-                                          device=self.device)
+        self.queues = make_sharded_queues(self.lanes.n_local, capacity,
+                                          item_spec, device=self.device)
         self.controller = (AdaptiveController(self.policy, adaptive_config)
                            if adaptive else None)
         self.telemetry = Telemetry(item_bytes=bulk_ops.item_nbytes(item_spec),
@@ -205,28 +230,38 @@ class StealRuntime:
                 else self.policy.proportion)
 
     def sizes(self) -> np.ndarray:
-        return self.queues.size.cpu().numpy()
+        """``(W,)``: every lane's queue size, in lane order."""
+        return self.lanes.all_gather(self.queues.size).cpu().numpy()
 
     def total_size(self) -> int:
         return int(self.sizes().sum())
 
+    def gathered_queues(self) -> bulk_ops.QueueState:
+        """All W lanes' queue state stacked in lane order — the queues
+        themselves on stacked lanes, a gather on a mesh."""
+        return self.lanes.all_gather_tree(self.queues)
+
     # -- host-side seeding / draining ---------------------------------------
 
     def _lane(self, worker: int) -> bulk_ops.QueueState:
-        """Lane ``worker`` as a single queue whose rings are VIEWS of the
-        stack, so in-place ops write the stacked rings."""
-        q = self.queues
-        return bulk_ops.QueueState(tree_map(lambda b: b[worker], q.buf),
-                                   q.lo[worker], q.size[worker])
+        """Lane ``worker`` (held here) as a single queue whose rings are
+        VIEWS of the stack, so in-place ops write the stacked rings."""
+        q, row = self.queues, worker - self.lanes.offset
+        return bulk_ops.QueueState(tree_map(lambda b: b[row], q.buf),
+                                   q.lo[row], q.size[row])
 
     def _set_lane(self, worker: int, lane: bulk_ops.QueueState) -> None:
-        q = self.queues
+        q, row = self.queues, worker - self.lanes.offset
         lo, size = q.lo.clone(), q.size.clone()
-        lo[worker], size[worker] = lane.lo, lane.size
+        lo[row], size[row] = lane.lo, lane.size
         self.queues = bulk_ops.QueueState(q.buf, lo, size)
 
     def push(self, worker: int, batch: Pytree, n: int) -> int:
-        """Owner-side bulk push into one lane (host-level seeding)."""
+        """Owner-side bulk push into one lane (host-level seeding); returns
+        the items pushed here — on a mesh only the lane's owner pushes,
+        and the other ranks do nothing and return 0."""
+        if not self.lanes.owns(worker):
+            return 0
         batch = tree_map(lambda x: torch.as_tensor(x, device=self.device),
                          batch)
         lane, pushed = self.ops.push(self._lane(worker), batch, n,
@@ -236,9 +271,11 @@ class StealRuntime:
 
     def drain(self) -> list:
         """Pop every lane dry (host-level; for tests / inspection).
-        Returns per-lane item lists (numpy leaves), newest first."""
+        Returns per-lane item lists (numpy leaves), newest first, for all
+        W lanes on every rank."""
         out = []
-        for i in range(self.n_workers):
+        for i in range(self.lanes.offset,
+                       self.lanes.offset + self.lanes.n_local):
             lane, items = self._lane(i), []
             while int(lane.size) > 0:
                 lane, item, valid = self.ops.pop(lane)
@@ -246,7 +283,7 @@ class StealRuntime:
                 items.append(tree_map(bulk_ops.to_numpy, item))
             self._set_lane(i, lane)
             out.append(items)
-        return out
+        return self.lanes.gather_objects(out)
 
     # -- resilience: live faults, stragglers ---------------------------------
 
@@ -367,15 +404,23 @@ class StealRuntime:
 
     # -- resilience: snapshot / restore --------------------------------------
 
-    def state_dict(self) -> Dict[str, Any]:
-        """The checkpointable state: the stacked queues, the servo
+    def state_dict(self, *, gather: bool = True) -> Dict[str, Any]:
+        """The checkpointable state: the W lanes' stacked queues, the servo
         proportion (un-boosted), the global round counter and, when
         armed, the fault schedule — the JAX package's keys.  Taken only at
-        round boundaries, where no item is mid-exchange."""
+        round boundaries, where no item is mid-exchange.  On a mesh the
+        queues are gathered (a collective); ``gather=False`` gives
+        shape-only placeholders of them instead."""
         p = (self.controller.proportion if self.controller is not None
              else self.policy.proportion)
+        if gather or self.lanes.stacked:
+            queues = self.gathered_queues()
+        else:
+            queues = tree_map(lambda x: torch.empty(
+                (self.n_workers,) + tuple(x.shape[1:]), dtype=x.dtype,
+                device="meta"), self.queues)
         out: Dict[str, Any] = {
-            "queues": self.queues,
+            "queues": queues,
             "proportion": torch.tensor(p, dtype=torch.float32),
             "rounds_run": torch.tensor(self.rounds_run, dtype=torch.int32),
         }
@@ -385,8 +430,11 @@ class StealRuntime:
         return out
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Restore from the W lanes' state: this process keeps its own
+        lanes' rows."""
         self.queues = tree_map(
-            lambda x: torch.as_tensor(x).to(self.device).contiguous(),
+            lambda x: self.lanes.local(torch.as_tensor(x)).to(
+                self.device).contiguous(),
             state["queues"])
         p = float(state["proportion"])
         if self.controller is not None:
@@ -401,14 +449,19 @@ class StealRuntime:
     def save_state(self, ckpt_dir: str, *, keep: int = 3) -> int:
         """Atomic snapshot at the current round boundary
         (:mod:`repro_torch.train.checkpoint`: tmp dir + rename, keep-k).
-        Returns the step (= ``rounds_run``) it was saved under."""
+        On a mesh every rank calls it, lane 0 writes, and every rank
+        returns once the snapshot is on disk.  Returns the step (=
+        ``rounds_run``) it was saved under."""
         from repro_torch.train import checkpoint
 
         extra = {"n_workers": self.n_workers, "capacity": self.capacity,
                  "fault_events": dict(self.telemetry.fault_events),
                  "straggler_steps": self.telemetry.straggler_steps}
-        checkpoint.save(ckpt_dir, self.rounds_run, self.state_dict(),
-                        extra=extra, keep=keep)
+        state = self.state_dict()
+        if self.lanes.writer:
+            checkpoint.save(ckpt_dir, self.rounds_run, state, extra=extra,
+                            keep=keep)
+        self.lanes.barrier()
         return self.rounds_run
 
     def restore_state(self, ckpt_dir: str, *, step: Optional[int] = None
@@ -420,7 +473,8 @@ class StealRuntime:
         from repro_torch.train import checkpoint
 
         state, _step, extra = checkpoint.restore(
-            ckpt_dir, self.state_dict(), step=step, device=self.device)
+            ckpt_dir, self.state_dict(gather=False), step=step,
+            device=self.device)
         self.load_state_dict(state)
         for kind, n in (extra.get("fault_events") or {}).items():
             self.telemetry.fault_events.setdefault(kind, 0)
@@ -463,17 +517,18 @@ class StealRuntime:
                 fn = self._resilient[worker_fn] = (
                     resilience.make_resilient_round(
                         self.policy, self.ops, worker_fn,
-                        pod_size=self.pod_size))
+                        pod_size=self.pod_size, lanes=self.lanes))
             return fn(qs, carry, proportion, faults)
         if worker_fn is not None:
             qs, carry = worker_fn(qs, carry)
         pol = dataclasses.replace(self.policy, proportion=proportion)
         if self.pod_size is not None:
             qs, stats = master_ops.hierarchical_superstep(
-                qs, pol, pod_size=self.pod_size, ops=self.ops, donate=True)
+                qs, pol, pod_size=self.pod_size, ops=self.ops, donate=True,
+                lanes=self.lanes)
         else:
             qs, stats = master_ops.superstep(qs, pol, ops=self.ops,
-                                             donate=True)
+                                             donate=True, lanes=self.lanes)
         return qs, carry, stats
 
     def _ctx(self, k: int):
@@ -481,11 +536,12 @@ class StealRuntime:
         upload), or None when the fault layer is off."""
         if self.fault is None:
             return None
-        return self.fault.ctx(self.rounds_run, k, device=self.device)
+        return self.fault.ctx(self.rounds_run, k, device=self.device,
+                              rows=(self.lanes.offset, self.lanes.n_local))
 
     def _default_carry(self, carry):
         if carry is None:
-            return torch.zeros((self.n_workers,), dtype=torch.int32,
+            return torch.zeros((self.lanes.n_local,), dtype=torch.int32,
                                device=self.device)
         return carry
 
@@ -498,10 +554,10 @@ class StealRuntime:
               ) -> Tuple[Pytree, master_ops.RebalanceStats]:
         """Run one round; feeds telemetry and the adaptive controller.
 
-        ``carry`` is a pytree with a leading ``(n_workers,)`` axis handed
-        to ``worker_fn`` (a zero placeholder when omitted).  Returns
-        ``(carry_out, stats)`` with device-tensor stats.  One host read
-        at the end.
+        ``carry`` is a pytree with a leading axis of the lanes held here
+        (``lanes.n_local``) handed to ``worker_fn`` (a zero placeholder
+        when omitted).  Returns ``(carry_out, stats)`` with device-tensor
+        stats in the stacked layout.  One host read at the end.
         """
         carry = self._default_carry(carry)
         proportion = self.proportion
@@ -512,6 +568,7 @@ class StealRuntime:
             self.queues, carry, stats = self._step(
                 worker_fn, self.queues, carry, self._p(),
                 None if ctx is None else ctx.round(0))
+        [stats] = stack_stats(self.lanes, [stats], pod_size=self.pod_size)
         host = master_ops.RebalanceStats(*_read_back(*stats))
         wall_s = time.perf_counter() - t0
         if self._check:
@@ -543,7 +600,7 @@ class StealRuntime:
             return None
         from repro_torch.analysis import sanitize
 
-        return sanitize.queues_fingerprint(self.queues)
+        return sanitize.queues_fingerprint(self.gathered_queues())
 
     def _post_dispatch_checks(self, round_stats, snap, *, context) -> None:
         """The sanitizer's checkpoint after a block's read-back: each
@@ -557,7 +614,7 @@ class StealRuntime:
                                        context=context)
         if snap is not None:
             sanitize.check_conserved(
-                snap, sanitize.queues_fingerprint(self.queues),
+                snap, sanitize.queues_fingerprint(self.gathered_queues()),
                 context=context)
         sanitize.raise_pending(context)
 
@@ -599,7 +656,8 @@ class StealRuntime:
                 k, worker_fn, carry, until_drained)
 
         stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
-            *(stats for stats, _ in per_round))))
+            *stack_stats(self.lanes, [stats for stats, _ in per_round],
+                         pod_size=self.pod_size))))
         props = torch.stack([q for _, q in per_round])
         host_ran, p_final, props, *host = _read_back(ran, p, props, *stacked)
         wall_s = time.perf_counter() - t0
@@ -633,10 +691,13 @@ class StealRuntime:
         active = torch.ones((), dtype=torch.bool, device=self.device)
         ran = torch.zeros((), dtype=torch.int32, device=self.device)
         per_round = []
+        # every lane's size before the next round (the drain signal and
+        # the adaptive update's input), gathered once a round
+        sizes = self.lanes.all_gather(qs.size) if until_drained else None
         for i in range(k):
             faults = None if ctx is None else ctx.round(i)
             if until_drained:
-                active = active & (qs.size.sum() > 0)
+                active = active & (sizes.sum() > 0)
                 with self.ops.gated(active):
                     qs, new_carry, stats = self._step(worker_fn, qs, carry,
                                                       p, faults)
@@ -646,11 +707,13 @@ class StealRuntime:
             else:
                 qs, carry, stats = self._step(worker_fn, qs, carry, p, faults)
             per_round.append((stats, p))
+            if self.controller is not None or until_drained:
+                sizes = self.lanes.all_gather(qs.size)
             if self.controller is not None:
-                sizes = resilience.mask_sizes(
-                    qs.size, None if ctx is None else ctx.dead[i + 1],
+                masked = resilience.mask_sizes(
+                    sizes, None if ctx is None else ctx.dead[i + 1],
                     self.policy)
-                p_new = adaptive_update(p, sizes, policy=self.policy,
+                p_new = adaptive_update(p, masked, policy=self.policy,
                                         config=config)
                 p = torch.where(active, p_new, p)
         self.queues = qs

@@ -16,12 +16,15 @@ machinery around that observation:
   dropped rounds).  Before a block of k rounds the host turns it into
   a :class:`FaultContext`: the ``(k + 1, W)`` dead masks, the ``(k, W)``
   skip masks, the ``(k,)`` drop flags and each round's skipped lane
-  indices, uploaded once.  No host read decides anything mid-round (the
+  indices among the lanes this process holds, uploaded once.  The
+  schedule is the replicated master's view: every mesh rank holds all of
+  it.  No host read decides anything mid-round (the
   executor's contract); the host knows the schedule, so it also knows
   which lanes of a round skip their body.
-* :func:`make_resilient_round` — the fault-aware round on the W stacked
-  lanes.  Per round, in the JAX package's order: (1) the worker body
-  runs on EVERY lane and its effects are discarded on dead and delayed
+* :func:`make_resilient_round` — the fault-aware round on the W lanes
+  (stacked, or one per mesh rank through the lane collectives).  Per
+  round, in the JAX package's order: (1) the worker body runs on EVERY
+  lane and its effects are discarded on dead and delayed
   lanes (their rows are saved before the body and copied back after
   it, the JAX package's ``_select``); (2) the normal superstep executes
   the dead-masked plan; (3) one recovery superstep executes the dead-worker-as-victim plan at
@@ -45,6 +48,7 @@ import torch
 
 from repro_torch._tree import tree_leaves, tree_map
 from repro_torch.core import master as master_ops
+from repro_torch.core.lanes import StackedLanes
 from repro_torch.core.master import _unless_dropped
 from repro_torch.core.ops import QueueState
 from repro_torch.core.policy import StealPolicy, plan_transfers
@@ -209,17 +213,22 @@ class FaultState:
 
     # -- the device context --------------------------------------------------
 
-    def ctx(self, round0: int, k: int = 1, *, device=None) -> FaultContext:
+    def ctx(self, round0: int, k: int = 1, *, device=None,
+            rows: Optional[Tuple[int, int]] = None) -> FaultContext:
         """The schedule of rounds ``[round0, round0 + k)`` as device masks,
-        in one upload."""
+        in one upload; ``skip_idx`` lists the skipped lanes among ``rows``,
+        ``(first lane, lanes)`` held here (default: all W), as local row
+        indices."""
         rounds = range(round0, round0 + k + 1)
         dead = np.stack([self.dead_at(r) for r in rounds])
         skip = dead[:k] | np.stack([self.delayed_at(r) for r in rounds][:k])
         drop = np.isin(np.arange(round0, round0 + k), self.drop_rounds)
         w = self.n_workers
+        first, n_rows = rows or (0, w)
+        mine = skip[:, first:first + n_rows]
         # One int64 upload: the masks, then every round's skipped lanes.
-        lanes, at = np.nonzero(skip)[1], np.concatenate(
-            [[0], np.cumsum(skip.sum(-1))])
+        lanes, at = np.nonzero(mine)[1], np.concatenate(
+            [[0], np.cumsum(mine.sum(-1))])
         packed = torch.from_numpy(np.concatenate(
             [dead.reshape(-1), skip.reshape(-1), drop, lanes]
         ).astype(np.int64)).to(device)
@@ -327,8 +336,9 @@ def _put_rows(tree: Pytree, idx: torch.Tensor, rows: Pytree, *,
 
 
 def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
-                         pod_size: Optional[int] = None) -> Callable:
-    """The fault-injecting round on the W stacked lanes:
+                         pod_size: Optional[int] = None,
+                         lanes=None) -> Callable:
+    """The fault-injecting round on the W lanes (stacked, or ``lanes``):
     ``(q, carry, proportion, faults) -> (q, carry, stats)``, ``faults`` a
     :class:`RoundFaults` — what ``StealRuntime`` runs when built with a
     :class:`FaultPlan`.
@@ -338,7 +348,9 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
     before any exchange, ``sizes_after`` after recovery, counters
     summed).  With ``pod_size`` the cross-pod recovery counts are summed
     over the rows into the 0-d ``*_xpod`` counters, the JAX package's
-    lane-0 accounting (see :class:`~repro_torch.core.master.RebalanceStats`).
+    lane-0 accounting (see :class:`~repro_torch.core.master.RebalanceStats`;
+    on a mesh each lane holds its row's share, and
+    :func:`~repro_torch.core.lanes.stack_stats` sums them).
     """
 
     def body(q, carry, faults: RoundFaults):
@@ -360,19 +372,24 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
         q, carry = body(q, carry, faults)
         pol = dataclasses.replace(policy, proportion=proportion)
         cap = _cap(q)
+        lanes_ = lanes or StackedLanes(q.size.shape[0])
 
         # Normal rebalancing over the survivors.
-        plan = _unless_dropped(masked_plan(q.size, faults.dead, pol),
+        sizes = lanes_.all_gather(q.size)
+        plan = _unless_dropped(masked_plan(sizes, faults.dead, pol),
                                faults.drop)
         q, stats = master_ops.superstep(q, pol, ops=ops, plan=plan,
-                                        donate=True)
+                                        sizes=sizes, donate=True,
+                                        lanes=lanes_)
         # Recovery: dead rings stolen at proportion 1.0 by the least
         # loaded survivors, through the same exchange.
+        sizes = lanes_.all_gather(q.size)
         rplan = _unless_dropped(
-            recovery_plan(q.size, faults.dead, max_steal=pol.max_steal,
+            recovery_plan(sizes, faults.dead, max_steal=pol.max_steal,
                           capacity=cap), faults.drop)
         q, rstats = master_ops.superstep(q, pol, ops=ops, plan=rplan,
-                                         donate=True)
+                                         sizes=sizes, donate=True,
+                                         lanes=lanes_)
         return q, carry, stats._replace(
             sizes_after=rstats.sizes_after,
             n_transferred=stats.n_transferred + rstats.n_transferred,
@@ -383,39 +400,42 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
         q, carry = body(q, carry, faults)
         pol = dataclasses.replace(policy, proportion=proportion)
         cap = _cap(q)
-        w = q.size.shape[0]
-        pods = master_ops.Level(w, pod_size)
-        rows = master_ops.Level(w, pod_size, across=True)
+        lanes_ = lanes or StackedLanes(q.size.shape[0])
+        pods = master_ops.Level(lanes_.n, pod_size, lanes=lanes_)
+        rows = master_ops.Level(lanes_.n, pod_size, across=True,
+                                lanes=lanes_)
         kw = dict(ops=ops, policy=pol, exchange=pol.exchange, donate=True)
         dead, drop = faults.dead, faults.drop
-        pod_dead = pods.view(dead).all(-1)                     # (P,)
+        pod_dead = dead.reshape(-1, pod_size).all(-1)          # (P,)
 
         # (1)-(2) The normal two-level superstep over the survivors: dead
         # lanes masked within their pod, a pod whose representative is
         # dead abstaining across the pods (its work still flows within).
         q, normal = master_ops.hierarchical_superstep(
             q, pol, pod_size=pod_size, ops=ops, exchange=pol.exchange,
-            donate=True, dead=dead, drop=drop)
+            donate=True, dead=dead, drop=drop, lanes=lanes_)
 
         # (3) Intra-pod recovery: a dead LANE's ring drains into its
         # pod-mates (a no-op in an entirely dead pod).
         sizes2 = q.size
+        pod_sizes = pods.gather(sizes2)                        # (P, L)
         rplan = _unless_dropped(
-            recovery_plan(pods.view(sizes2), pods.view(dead),
+            recovery_plan(pod_sizes, pods.view(dead),
                           max_steal=pol.max_steal, capacity=cap), drop)
-        q, irec = pods.exchange(q, sizes2, rplan, **kw)
-        master_ops._check_level(ops, sizes2, q)
+        q, irec = pods.exchange(q, pod_sizes, rplan, **kw)
+        master_ops._check_level(ops, lanes_, sizes2, q)
 
         # (4) Cross-pod recovery: each row l drains the dead pods' lane-l
         # rings into the emptiest live pod's lane l.
         sizes3 = q.size
+        row_sizes = rows.gather(sizes3)                        # (L, P)
         row_dead = rows.view(dead)                             # (L, P)
         xrplan = _unless_dropped(
-            recovery_plan(rows.view(sizes3), pod_dead.expand_as(row_dead),
+            recovery_plan(row_sizes, pod_dead.expand_as(row_dead),
                           max_steal=pol.max_steal, capacity=cap,
                           thief_ok=~row_dead), drop)
-        q, xrec = rows.exchange(q, sizes3, xrplan, **kw)
-        master_ops._check_level(ops, sizes3, q)
+        q, xrec = rows.exchange(q, row_sizes, xrplan, **kw)
+        master_ops._check_level(ops, lanes_, sizes3, q)
 
         stats = normal._replace(
             sizes_after=q.size,

@@ -4,8 +4,9 @@ explore, flash attention (K6) and the SSD scan (K7, both routes) against
 their plain versions, the kernel backend against the reference backend on
 CUDA tensors, the relaxed and the sanitized backends against the kernel
 backend and the linearizability sweep on the card, the solver on the GPU
-against the same solver on the CPU, and the serving models' prefill on
-the GPU against the CPU.
+against the same solver on the CPU, two gloo ranks' lanes on the card
+against the stacked runtime, and the serving models' prefill on the GPU
+against the CPU.
 Each skips where ``torch.cuda.is_available()`` is false.  This file imports
 neither JAX nor the JAX package, so on a GPU machine it runs on its own:
 
@@ -533,3 +534,25 @@ def test_sequential_solver_on_the_card_matches_the_cpu():
     got = solve(inst)
     assert explore_fused.launches == got[1]["supersteps"]
     assert got == solve(inst, device="cpu")
+
+
+@pytest.mark.cuda
+def test_two_gloo_ranks_hold_a_backlog_on_the_card():
+    """One lane per rank on the card (two gloo ranks, collectives staged
+    through the host) equals the stacked runtime on the card, and each
+    rank launches the ring kernels on its own lane."""
+    _cuda()
+    import _torch_mesh as M
+    from repro_torch.launch.mesh import run_workers
+
+    want = M.card_backlog(0, execution="vmap")
+    for rank, got in enumerate(run_workers(M.card_backlog, 2, timeout=300)):
+        for exchange in ("compact", "dense"):
+            g, w = got[exchange], want[exchange]
+            for key in ("buf", "lo", "size"):
+                np.testing.assert_array_equal(g[key], w[key],
+                                              err_msg=f"{rank} {key}")
+            assert g["telemetry"] == w["telemetry"]
+            assert g["history"] == w["history"]
+            assert min(g["launches"][:2 if exchange == "compact" else 1]) > 0
+        assert got["compact"]["telemetry"][0][3] > 0  # items moved

@@ -125,7 +125,9 @@ def test_padded_runtime_and_rebuild_refusals():
     with pytest.raises(ValueError, match="padding lane"):
         tel.padded_runtime(2, 16, SPEC, w_max=4, device="cpu",
                            fault_plan=FaultPlan(kills=((3, 1),)))
-    with pytest.raises(NotImplementedError, match="vmap"):
+    # a mesh needs a process group (tests/test_torch_distributed.py
+    # builds one)
+    with pytest.raises(RuntimeError, match="process group"):
         tel.padded_runtime(2, 16, SPEC, w_max=4, execution="mesh",
                            device="cpu")
 

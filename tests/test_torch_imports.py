@@ -49,7 +49,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.analysis.sanitize',\n"
         "          'repro_torch.analysis.linearize',\n"
         "          'repro_torch.analysis.lint', 'repro_torch.data.pipeline',\n"
-        "          'repro_torch.data.synthetic'):\n"
+        "          'repro_torch.data.synthetic', 'repro_torch.core.lanes',\n"
+        "          'repro_torch.launch.mesh',\n"
+        "          'repro_torch.distributed.executor',\n"
+        "          'repro_torch.distributed.launch'):\n"
         "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -101,7 +104,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
                    for arch in ("llama3.2-1b", "mamba2-2.7b", "zamba2-7b"))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
-    with pytest.raises(NotImplementedError, match="mesh"):
+    # one lane per rank needs a process group to be its lanes
+    with pytest.raises(RuntimeError, match="process group"):
         parallel_solve(paper_example(), execution="mesh", device="cpu")
     assert make_queue(8, spec, device="cpu").lo.device.type == "cpu"
 
@@ -149,3 +153,44 @@ def test_resilience_modules_import_alone_and_default_to_cuda(monkeypatch):
                  lambda: resilient_main([])):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_mesh_modules_import_alone_and_default_to_cuda(monkeypatch,
+                                                       tmp_path):
+    """The one-lane-per-process slice's modules load without JAX; a mesh
+    needs a process group, and its lanes default to CUDA and raise
+    without it, as the stacked lanes of ``launch_runtime`` do."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('repro_torch.core.lanes', 'repro_torch.launch.mesh',\n"
+        "          'repro_torch.distributed.executor',\n"
+        "          'repro_torch.distributed.launch'):\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+    import torch.distributed as dist
+
+    from repro_torch.distributed import launch_runtime
+    from repro_torch.launch.mesh import make_worker_mesh
+
+    spec = torch.zeros((), dtype=torch.int32)
+    with pytest.raises(RuntimeError, match="process group"):
+        make_worker_mesh(1, device="cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        launch_runtime(2, 8, spec, execution="vmap")
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        for call in (lambda: make_worker_mesh(1),
+                     lambda: launch_runtime(1, 8, spec, execution="mesh")):
+            with pytest.raises(RuntimeError, match="CUDA is not available"):
+                call()
+        rt = launch_runtime(1, 8, spec, execution="mesh", device="cpu")
+        assert rt.device.type == "cpu" and rt.lanes.n_local == 1
+    finally:
+        dist.destroy_process_group()

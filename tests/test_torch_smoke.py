@@ -1,10 +1,12 @@
 """``chip_smoke.py``'s phases, rehearsed on the CPU at a small size: the
 kernel checks (there the wrappers run the plain versions), the backlog
 supersteps across backends and exchanges, the solver phase against the
-JAX package's results for the same configuration, and the serving phases
+JAX package's results for the same configuration, the mesh phase on gloo
+CPU ranks against the same script's pins, and the serving phases
 on reduced llama3.2-1b, mamba2-2.7b and zamba2-7b.  On the card the
 script runs the same code at full size."""
 
+import importlib
 import importlib.util
 from pathlib import Path
 
@@ -173,6 +175,34 @@ def test_resilience_phase_matches_the_pins_script_at_a_cpu_size():
     # the card's pins come from the same script at PHASE8's size
     assert set(smoke.PHASE8_EXPECT) == {"flat", "hier"}
     assert set(smoke.PHASE8_EXPECT["flat"]) == set(expect["flat"])
+
+
+def test_mesh_phase_matches_the_pins_script_at_a_cpu_size(monkeypatch):
+    """Phase 9 at ``PHASE9_SMALL`` on 4 gloo CPU ranks: the mesh solver
+    held to what ``scripts/mesh_pins.py`` computes from the JAX package at
+    that size and to the stacked runtime, the backlog's digests to the
+    stacked runtime's, and (c) on one gloo rank (the card's run is held to
+    the same script's full-size run, pinned in ``PHASE9_EXPECT``)."""
+    # the ranks import chip_smoke by name, from the path they inherit
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke = importlib.import_module("chip_smoke")
+    spec = importlib.util.spec_from_file_location(
+        "mesh_pins", ROOT / "scripts" / "mesh_pins.py")
+    pins = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(pins)
+    cfg = smoke.PHASE9_SMALL
+    expect = pins.pins(cfg["solver"])
+    _, counters = smoke._port()
+    out = smoke.phase_mesh(CPU, counters, cfg, expect=expect)
+    assert out["solver"]["supersteps"] == expect["supersteps"] > 8
+    assert out["solver"]["transferred"] > 0
+    assert set(out["backlog"]) == {"flat/compact", "flat/dense",
+                                   "pods/compact", "pods/dense"}
+    assert all(b["transport"] == "gloo, staged through the host"
+               for b in out["backlog"].values())
+    assert out["single"]["supersteps"] > 1
+    # the card's pins come from the same script at PHASE9's size
+    assert set(smoke.PHASE9_EXPECT) == set(expect)
 
 
 def _assert_first_wave_is_the_plain_computation(out):

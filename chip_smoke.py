@@ -133,9 +133,36 @@ check that does not hold:
    supersteps, compact and dense, flat and in 2 pods of 4: digests of the
    rings, ``lo``, sizes and telemetry equal the stacked runtime's on the
    card.  (c) ``parallel_solve(n_workers=1, execution="mesh")`` under
-   ``nccl`` equals the stacked run at one lane.  ms per superstep on the
-   mesh and stacked, not gated; gloo stages each collective through the
-   host (the line names the transport).
+   ``nccl`` equals the stacked run at one lane.  (d) The decode engine
+   with one lane per rank (``DecodeCluster(execution="mesh")``, reduced
+   llama3.2-1b in float32, ``PHASE9_DECODE``) in the same spawn,
+   steal-balanced and with migration: every rank's served tokens, request
+   stamps and scheduling integers equal the stacked 8-lane run's.  ms per
+   superstep and per decode round on the mesh and stacked, not gated;
+   gloo stages each collective through the host (the line names the
+   transport).
+10. Continuous-batching decode (``{"phase": "decode"}``, after the serving
+   phases; ``repro_torch.serve.decode``).  llama3.2-1b at its published
+   widths and depth, bf16, random weights from seed 0, behind
+   ``DecodeCluster``: 4 lanes of 128 queued requests, 8 slots a lane, KV
+   pages of 16 rows (40 a lane and a trash page), 64 requests of 1-64
+   prompt tokens (teacher-forced one a round) and 1-16 new tokens drawn
+   as ``benchmarks/serve_decode.py`` draws them, 16 arriving a step.
+   Four drains: steal-balanced on the stacked lanes (``vmap``) and on the
+   host master (``host``), the static round-robin baseline and in-flight
+   migration.  Every request gets exactly its tokens; each run's rounds,
+   steals, migrations, stalls and request-stamp digest equal the JAX
+   package's (``PHASE10_EXPECT``, ``scripts/decode_pins.py``); the
+   balanced runs steal, the static one moves nothing, the migrating one
+   migrates; ``vmap`` and ``host`` serve the same tokens; K3 (the body's
+   admission pop) launches once a round, and K1 and K4 (the superstep)
+   once a round in the stacked-master runs, K2 once per admitted lane
+   group.  The stacked balanced and migrating runs again in float32 at
+   the same widths (their integers pinned too), and every token they
+   served held against a per-request greedy decode on the
+   scalar-position path: each within ``2 * 1e-4 * (1 + max |logit|)`` of
+   that decode's greedy logit.  ms per round, tokens/s, SLO percentiles
+   in rounds and the load spread, not gated.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
@@ -295,6 +322,61 @@ PHASE9_EXPECT = dict(optimum=1260, supersteps=267, explored=16335,
                      transferred=3823, steals=107,
                      per_worker_explored=[2056, 2053, 2036, 2059, 2019, 2042,
                                           2047, 2023])
+
+# Phase 10: continuous-batching decode (repro_torch.serve.decode) with
+# llama3.2-1b at its published widths and depth: 4 lanes of 128 queued
+# requests, 8 slots a lane, prompts up to 64 tokens teacher-forced one a
+# round, up to 16 new tokens, pages of 16 KV rows (5 a sequence, 40 a
+# lane).  64 requests drawn as benchmarks/serve_decode.py's _request_mix
+# draws them (seed 0), arriving 16 a step as its _drain submits them.
+# Four runs: steal-balanced on stacked lanes and on the host master, the
+# static round-robin baseline, and in-flight migration.  The straggler
+# monitor is off (it reads the wall clock, which would make the schedule
+# depend on the host's speed).
+PHASE10 = dict(arch="llama3.2-1b", n_lanes=4, capacity=128,
+               policy=dict(n_slots=8, max_prompt=64, max_new=16,
+                           page_size=16),
+               n_requests=64, arrival=16, seed=0)
+PHASE10_RUNS = (
+    ("vmap", dict(execution="vmap")),
+    ("host", dict(execution="host")),
+    ("static", dict(execution="vmap", balance=False, admission="rr")),
+    ("migrate", dict(execution="vmap", steal="migrate")))
+# The runs held, in float32 at the same widths, against a per-request
+# greedy decode on the scalar-position path (decode_reference): the
+# stacked balanced run and the migrating one, whose pages move between
+# lanes.  Float32 because at this width two correct bfloat16 decodes
+# round apart by more than a near-tie between logits.
+PHASE10_REFERENCE = ("vmap", "migrate")
+# The CPU rehearsal (tests/test_torch_decode.py): the same mix, policy and
+# runs on reduced llama3.2-1b in float32.  The scheduling integers read no
+# model output, so they are the card's.
+PHASE10_SMALL = dict(PHASE10, reduced=True, compute_dtype="float32")
+# What the JAX package's DecodeCluster returns for PHASE10's runs
+# (scripts/decode_pins.py, a CPU run at reduced width at commit e641585,
+# jax 0.9.0): rounds,
+# items stolen, migrations, stalls and a SHA-256 digest of the sorted
+# (rid, admit, first, finish) stamps of every request.
+PHASE10_EXPECT = {
+    "vmap": dict(rounds=113, stolen=3, migrated=0, stalls=0,
+                 stamps="1da5e044080d733b"),
+    "host": dict(rounds=113, stolen=3, migrated=0, stalls=0,
+                 stamps="1da5e044080d733b"),
+    "static": dict(rounds=113, stolen=0, migrated=0, stalls=0,
+                   stamps="6294710d4fba644a"),
+    "migrate": dict(rounds=113, stolen=3, migrated=38, stalls=0,
+                    stamps="5655bd39654c1ef8"),
+}
+# Phase 9's decode check: DecodeCluster(execution="mesh") on the mesh's
+# ranks (reduced llama3.2-1b, float32, serve_decode.py's tiny mix: 28
+# requests of prompts up to 8 and up to 8 new tokens, in one burst, 2
+# slots a lane so that queues form, pages of 4), steal-balanced and with
+# migration, against the stacked run.
+PHASE9_DECODE = dict(arch="llama3.2-1b", capacity=128,
+                     policy=dict(n_slots=2, max_prompt=8, max_new=8,
+                                 page_size=4),
+                     n_requests=28, arrival=28, seed=0, reduced=True,
+                     compute_dtype="float32")
 
 # int32 operations: half the data sheet's 67 TFLOP/s float32 rate outside
 # the tensor cores, as a Hopper SM has 64 int32 lanes to 128 float32 ones
@@ -2025,12 +2107,14 @@ def mesh_backlog(device, cfg, execution: str) -> dict:
 
 
 def _mesh_rank(rank: int, cfg: dict, device_type: str) -> dict:
-    """One rank of phase 9 (a) and (b)."""
+    """One rank of phase 9 (a), (b) and its decode check."""
     _, counters = _port()
     device = _rank_device(rank, device_type)
     return {"solver": solve_counted(device, counters, cfg["solver"],
                                     "mesh"),
-            "backlog": mesh_backlog(device, cfg["backlog"], "mesh")}
+            "backlog": mesh_backlog(device, cfg["backlog"], "mesh"),
+            "decode": mesh_decode(device, PHASE9_DECODE,
+                                  cfg["solver"]["n_workers"], "mesh")}
 
 
 def _single_rank(rank: int, cfg: dict, device_type: str) -> dict:
@@ -2097,6 +2181,19 @@ def phase_mesh(device, counters, cfg, expect=None) -> dict:
                   f"backlog {name}: rank {r}'s {mine} != stacked {want}")
         check(want["moved"] > 0, f"backlog {name} moved nothing")
 
+    # the decode check: every rank's runs equal the stacked run's
+    decode = mesh_decode(device, PHASE9_DECODE, n, "vmap")
+    for name, want in decode.items():
+        for r, res in enumerate(ranks):
+            mine = {k: v for k, v in res["decode"][name].items()
+                    if k != "ms_per_round"}
+            check(mine == {k: v for k, v in want.items()
+                           if k != "ms_per_round"},
+                  f"decode {name}: rank {r}'s run differs from the stacked "
+                  f"run's")
+    check(decode["balanced"]["stolen"] > 0, "mesh decode stole nothing")
+    check(decode["migrate"]["migrated"] > 0, "mesh decode migrated nothing")
+
     # (c) one rank under cfg["single_backend"]
     t1 = time.perf_counter()
     [single] = run_workers(functools.partial(_single_rank, cfg=cfg,
@@ -2128,6 +2225,13 @@ def phase_mesh(device, counters, cfg, expect=None) -> dict:
                        "stacked": single_stacked["ms_per_superstep"]},
                    "wall_s_first": single["wall_s_first"],
                    "wall_s": single_wall},
+        "decode": {name: {**{k: want[k] for k in ("rounds", "stolen",
+                                                   "migrated", "stalls",
+                                                   "stamps")},
+                          "ms_per_round": {
+                              "mesh": ranks[0]["decode"][name]["ms_per_round"],
+                              "stacked": want["ms_per_round"]}}
+                   for name, want in decode.items()},
         "wall_s": wall}
 
 
@@ -2408,6 +2512,272 @@ def first_wave_check(cfg, params, tokens, logits_kernel, names):
             (kern.argmax(-1) == plain.argmax(-1)).double().mean())}
 
 
+# ------------------------------------- phase 10: continuous-batching decode
+
+
+DECODE_KERNELS = ("ring_gather", "ring_scatter", "ring_slice",
+                  "ring_transfer")
+
+
+def decode_mix(n: int, seed: int, max_prompt: int, max_new: int) -> list:
+    """benchmarks/serve_decode.py's _request_mix at ``max_prompt`` /
+    ``max_new``: prompt lengths uniform in 1..max_prompt, outputs
+    ``min(1 + geometric(0.35), max_new)``, tokens in 1..499."""
+    rng = np.random.default_rng(seed)
+    mix = []
+    for _ in range(n):
+        plen = int(rng.integers(1, max_prompt + 1))
+        out = int(min(1 + rng.geometric(0.35), max_new))
+        mix.append(([int(t) for t in rng.integers(1, 500, size=plen)], out))
+    return mix
+
+
+def decode_requests(request_cls, cfg) -> list:
+    """The phase's requests as ``request_cls`` objects, rid = index."""
+    pol = cfg["policy"]
+    return [request_cls(prompt=p, max_new=m, rid=i) for i, (p, m) in
+            enumerate(decode_mix(cfg["n_requests"], cfg["seed"],
+                                 pol["max_prompt"], pol["max_new"]))]
+
+
+def drive_decode(cluster, reqs, arrival: int) -> None:
+    """serve_decode.py's _drain: ``arrival`` requests, one step, and so on,
+    then drain.  Works on either package's DecodeCluster."""
+    cluster.submit(reqs[:arrival])
+    cluster.step()
+    i = arrival
+    while i < len(reqs):
+        cluster.submit(reqs[i:i + arrival])
+        i += arrival
+        cluster.step()
+    cluster.run_until_drained(max_steps=5000)
+
+
+def decode_integers(cluster) -> dict:
+    """The scheduling integers of a drained DecodeCluster (either
+    package's): rounds, items stolen, migrations, stalls and a digest of
+    every request's (rid, admit, first, finish)."""
+    stamps = sorted([int(r.rid), int(r.admit), int(r.first), int(r.finish)]
+                    for r in cluster.telemetry.requests)
+    return dict(rounds=int(cluster.rounds), stolen=int(cluster.stolen),
+                migrated=int(cluster.migrated),
+                stalls=int(cluster.stats()["stalls"]),
+                stamps=hashlib.sha256(json.dumps(stamps).encode()
+                                      ).hexdigest()[:16])
+
+
+def _decode_model(cfg, device):
+    from repro_torch import configs
+    mcfg = configs.get(cfg["arch"])
+    if cfg.get("reduced"):
+        mcfg = configs.reduced(mcfg)
+    if cfg.get("compute_dtype"):
+        mcfg = dataclasses.replace(mcfg, compute_dtype=cfg["compute_dtype"])
+    model, params, _ = _init_model(mcfg, device, cfg["seed"])
+    return model, params
+
+
+def decode_run(device, model, params, cfg, run: dict, *,
+               n_lanes: int) -> dict:
+    """One drained DecodeCluster run of ``cfg``'s requests (on a mesh,
+    every rank calls it): its scheduling integers, the served-token
+    multiset and its times."""
+    from repro_torch.serve.decode import DecodeCluster, DecodePolicy
+    from repro_torch.serve.scheduler import Request
+
+    run = dict(run)
+    pol = DecodePolicy(steal=run.pop("steal", "queue"), **cfg["policy"])
+    cluster = DecodeCluster(
+        model, params, policy=pol, n_lanes=n_lanes, capacity=cfg["capacity"],
+        straggler_threshold=float("inf"),
+        device=_runtime_device(device, run["execution"]), **run)
+    reqs = decode_requests(Request, cfg)
+    sync(device)
+    t0 = time.perf_counter()
+    drive_decode(cluster, reqs, cfg["arrival"])
+    sync(device)
+    wall = time.perf_counter() - t0
+    check(len(cluster.done) == len(reqs),
+          f"decode served {len(cluster.done)} of {len(reqs)} requests")
+    for r in reqs:
+        check(r.output is not None and len(r.output) == r.max_new,
+              f"request {r.rid} got {r.output} for max_new {r.max_new}")
+    tele = cluster.telemetry
+    summ = tele.summary()
+    spreads = [(max(w.loads) - min(w.loads)) / max(np.mean(w.loads), 1.0)
+               for w in tele.waves if max(w.loads) > 0]
+    return dict(decode_integers(cluster),
+                multiset=sorted(tuple(r.output) for r in reqs),
+                served=[(r.prompt, r.output) for r in reqs],
+                tokens=summ["tokens"], wall_s=wall,
+                ms_per_round=wall * 1e3 / cluster.rounds,
+                tokens_per_s=summ["tokens"] / wall,
+                ttft_p99=summ["ttft_p99"], latency_p99=summ["latency_p99"],
+                load_spread=float(np.mean(spreads)) if spreads else 0.0,
+                backend=cluster.runtime.ops.resolved)
+
+
+def scalar_decode_logits(model, params, prompt, served, cache_len: int,
+                         device):
+    """``prompt`` and then ``served`` teacher-forced through
+    ``decode_step`` on a batch-1 cache of ``cache_len`` rows at one scalar
+    position (the wave engine's path, which shares nothing per-row with
+    the decode engine's): the logits from which each served token was
+    chosen, ``(len(served), V)``."""
+    import torch
+    cache = model.make_cache(1, cache_len, device=device)
+    seq = torch.tensor(list(prompt) + list(served), dtype=torch.int32,
+                       device=device)
+    rows = []
+    for t in range(len(seq) - 1):
+        logits, cache = model.decode_step(params, cache,
+                                          seq[t:t + 1].reshape(1, 1))
+        if t >= len(prompt) - 1:
+            rows.append(logits[0, 0])
+    return torch.stack(rows)
+
+
+def decode_reference(model, params, runs: dict, cache_len: int,
+                     device) -> dict:
+    """Every request each run of ``runs`` served, held against
+    :func:`scalar_decode_logits` in float32: each served token must be
+    the reference's greedy choice up to the logits tolerance — its
+    reference logit within ``2 * SERVE_TOL_F32 * (1 + max |logit|)`` of
+    the reference's largest (two logit rows within the tolerance of each
+    other can swap a near-tie and no more).  The reference is computed
+    once per distinct (prompt, served) pair."""
+    import torch
+    memo, gaps, exact = {}, [], 0
+    for res in runs.values():
+        for prompt, served in res["served"]:
+            key = (tuple(prompt), tuple(served))
+            if key not in memo:
+                L = scalar_decode_logits(model, params, prompt, served,
+                                         cache_len, device)
+                want = torch.tensor(served, device=L.device).long()
+                gap = L.max(-1).values - L.gather(1, want[:, None])[:, 0]
+                tol = 2 * SERVE_TOL_F32 * (1 + L.abs().max(-1).values)
+                memo[key] = (gap.cpu().numpy(), tol.cpu().numpy(),
+                             int((L.argmax(-1) == want).sum()))
+            gap, tol, hits = memo[key]
+            bad = np.nonzero(gap > tol)[0]
+            check(bad.size == 0,
+                  f"decode served token {bad[:1].tolist()} of prompt "
+                  f"{list(prompt)[:8]}... (len {len(prompt)}) "
+                  f"{gap[bad[:1]].tolist()} below the scalar path's greedy "
+                  f"logit, past the tolerance {tol[bad[:1]].tolist()}")
+            gaps.append(gap / tol)
+            exact += hits
+    ratio = np.concatenate(gaps)
+    return {"tokens": int(ratio.size), "distinct_requests": len(memo),
+            "greedy_exact": exact / ratio.size,
+            "max_gap_over_tol": float(ratio.max())}
+
+
+def phase_decode(device, counters, cfg, expect=None) -> dict:
+    """Phase 10: PHASE10_RUNS of ``cfg`` on one card, each with the ring
+    kernels' launch counters zeroed just before it and read just after,
+    held to ``expect`` (the JAX package's integers) and to each other.
+    Then the served tokens against the scalar-position path in float32
+    (:func:`decode_reference`): ``cfg``'s own runs where it computes in
+    float32, else PHASE10_REFERENCE's runs again in float32."""
+    import torch
+    model, params = _decode_model(cfg, device)
+    # one untimed drain first: cuBLAS and the allocator warm up
+    decode_run(device, model, params, cfg, PHASE10_RUNS[0][1],
+               n_lanes=cfg["n_lanes"])
+    runs = {}
+    for name, run in PHASE10_RUNS:
+        for k in DECODE_KERNELS:
+            counters[k].launches = 0
+        res = decode_run(device, model, params, cfg, run,
+                         n_lanes=cfg["n_lanes"])
+        res["launches"] = {k: counters[k].launches for k in DECODE_KERNELS}
+        runs[name] = res
+    pins = ("rounds", "stolen", "migrated", "stalls", "stamps")
+    for name, res in runs.items():
+        got = {k: res[k] for k in pins}
+        if expect is not None:
+            check(got == expect[name],
+                  f"decode {name}: {got} != the JAX package's "
+                  f"{expect[name]}")
+        if device.type == "cuda":
+            check(res["backend"] == "cuda", f"decode {name} routing "
+                  f"{res['backend']!r} is not cuda")
+    for name in ("vmap", "host"):
+        check(runs[name]["stolen"] > 0, f"decode {name} stole nothing")
+    check(runs["static"]["stolen"] == 0 and runs["static"]["migrated"] == 0,
+          "the static baseline moved work")
+    check(runs["migrate"]["migrated"] > 0, "decode migrate migrated nothing")
+    check(runs["vmap"]["multiset"] == runs["host"]["multiset"],
+          "vmap and host served different tokens")
+    if device.type == "cuda":
+        for name, res in runs.items():
+            n, rounds = res["launches"], res["rounds"]
+            check(n["ring_slice"] == rounds, f"decode {name}: K3 launched "
+                  f"{n['ring_slice']} times in {rounds} rounds")
+            check(n["ring_scatter"] > 0, f"decode {name}: K2 never launched")
+            if name != "host":
+                check(n["ring_gather"] == n["ring_transfer"] == rounds,
+                      f"decode {name}: K1 / K4 launched {n['ring_gather']} "
+                      f"/ {n['ring_transfer']} times in {rounds} rounds")
+    pol = cfg["policy"]
+    C = -(-(pol["max_prompt"] + pol["max_new"]) // pol["page_size"]) \
+        * pol["page_size"]                        # the slots' cache rows
+    ref_cfg = dict(cfg, compute_dtype="float32")
+    if cfg.get("compute_dtype") == "float32":
+        ref_runs = {n: runs[n] for n in PHASE10_REFERENCE}
+    else:
+        del model, params
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        model, params = _decode_model(ref_cfg, device)
+        ref_runs = {}
+        for name in PHASE10_REFERENCE:
+            res = decode_run(device, model, params, ref_cfg,
+                             dict(PHASE10_RUNS)[name],
+                             n_lanes=cfg["n_lanes"])
+            got = {k: res[k] for k in pins}
+            if expect is not None:
+                check(got == expect[name],
+                      f"decode {name} in float32: {got} != the JAX "
+                      f"package's {expect[name]}")
+            ref_runs[name] = res
+    t0 = time.perf_counter()
+    reference = decode_reference(model, params, ref_runs, C, device)
+    reference.update(runs=list(ref_runs), s=time.perf_counter() - t0,
+                     ms_per_round={n: r["ms_per_round"]
+                                   for n, r in ref_runs.items()})
+    del model, params
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return {"arch": cfg["arch"], "lanes": cfg["n_lanes"],
+            "requests": cfg["n_requests"], "policy": cfg["policy"],
+            "runs": {name: {k: v for k, v in res.items()
+                            if k not in ("multiset", "served")}
+                     for name, res in runs.items()},
+            "multiset_vmap_eq_host": True,
+            "float32_reference": reference}
+
+
+def mesh_decode(device, cfg, n_lanes: int, execution: str) -> dict:
+    """Phase 9's decode check on ``n_lanes`` lanes, stacked or one per
+    rank: the steal-balanced and the migrating run's integers and
+    served-token multisets."""
+    model, params = _decode_model(cfg, device)
+    out = {}
+    for name, run in (("balanced", dict(execution=execution)),
+                      ("migrate", dict(execution=execution,
+                                       steal="migrate"))):
+        res = decode_run(device, model, params, cfg, run, n_lanes=n_lanes)
+        out[name] = {k: res[k] for k in ("rounds", "stolen", "migrated",
+                                         "stalls", "stamps", "multiset",
+                                         "ms_per_round")}
+    return out
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2484,6 +2854,10 @@ def main() -> int:
               flush=True)
         gc.collect()
         torch.cuda.empty_cache()  # the next phase's model is larger
+
+    decode = phase_decode(device, counters, PHASE10, expect=PHASE10_EXPECT)
+    print(json.dumps({"phase": "decode", "card": card, "result": decode}),
+          flush=True)
 
     launches = {**solver["launches"],
                 "flash_attention": serving["serve"]["launches"][

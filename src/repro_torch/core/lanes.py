@@ -79,6 +79,12 @@ class StackedLanes:
         """Per-lane Python objects of all ``n`` lanes, in lane order."""
         return objs
 
+    def broadcast_tree(self, tree: Any, src: int) -> Any:
+        """Lane ``src``'s ``tree`` on every lane — here, ``tree`` itself
+        (this process holds lane ``src``)."""
+        del src
+        return tree
+
     def owns(self, worker: int) -> bool:
         return 0 <= worker < self.n
 
@@ -157,6 +163,25 @@ class MeshLanes:
         out = torch.empty_like(wire)
         dist.all_to_all_single(out, wire, group=self.group)
         return tree_unflatten(block, _unpack(out.to(packed.device), leaves))
+
+    def broadcast_tree(self, tree: Any, src: int) -> Any:
+        """Lane ``src``'s ``tree`` on every lane: its leaves (any shapes)
+        travel as one byte row in one broadcast from ``src``.  Every lane
+        passes a tree of the same structure, shapes and dtypes; only
+        ``src``'s values matter."""
+        leaves = tree_leaves(tree)
+        flat = torch.cat([leaf.contiguous().reshape(-1).view(torch.uint8)
+                          for leaf in leaves])
+        wire = self._to_wire(flat)
+        dist.broadcast(wire, src=dist.get_global_rank(self.group, int(src)),
+                       group=self.group)
+        wire, out, at = wire.to(flat.device), [], 0
+        for leaf in leaves:
+            width = leaf.numel() * leaf.element_size()
+            out.append(wire[at:at + width].clone().view(leaf.dtype)
+                       .reshape(leaf.shape))
+            at += width
+        return tree_unflatten(tree, out)
 
     def gather_objects(self, objs: List[Any]) -> List[Any]:
         out: List[Any] = [None] * self.n

@@ -16,17 +16,22 @@ at most one stealer touches a victim per round.
             resize of a padded runtime, in both modes — dead rings drain
             through the ordinary exchange at proportion 1.0 before lanes
             go
+  serve     :class:`RuntimeAdmissionMaster` / :class:`DeviceReplicaLane` —
+            the serving master's admission queues as executor lanes, in
+            both modes (``ServeCluster(execution=...)`` and the decode
+            engine's device master)
 
 Parity contract: for identical seeds and policies the mesh runtime's
 queues, stats, telemetry and proportion history are bit-equal to the
 stacked runtime's (``tests/test_torch_distributed.py``, on 8 ``gloo``
-CPU ranks).  The JAX package's serving lanes (``RuntimeAdmissionMaster``,
-``DeviceReplicaLane``) come with the serving slice (ROADMAP A11).
+CPU ranks).
 """
 
 from repro_torch.distributed.elastic import evacuate, grow, shrink
 from repro_torch.distributed.executor import MeshStealRuntime
 from repro_torch.distributed.launch import launch_runtime
+from repro_torch.distributed.serve import (DeviceReplicaLane,
+                                           RuntimeAdmissionMaster)
 
 __all__ = ["MeshStealRuntime", "launch_runtime", "evacuate", "grow",
-           "shrink"]
+           "shrink", "RuntimeAdmissionMaster", "DeviceReplicaLane"]

@@ -6,8 +6,15 @@
 
 It serves the reduced (smoke-test) variant of ``--arch`` with random
 parameters from seed 0, on the GPU unless ``--device cpu`` is given.
-``--decode`` (the continuous-batching decode engine) waits for the decode
-slice and raises; ``--execution`` and ``--steal`` belong to it.
+``--decode`` switches from the wave engine to the continuous-batching
+decode engine (:mod:`repro_torch.serve.decode`): per-round admission,
+paged KV, the model's decode step inside the steal runtime's round.
+
+  PYTHONPATH=src python -m repro_torch.launch.serve --decode \
+      --execution vmap --replicas 4 --requests 32 --steal queue
+
+``--execution mesh`` puts one lane per process: run it under a launcher
+that starts one process per replica and initialises their process group.
 """
 
 from __future__ import annotations
@@ -46,10 +53,6 @@ def main(argv=None) -> int:
                     help="torch device (default: CUDA; 'cpu' to run there)")
     args = ap.parse_args(argv)
 
-    if args.decode:
-        raise NotImplementedError(
-            "--decode (serve/decode.py with paged KV) waits for the decode "
-            "slice of the port")
     device = resolve_device(args.device)
     cfg = configs.reduced(configs.get(args.arch))
     if cfg.family in ("vlm", "encdec"):
@@ -58,6 +61,38 @@ def main(argv=None) -> int:
     params = model.init(torch.Generator(device=device).manual_seed(0))
 
     rng = np.random.default_rng(0)
+    if args.decode:
+        from repro_torch.serve.decode import DecodeCluster, DecodePolicy
+
+        pol = DecodePolicy(n_slots=4, max_prompt=8,
+                           max_new=max(args.max_new, 1), steal=args.steal)
+        cluster = DecodeCluster(model, params, policy=pol,
+                                n_lanes=args.replicas,
+                                execution=args.execution, device=device)
+        reqs = [Request(prompt=list(rng.integers(
+                            1, cfg.vocab_size,
+                            size=int(rng.integers(1, 9)))),
+                        max_new=int(rng.integers(1, args.max_new + 1)))
+                for _ in range(args.requests)]
+        t0 = time.time()
+        cluster.submit(reqs)
+        done = cluster.run_until_drained()
+        dt = time.time() - t0
+        st = cluster.stats()
+        toks = sum(len(r.output or []) for r in done)
+        tele = st["telemetry"]
+        print(f"[serve.decode] {len(done)}/{args.requests} requests, "
+              f"{toks} tokens in {dt:.1f}s ({args.execution}, "
+              f"steal={args.steal}, on {device})")
+        print(f"[serve.decode] stolen={st['stolen']} "
+              f"migrated={st['migrated']} stalls={st['stalls']} "
+              f"ttft_p99={tele.get('ttft_p99', 0.0):.1f} "
+              f"latency_p99={tele.get('latency_p99', 0.0):.1f} rounds")
+        if len(done) != args.requests:
+            raise RuntimeError(
+                f"served {len(done)} of {args.requests} requests")
+        return 0
+
     reps = [Replica(model, params, wave_size=4, max_seq=64)
             for _ in range(args.replicas)]
     if args.straggle and reps:

@@ -190,34 +190,50 @@ def decode_attention_shardmap(*args, **kwargs):
 
 
 def decode_attention(p: Pytree, x: torch.Tensor, cache_k: torch.Tensor,
-                     cache_v: torch.Tensor, pos: int, cfg: AttnConfig,
+                     cache_v: torch.Tensor, pos, cfg: AttnConfig,
                      compute_dtype):
     """One-token decode for a single layer.
 
     x: (B, 1, D); cache_k/v: (B, C, K, hd); pos: the absolute position of
-    the new token.  For windowed layers the cache is a ring (C == window)
-    written at ``pos % C``; otherwise linear (C == max seq).  The new K / V
-    are written into ``cache_k`` / ``cache_v`` in place.
+    the new token, an int shared by every row, or a ``(B,)`` int32 tensor
+    of per-row positions (read on the device, never on the host).  For
+    windowed layers the cache is a ring (C == window) written at
+    ``pos % C``; otherwise linear (C == max seq), written at
+    ``min(pos, C - 1)``.  Per-row positions take linear caches only (paged
+    decode rejects ring layers).  The new K / V are written into
+    ``cache_k`` / ``cache_v`` in place, one indexed write over the rows.
 
     Returns (out (B,1,D), cache_k, cache_v).
     """
     B = x.shape[0]
     H, K, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     C = cache_k.shape[1]
-    pvec = torch.full((1,), pos, dtype=torch.int32, device=x.device)
-    q, k, v = _project(p, x, cfg, compute_dtype, pvec)
-
-    slot = pos % C if cfg.window is not None else min(pos, C - 1)
-    cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
-    cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
-
-    # Validity of cache slots: ring => last `window` positions; linear => <= pos.
     idx = torch.arange(C, device=x.device)
-    if cfg.window is not None:
-        age = (slot - idx) % C           # 0 == newest
-        valid = age <= min(pos, C - 1)
+    if isinstance(pos, torch.Tensor) and pos.ndim == 1:
+        if cfg.window is not None:
+            raise ValueError("per-row positions need a linear cache; a "
+                             "windowed (ring) layer takes one position")
+        pos = pos.to(device=x.device, dtype=torch.int32)
+        q, k, v = _project(p, x, cfg, compute_dtype, pos[:, None])
+        rows = torch.arange(B, device=x.device)
+        slot = torch.clamp(pos, max=C - 1).long()
+        cache_k[rows, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[rows, slot] = v[:, 0].to(cache_v.dtype)
+        valid = (idx[None, :] <= pos[:, None])[:, None, None, :]
     else:
-        valid = idx <= pos
+        pos = int(pos)
+        pvec = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+        q, k, v = _project(p, x, cfg, compute_dtype, pvec)
+        slot = pos % C if cfg.window is not None else min(pos, C - 1)
+        cache_k[:, slot] = k[:, 0].to(cache_k.dtype)
+        cache_v[:, slot] = v[:, 0].to(cache_v.dtype)
+        # Validity of cache slots: ring => last `window` positions;
+        # linear => <= pos.
+        if cfg.window is not None:
+            age = (slot - idx) % C           # 0 == newest
+            valid = age <= min(pos, C - 1)
+        else:
+            valid = idx <= pos
 
     qg = q.reshape(B, K, H // K, hd)
     kc = cache_k.to(compute_dtype)

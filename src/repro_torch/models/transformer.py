@@ -249,9 +249,17 @@ class DecoderLM:
     def decode_step(self, params, cache, tokens: torch.Tensor
                     ) -> Tuple[torch.Tensor, Pytree]:
         """One-token decode. tokens: (B, 1). Returns (logits (B,1,V) float32,
-        cache); the cache's K / V tensors are updated in place."""
+        cache); the cache's K / V tensors are updated in place.
+
+        ``cache["pos"]`` is one position for every row (an int), or a
+        ``(B,)`` int32 tensor of per-row positions on the cache's device —
+        each row rotates, writes and attends at its own position, with no
+        host read (the counterpart of ``jax.vmap`` of the JAX package's
+        ``decode_step`` over batch-1 caches; linear caches only)."""
         x = self._embed(params, tokens)
-        pos = int(cache["pos"])
+        pos = cache["pos"]
+        if not (isinstance(pos, torch.Tensor) and pos.ndim == 1):
+            pos = int(pos)
         for g, gi, kind, pg in self._layers(params):
             acfg = _attn_cfg(self.cfg, local=(kind == "local"))
             cg = cache[f"g{gi}"]

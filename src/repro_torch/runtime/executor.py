@@ -269,6 +269,31 @@ class StealRuntime:
         self._set_lane(worker, lane)
         return int(pushed)
 
+    def _owned(self, worker: int) -> None:
+        if not self.lanes.owns(worker):
+            raise ValueError(f"lane {worker} is not held by this rank")
+
+    def pop_bulk(self, worker: int, max_n: int, n) -> Tuple[Pytree,
+                                                           torch.Tensor]:
+        """Owner-side bulk pop of up to ``n`` newest items off one lane
+        (K3); returns ``(batch, n_popped)``, the block oldest first and
+        its rows >= ``n_popped`` zeroed.  Only the lane's owner calls it."""
+        self._owned(worker)
+        lane, batch, got = self.ops.pop_bulk(self._lane(worker), max_n, n)
+        self._set_lane(worker, lane)
+        return batch, got
+
+    def steal_exact(self, worker: int, n, max_steal: int) -> Tuple[
+            Pytree, torch.Tensor]:
+        """Owner-side steal of the ``n`` oldest items (clamped to the
+        lane's size and ``max_steal``) off one lane (K1); returns
+        ``(batch, n_stolen)``.  Only the lane's owner calls it."""
+        self._owned(worker)
+        lane, batch, got = self.ops.steal_exact(self._lane(worker), n,
+                                                max_steal=max_steal)
+        self._set_lane(worker, lane)
+        return batch, got
+
     def drain(self) -> list:
         """Pop every lane dry (host-level; for tests / inspection).
         Returns per-lane item lists (numpy leaves), newest first, for all

@@ -6,9 +6,15 @@ attention is K6 on the card), then batched greedy decode until every
 request hits its ``max_new`` budget.  Between waves the replica yields to
 the admission master's rebalance round (``serve/scheduler.py``).
 
-The admission queues live on the host (``execution="host"``).  The JAX
-package's ``"vmap"`` / ``"mesh"`` executions put them on executor lanes
-through ``RuntimeAdmissionMaster``, which is not ported yet; they raise.
+``execution`` selects where the admission queues live: ``"host"``
+(default) keeps the Python :class:`~repro_torch.serve.scheduler.
+AdmissionMaster`; ``"vmap"`` / ``"mesh"`` swap in
+:class:`repro_torch.distributed.RuntimeAdmissionMaster` — request IDs on
+executor lanes (all stacked on the replicas' device, or one lane per
+process), every rebalance a real superstep.  Under ``"mesh"`` every rank
+builds the cluster with all the replicas and runs every wave (a wave is
+popped by its lane's owner and broadcast), and the wall-clock straggler
+flags are agreed over the lanes, so every rank serves alike.
 ``ServeCluster.metrics()`` waits for the observability slice.
 """
 
@@ -91,15 +97,22 @@ class ServeCluster:
                  master: Optional[AdmissionMaster] = None,
                  rebalance_rounds: int = 1,
                  execution: str = "host",
+                 admission_capacity: int = 512,
                  straggler_threshold: float = 2.0,
                  auto_evict_after: Optional[int] = None):
-        if execution != "host":
-            raise NotImplementedError(
-                f"execution={execution!r} needs RuntimeAdmissionMaster "
-                f"(admission queues on executor lanes), which is not "
-                f"ported yet; use execution='host'")
         self.replicas = replicas
-        self.master = master or AdmissionMaster(len(replicas))
+        if master is None:
+            if execution == "host":
+                master = AdmissionMaster(len(replicas))
+            else:
+                from repro_torch.distributed.serve import (
+                    RuntimeAdmissionMaster)
+
+                master = RuntimeAdmissionMaster(
+                    len(replicas), execution=execution,
+                    capacity=admission_capacity,
+                    device=replicas[0].device if replicas else None)
+        self.master = master
         self.rebalance_rounds = int(rebalance_rounds)
         self.done: List[Request] = []
         # One wall-clock straggler monitor per replica; its timeout
@@ -159,7 +172,8 @@ class ServeCluster:
             mon.start()
             wave = rq.pop_wave(wave_n)
             finished = rep.run_wave(wave)
-            slow = bool(mon.observe()) and bool(wave)
+            # one decision on every rank of a mesh
+            slow = self.master.agree(bool(mon.observe()) and bool(wave))
             if slow:
                 stragglers += 1
             # The wave's requests are accounted BEFORE the detector may

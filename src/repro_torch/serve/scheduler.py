@@ -100,6 +100,12 @@ class AdmissionMaster:
         return (self.controller.effective_proportion if self.controller
                 else self.policy.proportion)
 
+    def agree(self, flag: bool) -> bool:
+        """A straggler flag every replica takes alike: one host master
+        serves every replica, so the flag stands as it is (the mesh
+        master agrees it over its ranks)."""
+        return bool(flag)
+
     # -- admission -----------------------------------------------------------
 
     def submit(self, requests: Sequence[Request]) -> int:

@@ -3,7 +3,8 @@
 the stacked runtime in the test's own process.
 
 Imports neither JAX nor the JAX package, so that spawned ranks load only
-torch and the port.  Every case takes ``execution`` (``"vmap"``: the W
+torch and the port.  The serving cases (the decode engine's device master
+and the request-id master under a ServeCluster) run reduced llama3.2-1b.  Every case takes ``execution`` (``"vmap"``: the W
 lanes stacked in this process; ``"mesh"``: one lane per rank, every rank
 running the same call) and returns host data in the stacked layout, which
 the test compares bit for bit.
@@ -55,6 +56,11 @@ SOLVER = dict(n_items=10, seed=3, n_workers=W, explore_width=8, batch=4,
               capacity=1024)
 ELASTIC_POL = dict(backend="reference", low_watermark=2, high_watermark=8,
                    max_steal=64)
+# benchmarks/serve_decode.py's tiny mix on W lanes: reduced llama3.2-1b in
+# float32, 28 requests (mix seed 0) in one burst, 2 slots a lane, so that
+# queues form and lanes steal
+DECODE = dict(n_requests=28, arrival=28, capacity=64, n_slots=2,
+              max_prompt=8, max_new=8, page_size=4)
 
 
 def parity_policy(exchange: str) -> StealPolicy:
@@ -260,6 +266,114 @@ def snapshot_case(execution, save_dir=None, restore_dir=None,
     return dict(saved=saved, **state(rt))
 
 
+@functools.lru_cache(maxsize=1)
+def reduced_llama():
+    """Reduced llama3.2-1b in float32 with seed-0 parameters on the CPU."""
+    from repro_torch import configs
+    from repro_torch.models.zoo import build_model
+
+    cfg = dataclasses.replace(configs.reduced(configs.get("llama3.2-1b")),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    return model, model.init(torch.Generator().manual_seed(0))
+
+
+def decode_mix(n: int, seed: int = 0) -> list:
+    """benchmarks/serve_decode.py's _request_mix (prompts up to 8 tokens,
+    min(1 + geometric(0.35), 8) new tokens)."""
+    rng = np.random.default_rng(seed)
+    mix = []
+    for _ in range(n):
+        plen = int(rng.integers(1, DECODE["max_prompt"] + 1))
+        out = int(min(1 + rng.geometric(0.35), DECODE["max_new"]))
+        mix.append((list(map(int, rng.integers(1, 500, size=plen))), out))
+    return mix
+
+
+def decode_case(execution, steal, mesh=None) -> dict:
+    """The decode engine's device master on W lanes, steal-balanced, with
+    only queued requests stolen or also in-flight ones migrated: what a
+    drain served, its stamps, its waves and its counters."""
+    from repro_torch.serve.decode import DecodeCluster, DecodePolicy
+    from repro_torch.serve.scheduler import Request
+
+    model, params = reduced_llama()
+    cfg = DECODE
+    pol = DecodePolicy(n_slots=cfg["n_slots"], max_prompt=cfg["max_prompt"],
+                       max_new=cfg["max_new"], page_size=cfg["page_size"],
+                       steal=steal)
+    c = DecodeCluster(model, params, policy=pol, n_lanes=W,
+                      capacity=cfg["capacity"], execution=execution,
+                      mesh=mesh, straggler_threshold=float("inf"),
+                      device="cpu" if mesh is None else None)
+    reqs = [Request(prompt=p, max_new=m, rid=i)
+            for i, (p, m) in enumerate(decode_mix(cfg["n_requests"]))]
+    a = cfg["arrival"]
+    for i in range(0, len(reqs), a):
+        c.submit(reqs[i:i + a])
+        c.step()
+    c.run_until_drained(max_steps=500)
+    st = c.stats()
+    return dict(outputs=[(r.rid, list(r.output)) for r in c.done],
+                stamps=[(r.rid, r.admit, r.first, r.finish, r.tokens)
+                        for r in c.telemetry.requests],
+                waves=[(list(map(int, w.loads)), w.served, w.tokens,
+                        w.migrated) for w in c.telemetry.waves],
+                rounds=c.rounds, stolen=c.stolen, migrated=c.migrated,
+                stats={k: st[k] for k in ("loads", "queued", "pending",
+                                          "served", "stalls", "kv_tokens",
+                                          "proportion", "backend")},
+                telemetry=records(c.runtime))
+
+
+def admission_case(execution, mesh=None) -> dict:
+    """The request-id master (RuntimeAdmissionMaster) on W lanes through
+    admission, waves, rebalancing, eviction and re-admission, then a
+    ServeCluster of W replicas draining on it."""
+    from repro_torch.distributed import RuntimeAdmissionMaster
+    from repro_torch.serve.engine import Replica, ServeCluster
+    from repro_torch.serve.scheduler import Request
+
+    dev = "cpu" if mesh is None else None
+    master = RuntimeAdmissionMaster(W, capacity=32, execution=execution,
+                                    mesh=mesh, device=dev)
+    seen = []
+    for i in range(3):
+        seen.append(master.submit([Request(prompt=[1], max_new=1,
+                                           rid=10 * i + j)
+                                   for j in range(9)]))
+    seen.append([r.rid for r in master.replicas[0].pop_wave(4)])
+    seen.append(master.rebalance_many(3))
+    seen.append(master.stats()["queued"])
+    seen.append(master.evict(1))
+    master.readmit(1)
+    seen.append(master.rebalance())
+    st = master.stats()
+    seen.append({k: st[k] for k in ("loads", "queued", "completed",
+                                    "evicted", "stolen", "rounds",
+                                    "proportion")})
+    seen.append(master.telemetry.summary()["faults"])
+
+    model, params = reduced_llama()
+    reps = [Replica(model, params, wave_size=2, max_seq=12)
+            for _ in range(W)]
+    reps[0].speed = 0.5
+    cluster = ServeCluster(reps, execution=execution, admission_capacity=32,
+                           straggler_threshold=float("inf"),
+                           master=None if mesh is None else
+                           RuntimeAdmissionMaster(W, capacity=32,
+                                                  execution="mesh",
+                                                  mesh=mesh))
+    rng = np.random.default_rng(1)
+    cluster.submit([Request(prompt=list(map(int, rng.integers(1, 500, 5))),
+                            max_new=2, rid=100 + j) for j in range(24)])
+    done = cluster.run_until_drained()
+    return dict(seen=seen, served=[(r.rid, list(r.output)) for r in done],
+                master=records(cluster.master.runtime),
+                completed=cluster.master.stats()["completed"],
+                stolen=cluster.master.stolen)
+
+
 def _raises(fn) -> str:
     try:
         fn()
@@ -321,6 +435,9 @@ def rank_program(rank: int, restore_dir: str, save_dir: str) -> dict:
     out["snap_restored"] = snapshot_case("mesh", restore_dir=restore_dir,
                                          pod_size=4)
     out["refusals"] = refusals(flat, pods)
+    out["decode"] = {steal: decode_case("mesh", steal, mesh=flat)
+                     for steal in ("queue", "migrate")}
+    out["admission"] = admission_case("mesh", mesh=flat)
     return out
 
 

@@ -556,3 +556,51 @@ def test_two_gloo_ranks_hold_a_backlog_on_the_card():
             assert g["history"] == w["history"]
             assert min(g["launches"][:2 if exchange == "compact" else 1]) > 0
         assert got["compact"]["telemetry"][0][3] > 0  # items moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("steal", ["queue", "migrate"])
+def test_decode_cluster_on_the_card_matches_the_cpu(steal):
+    """The decode engine on stacked lanes on the card (K3 in its body, K1
+    and K4 in every round's superstep, K2 at admission) schedules exactly
+    as on the CPU: the same rounds, steals, migrations, stalls and request
+    stamps (none of which reads a model output), and in float32 it serves
+    every request the CPU's tokens (the per-row decode, the paged gather,
+    the write-back and, under migrate, the moved pages, on the card)."""
+    from repro_torch.serve.decode import DecodeCluster, DecodePolicy
+    from repro_torch.serve.scheduler import Request
+
+    dev = _cuda()
+    import _torch_mesh as M
+
+    cfg = dataclasses.replace(configs.reduced(configs.get("llama3.2-1b")),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    pol = DecodePolicy(n_slots=4, max_prompt=8, max_new=8, page_size=4,
+                       steal=steal)
+
+    def run(device, p):
+        c = DecodeCluster(model, p, policy=pol, n_lanes=4, capacity=64,
+                          straggler_threshold=float("inf"), device=device)
+        reqs = [Request(prompt=q, max_new=m, rid=i)
+                for i, (q, m) in enumerate(M.decode_mix(28))]
+        for fn in COUNTERS:
+            fn.launches = 0
+        for i in range(0, 28, 7):
+            c.submit(reqs[i:i + 7])
+            c.step()
+        c.run_until_drained(max_steps=500)
+        assert all(len(r.output) == r.max_new for r in reqs)
+        return (dict(rounds=c.rounds, stolen=c.stolen, migrated=c.migrated,
+                     stalls=c.stats()["stalls"],
+                     stamps=[(r.rid, r.admit, r.first, r.finish)
+                             for r in c.telemetry.requests],
+                     outputs=[r.output for r in reqs]),
+                [fn.launches for fn in COUNTERS])
+
+    want, _ = run("cpu", params)
+    got, (k1, k2, k3, k4) = run(dev, tree_map(lambda t: t.to(dev), params))
+    assert got == want
+    assert k3 == k1 == k4 == got["rounds"] and k2 > 0
+    assert (got["migrated"] > 0) == (steal == "migrate")

@@ -20,7 +20,12 @@ to its mesh):
 * the elastic resizes on a mesh (the padded runtime's live resize, and
   ``shrink`` / ``grow`` through the rebuild, with ranks that hold no
   runtime while the mesh is small), and snapshots across the modes;
-* ``launch_runtime``'s and ``make_worker_mesh``'s refusals.
+* ``launch_runtime``'s and ``make_worker_mesh``'s refusals;
+* the serving masters on the mesh: ``DecodeCluster(execution="mesh")``
+  (queued steals only, and with in-flight migration) and
+  ``RuntimeAdmissionMaster(execution="mesh")`` under a ``ServeCluster``
+  serve what the stacked lanes serve, with the same stamps, counters and
+  telemetry.
 """
 
 import jax
@@ -128,8 +133,8 @@ def test_every_rank_holds_the_stacked_layout(ranks):
     results, _ = ranks
     for r in range(1, M.W):
         for key in ("parity", "checked", "dag", "fault_flat", "fault_pods",
-                    "solver",
-                    "padded", "snap_saved", "snap_restored"):
+                    "solver", "padded", "snap_saved", "snap_restored",
+                    "decode", "admission"):
             assert_equal(results[0][key], results[r][key], f"rank {r} {key}")
 
 
@@ -245,3 +250,22 @@ def test_refusals(ranks):
         if r >= 4:
             assert f"rank {r} is outside the 4-lane mesh" in \
                 res["refusals"]["outside"]
+
+
+@pytest.mark.parametrize("steal", ["queue", "migrate"])
+def test_decode_cluster_on_the_mesh_equals_the_stacked_run(ranks, steal):
+    """One decode lane per rank: the donor broadcasts a migrating slot and
+    its pages, every rank routes from one gather of the loads, and the
+    harvest gathers every lane's records — so every rank serves what the
+    stacked lanes serve, in the same order, with the same stamps."""
+    got = ranks[0][0]["decode"][steal]
+    assert_equal(M.decode_case("vmap", steal), got, steal)
+    assert len(got["outputs"]) == M.DECODE["n_requests"]
+    assert got["stolen"] > 0
+    assert (got["migrated"] > 0) == (steal == "migrate")
+
+
+def test_request_id_master_on_the_mesh_equals_the_stacked_run(ranks):
+    got = ranks[0][0]["admission"]
+    assert_equal(M.admission_case("vmap"), got, "admission")
+    assert len(got["served"]) == 24 and got["stolen"] > 0

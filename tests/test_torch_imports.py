@@ -52,7 +52,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.data.synthetic', 'repro_torch.core.lanes',\n"
         "          'repro_torch.launch.mesh',\n"
         "          'repro_torch.distributed.executor',\n"
-        "          'repro_torch.distributed.launch'):\n"
+        "          'repro_torch.distributed.launch',\n"
+        "          'repro_torch.distributed.serve',\n"
+        "          'repro_torch.serve.paged_kv', 'repro_torch.serve.decode'):\n"
         "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
@@ -194,3 +196,47 @@ def test_mesh_modules_import_alone_and_default_to_cuda(monkeypatch,
         assert rt.device.type == "cpu" and rt.lanes.n_local == 1
     finally:
         dist.destroy_process_group()
+
+
+def test_decode_modules_import_alone_and_default_to_cuda(monkeypatch):
+    """The decode slice's modules load without JAX, and its entry points
+    (the paged pool, the decode carry, the decode cluster in each mode,
+    the device admission master, the decode launcher) refuse to run on the
+    CPU unless asked."""
+    code = (
+        "import importlib, sys\n"
+        "for m in ('repro_torch.serve.paged_kv', 'repro_torch.serve.decode',\n"
+        "          'repro_torch.distributed.serve'):\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(n for n in sys.modules\n"
+        "             if n.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
+        "assert not bad, bad\n")
+    res = _run(["-c", code], cwd=ROOT)
+    assert res.returncode == 0, res.stdout + res.stderr
+
+    from repro_torch import configs
+    from repro_torch.distributed import RuntimeAdmissionMaster
+    from repro_torch.launch.serve import main as serve_main
+    from repro_torch.models.zoo import build_model
+    from repro_torch.serve.decode import (DecodeCluster, DecodePolicy,
+                                          encode_requests, init_decode_state)
+    from repro_torch.serve.paged_kv import make_pool
+    from repro_torch.serve.scheduler import Request
+
+    model = build_model(configs.reduced(configs.get("llama3.2-1b")))
+    params = model.init(torch.Generator().manual_seed(0))
+    pol = DecodePolicy(n_slots=2, max_prompt=4, max_new=4, page_size=4)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for call in (lambda: make_pool(model, n_slots=2, n_pages=4, page_size=4,
+                                   pages_per_seq=2),
+                 lambda: init_decode_state(model, pol, 2),
+                 lambda: encode_requests([Request(prompt=[1], max_new=2)], pol, 0),
+                 lambda: RuntimeAdmissionMaster(2),
+                 *(lambda ex=ex: DecodeCluster(model, params, policy=pol,
+                                               n_lanes=2, execution=ex)
+                   for ex in ("host", "vmap")),
+                 lambda: serve_main(["--decode"])):
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()
+    assert init_decode_state(model, pol, 2, device="cpu")[
+        "table"].device.type == "cpu"

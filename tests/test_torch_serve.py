@@ -109,12 +109,40 @@ def test_pad_cache_and_cache_tokens_match():
     assert pad_cache(cross, 8)["cross"]["k"].shape[2] == 3
 
 
-def test_device_admission_waits_for_its_master():
+def test_device_admission_waits_for_its_master(tmp_path):
+    """``execution="vmap"`` / ``"mesh"`` put the admission queues on
+    executor lanes behind a ``RuntimeAdmissionMaster``: stacked on the
+    replicas' device, or one lane per rank (here a world of one gloo
+    rank); both serve every request in full."""
+    import torch.distributed as dist
+
+    from repro_torch.distributed import RuntimeAdmissionMaster
+
     _, tm, _, tp = _llama()
-    reps = [Replica(tm, tp, max_seq=16) for _ in range(2)]
-    for execution in ("vmap", "mesh"):
-        with pytest.raises(NotImplementedError, match="RuntimeAdmission"):
-            ServeCluster(reps, execution=execution)
+
+    def serve(n_replicas, execution):
+        reps = [Replica(tm, tp, wave_size=2, max_seq=16)
+                for _ in range(n_replicas)]
+        cluster = ServeCluster(reps, execution=execution,
+                               admission_capacity=16,
+                               straggler_threshold=float("inf"))
+        assert isinstance(cluster.master, RuntimeAdmissionMaster)
+        assert cluster.master.execution == execution
+        cluster.submit([Request(prompt=[3, 4, 5, 6], max_new=3)
+                        for _ in range(5)])
+        done = cluster.run_until_drained()
+        assert len(done) == 5 and all(len(r.output) == 3 for r in done)
+        return cluster.master.stats()
+
+    st = serve(2, "vmap")
+    assert sum(st["completed"]) == 5 and st["backend"] == "cuda"
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/rdv",
+                            rank=0, world_size=1)
+    try:
+        st = serve(1, "mesh")
+    finally:
+        dist.destroy_process_group()
+    assert st["completed"] == [5] and st["execution"] == "mesh"
 
 
 def test_launcher_serves_on_the_cpu(capsys):
@@ -122,5 +150,11 @@ def test_launcher_serves_on_the_cpu(capsys):
                               "--max-new", "3", "--straggle"]) == 0
     out = capsys.readouterr().out
     assert "[serve] 6/6 requests, 18 tokens" in out
-    with pytest.raises(NotImplementedError, match="decode"):
-        launch_serve.main(["--device", "cpu", "--decode"])
+    for execution, steal in (("vmap", "queue"), ("host", "migrate")):
+        assert launch_serve.main(["--device", "cpu", "--decode",
+                                  "--requests", "10", "--replicas", "2",
+                                  "--execution", execution,
+                                  "--steal", steal]) == 0
+        out = capsys.readouterr().out
+        assert "[serve.decode] 10/10 requests" in out
+        assert f"({execution}, steal={steal}, on cpu)" in out

@@ -163,6 +163,29 @@ check that does not hold:
    scalar-position path: each within ``2 * 1e-4 * (1 + max |logit|)`` of
    that decode's greedy logit.  ms per round, tokens/s, SLO percentiles
    in rounds and the load spread, not gated.
+11. Training and the rest of ``DecoderLM`` (``{"phase": "train"}``, after
+   phase 10; ``PHASE11``), random weights from seed 0, float32
+   parameters, bf16 compute, remat.  (a) llama3.2-1b at its published
+   widths and depth: the first step's loss and gradients in float32
+   through K6's SIMT kernel against the plain version's (loss 1e-4, each
+   leaf 1e-3 of its largest |g|), then 12 steps of ``make_train_step`` on
+   one repeated 4 x 1,024 batch of ``launch/train``'s pipeline: finite
+   losses, the last below the first, every gradient leaf of the first
+   step finite and the attention projections' non-zero in every layer
+   (a launch autograd could not see would leave them at zero), K6 32
+   launches a step (16 forward, 16 recomputed; the backward is the plain
+   version's), all on the tensor-core kernel.  (b) qwen3-moe-30b-a3b at
+   its widths, 8 of 48 layers, served in phase 4's setup with the
+   routing counted: phase 4's gates, the bulk steal rerouting > 0
+   assignments and dropping none, its plan on the card bit-equal to the
+   CPU's, the first wave's float32 logits within 1e-4 of the plain
+   versions' under one routing plan (flips counted); then one train step
+   at 2 layers, every leaf's gradient finite.  (c) mamba2-2.7b, 8 of 64
+   layers, 2 x 1,024: the float32 comparison (K7's SIMT kernel) and one
+   bf16 step, K7 16 launches a step.  (d) internvl2-2b at its depth: one
+   prefill of 4 prompts behind their 256 patches, K6 once a layer, the
+   float32 logits within 1e-4 of the plain version's.  ms a step,
+   tokens/s and peak memory, not gated.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
@@ -377,6 +400,46 @@ PHASE9_DECODE = dict(arch="llama3.2-1b", capacity=128,
                                  page_size=4),
                      n_requests=28, arrival=28, seed=0, reduced=True,
                      compute_dtype="float32")
+
+# Phase 11: training, and the MoE and VLM branches of DecoderLM, at
+# published widths.  (a) llama3.2-1b at its depth: float32 parameters,
+# bf16 compute, remat, 12 steps of make_train_step on one repeated 4 x
+# 1,024 batch of launch/train's pipeline, after the first step's loss and
+# gradients in float32 against the plain versions'.  (b)
+# qwen3-moe-30b-a3b cut to 8 of 48 layers served in phase 4's setup (the
+# bulk-steal routing counted), then one train step at 2 layers.  (c)
+# mamba2-2.7b cut to 8 of 64 layers, one bf16 step on 2 x 1,024 after the
+# float32 comparison.  (d) internvl2-2b at its depth, one prefill of 4
+# prompts of 768 tokens behind their 256 patches.
+_STEP = dict(lr=1e-3, warmup_steps=2, seed=0)
+PHASE11 = dict(
+    dense=dict(_STEP, arch="llama3.2-1b", batch=4, seq=1024, steps=12,
+               compare=True),
+    moe=dict(arch="qwen3-moe-30b-a3b", n_layers=8,
+             serve=dict(n_requests=24, prompt_lens=(128, 1024), max_new=16,
+                        max_seq=1040, wave_size=4, slow_speed=0.25),
+             train=dict(_STEP, arch="qwen3-moe-30b-a3b", layers=2, batch=2,
+                        seq=1024, steps=1)),
+    ssm=dict(_STEP, arch="mamba2-2.7b", layers=8, batch=2, seq=1024,
+             steps=1, compare=True),
+    vlm=dict(arch="internvl2-2b", n_prompts=4, text_len=768, seed=0))
+# The CPU rehearsal (tests/test_torch_smoke.py): reduced widths.
+PHASE11_SMALL = dict(
+    reduced=True,
+    dense=dict(PHASE11["dense"], batch=2, seq=32, steps=4),
+    moe=dict(PHASE11["moe"], n_layers=2,
+             serve=dict(n_requests=10, prompt_lens=(8, 24), max_new=4,
+                        max_seq=30, wave_size=4, slow_speed=0.25),
+             train=dict(PHASE11["moe"]["train"], seq=32)),
+    ssm=dict(PHASE11["ssm"], seq=40),
+    vlm=dict(PHASE11["vlm"], text_len=12))
+# Float32 loss and gradients through the kernels (their SIMT routes)
+# against the plain versions': the loss to 1e-4 (+ relative), as
+# serving's float32 logits; each gradient leaf to 1e-3 of its largest
+# |g| (the forward activations differ by the kernels' float32 rounding,
+# ~1e-6 relative, and the backward carries that through every layer).
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_GRAD_TOL = 1e-3
 
 # int32 operations: half the data sheet's 67 TFLOP/s float32 rate outside
 # the tensor cores, as a Hopper SM has 64 int32 lanes to 128 float32 ones
@@ -2250,6 +2313,21 @@ def _serve_routes():
             "ssd_scan": (ssd_ops, "ssd", ssd_chunked)}
 
 
+@contextlib.contextmanager
+def _plain(names):
+    """The kernels ``names`` swapped for their plain versions where the
+    models reach them (the package has no switch)."""
+    routes = _serve_routes()
+    kernels = {n: getattr(routes[n][0], routes[n][1]) for n in names}
+    for n in names:
+        setattr(routes[n][0], routes[n][1], routes[n][2])
+    try:
+        yield
+    finally:
+        for n in names:
+            setattr(routes[n][0], routes[n][1], kernels[n])
+
+
 def serve_launches(cfg) -> dict:
     """Launches of each kernel per prefill wave on ``cfg``'s path: K6 once
     per attention layer (per shared-block application in the hybrid), K7
@@ -2358,11 +2436,13 @@ def _check_launches(device, cfg, expect, launches, launches_tc,
 
 def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
                 max_new: int, max_seq: int, wave_size: int,
-                slow_speed: float, seed: int = 0):
+                slow_speed: float, seed: int = 0,
+                first_wave=None):
     """The wave engine behind the admission master, with the launch
     counters of the path's kernels zeroed just before the run and read
     just after it; then the first wave's prefill once more with the plain
-    versions swapped in, to compare logits."""
+    versions swapped in, to compare logits (``first_wave``, default
+    :func:`first_wave_check`)."""
     from repro_torch.core.policy import StealPolicy
     from repro_torch.serve.engine import Replica, ServeCluster
     from repro_torch.serve.scheduler import AdmissionMaster, Request
@@ -2400,7 +2480,8 @@ def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
                     len(prefill_ms))
 
     tokens0, logits0 = clock.first
-    first_wave = first_wave_check(cfg, params, tokens0, logits0, expect)
+    first_wave = (first_wave or first_wave_check)(cfg, params, tokens0,
+                                                  logits0, expect)
     decode_total = sum(decode_ms)
     by_batch = {}
     for b, ms in zip(clock.decode_batch, decode_ms):
@@ -2473,22 +2554,13 @@ def first_wave_check(cfg, params, tokens, logits_kernel, names):
     import dataclasses
     from repro_torch.models.zoo import build_model
 
-    routes = _serve_routes()
-    kernels = {n: getattr(routes[n][0], routes[n][1]) for n in names}
     bf16, f32 = build_model(cfg), build_model(
         dataclasses.replace(cfg, compute_dtype="float32"))
     out = {}
-    for route in ("plain", "kernel"):
-        for n in names:
-            mod, attr, plain = routes[n]
-            setattr(mod, attr, plain if route == "plain" else kernels[n])
-        try:
-            if route == "plain":
-                out["bf16/plain"] = bf16.prefill(params, tokens)[0]
-            out[f"f32/{route}"] = f32.prefill(params, tokens)[0]
-        finally:
-            for n in names:
-                setattr(routes[n][0], routes[n][1], kernels[n])
+    with _plain(names):
+        out["bf16/plain"] = bf16.prefill(params, tokens)[0]
+        out["f32/plain"] = f32.prefill(params, tokens)[0]
+    out["f32/kernel"] = f32.prefill(params, tokens)[0]
     f32_err = _close(out["f32/kernel"], out["f32/plain"], SERVE_TOL_F32,
                      f"first wave, float32 compute: {'+'.join(names)} vs "
                      f"plain")
@@ -2781,6 +2853,405 @@ def mesh_decode(device, cfg, n_lanes: int, execution: str) -> dict:
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------- phase 11: training, MoE and the VLM prefix
+
+
+def _arch_cfg(arch: str, *, reduced: bool = False, **changes):
+    from repro_torch import configs
+    cfg = configs.get(arch)
+    if reduced:
+        cfg = configs.reduced(cfg)
+    return dataclasses.replace(cfg, **changes)
+
+
+def train_launches(cfg) -> dict:
+    """Launches of each kernel per train step on ``cfg``'s path: a prefill
+    wave's (:func:`serve_launches`) in the forward, and as many again
+    when ``cfg.remat`` recomputes each group in the backward.  The
+    backward of a launch is its plain version's and launches nothing."""
+    return {n: k * (2 if cfg.remat else 1)
+            for n, k in serve_launches(cfg).items()}
+
+
+def train_batch(cfg, device, *, seed: int, batch: int, seq: int) -> dict:
+    """The first batch of ``launch/train``'s pipeline (the work-stealing
+    pipeline over ``synth_batch``) on ``device``."""
+    from repro_torch.data.pipeline import WorkStealingPipeline
+    from repro_torch.data.synthetic import synth_batch
+    from repro_torch.launch.train import make_batch
+    pipeline = WorkStealingPipeline(
+        n_hosts=1, make_batch=lambda shard, step: synth_batch(
+            seed, shard, step, batch, seq, cfg.vocab_size))
+    return make_batch(cfg, pipeline.next_batch(0), device)
+
+
+# Parameters whose gradient reaches them only through K6 (the attention
+# projections) or K7 (the scan's inputs): a launch that autograd cannot
+# see leaves them at exactly zero.
+THROUGH_KERNELS = ("attn/wq", "attn/wk", "attn/wv", "ssm/w_x", "ssm/w_B",
+                   "ssm/w_C", "ssm/w_dt", "ssm/A_log", "ssm/D")
+
+
+def grad_stats(grads) -> dict:
+    """Every gradient leaf finite (gated); the leaves of
+    ``THROUGH_KERNELS`` non-zero in every layer (gated); and how many
+    layer slices of the other leaves are all zero."""
+    from repro_torch._tree import tree_leaves_with_path
+    import torch
+    zero_slices, leaves = {}, 0
+    for key, g in tree_leaves_with_path(grads):
+        leaves += 1
+        check(bool(torch.isfinite(g).all()), f"gradient {key} not finite")
+        lead = (2 if key.startswith("grouped/") else
+                1 if key.startswith(("blocks/", "layers/", "tail/")) else 0)
+        rows = int(np.prod(g.shape[:lead]))
+        per_layer = g.reshape(rows, -1).abs().amax(1) > 0
+        if key.endswith(THROUGH_KERNELS):
+            check(bool(per_layer.all()),
+                  f"gradient {key} is zero in layers "
+                  f"{torch.nonzero(~per_layer).flatten().tolist()}")
+        n = int((~per_layer).sum())
+        if n:
+            zero_slices[key] = n
+    return {"leaves": leaves, "finite": True, "zero_layer_slices": zero_slices}
+
+
+class _FirstGrads:
+    """Wraps ``trainer.value_and_grad`` (what ``make_train_step`` calls)
+    and keeps :func:`grad_stats` of the first step's gradients."""
+
+    def __init__(self):
+        from repro_torch.train import trainer
+        self.mod, self.real, self.stats = trainer, trainer.value_and_grad, None
+        trainer.value_and_grad = self
+
+    def __call__(self, loss_fn, params, batch):
+        loss, grads = self.real(loss_fn, params, batch)
+        if self.stats is None:
+            self.stats = grad_stats(grads)
+        return loss, grads
+
+    def restore(self):
+        self.mod.value_and_grad = self.real
+
+
+def grads_against_plain(model, params, batch, names) -> dict:
+    """Loss and gradients through the kernels ``names`` against the same
+    with their plain versions swapped in (float32 compute): the loss
+    within ``TRAIN_LOSS_TOL`` (+ relative), each leaf within
+    ``TRAIN_GRAD_TOL`` of its largest |g|."""
+    import torch
+    from repro_torch._tree import tree_leaves_with_path
+    from repro_torch.train.trainer import value_and_grad
+    loss_k, g_k = value_and_grad(model.loss_fn, params, batch)
+    with _plain(names):
+        loss_p, g_p = value_and_grad(model.loss_fn, params, batch)
+    loss_k, loss_p = float(loss_k), float(loss_p)
+    check(abs(loss_k - loss_p) <= TRAIN_LOSS_TOL * (1 + abs(loss_p)),
+          f"float32 loss {loss_k} through the kernels, {loss_p} plain")
+    worst, leaves = 0.0, 0
+    for (key, a), (_, b) in zip(tree_leaves_with_path(g_k),
+                                tree_leaves_with_path(g_p)):
+        for run, g in (("kernel", a), ("plain", b)):
+            bad = ~torch.isfinite(g)
+            check(not bool(bad.any()),
+                  f"float32 gradient {key} of the {run} step: "
+                  f"{int(bad.sum())} of {g.numel()} elements not finite, "
+                  f"in rows {torch.nonzero(bad.reshape(g.shape[0], -1).any(1)).flatten()[:8].tolist()}")
+        scale = float(b.abs().max())
+        err = float((a - b).abs().max())
+        check(err <= TRAIN_GRAD_TOL * scale + 1e-30,
+              f"float32 gradient {key}: {err} from the plain step's, "
+              f"tolerance {TRAIN_GRAD_TOL} x {scale}")
+        worst = max(worst, err / scale if scale else 0.0)
+        leaves += 1
+    return {"loss_kernel": loss_k, "loss_plain": loss_p, "leaves": leaves,
+            "max_grad_err_over_leaf_max": worst}
+
+
+def _peak_gb(device):
+    import torch
+    if device.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated() / 2 ** 30
+
+
+def _reset_peak(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def _check_step_launches(device, expect, launches, launches_tc,
+                         tensor_core: bool, what: str):
+    """On the card: each kernel ``expect`` times in the step, and all of
+    them (bf16) or none (float32, the SIMT kernels) on the tensor-core
+    route."""
+    if device.type != "cuda":
+        return
+    for name, n in expect.items():
+        check(launches[name] == n, f"{what}: {name} launched "
+                                   f"{launches[name]} times, not {n}")
+        tc = launches_tc.get(name, 0)
+        check(tc == (n if tensor_core else 0),
+              f"{what}: {name} {tc} of {n} launches on the tensor-core "
+              f"route")
+
+
+def train_run(device, c, *, reduced: bool = False, layers=None) -> dict:
+    """``c["steps"]`` steps of ``make_train_step`` on one repeated batch of
+    the pipeline (bf16 compute, float32 parameters, remat), with the
+    path's launch counters zeroed just before each step and read just
+    after; before them, with ``c["compare"]``, the first step's loss and
+    gradients in float32 through the kernels (their SIMT routes) against
+    the plain versions'.  Gates: finite losses, the last below the first
+    (over more than one step), every gradient leaf of step 1 finite and
+    those of ``THROUGH_KERNELS`` non-zero in every layer, the launches."""
+    from repro_torch.models.zoo import build_model
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step
+
+    changes = {} if layers is None else {"n_layers": layers}
+    cfg = _arch_cfg(c["arch"], reduced=reduced, **changes)
+    model, params, init_s = _init_model(cfg, device, c["seed"])
+    batch = train_batch(cfg, device, seed=c["seed"], batch=c["batch"],
+                        seq=c["seq"])
+    expect = train_launches(cfg)
+    out = {"arch": cfg.name, "n_layers": cfg.n_layers,
+           "params": cfg.param_count(), "batch": [c["batch"], c["seq"]],
+           "init_s": init_s, "launches_expected_per_step": expect}
+    if c.get("compare"):
+        f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+        cmp, wall, n, n_tc = _run_counted(
+            device, expect,
+            lambda: grads_against_plain(f32, params, batch, list(expect)))
+        _check_step_launches(device, expect, n, n_tc, False,
+                             "float32 step")
+        out["float32_vs_plain"] = dict(cmp, wall_s=wall, launches=n)
+        gc.collect()
+
+    step = make_train_step(model, AdamWConfig(
+        lr=c["lr"], warmup_steps=c["warmup_steps"],
+        total_steps=c["steps"]))
+    opt = adamw_init(params)
+    tap = _FirstGrads()
+    losses, ms, launches = [], [], []
+    _reset_peak(device)
+    try:
+        for i in range(c["steps"]):
+            (params, opt, met), wall, n, n_tc = _run_counted(
+                device, expect, lambda: step(params, opt, batch))
+            _check_step_launches(device, expect, n, n_tc,
+                                 cfg.compute_dtype == "bfloat16",
+                                 f"train step {i}")
+            losses.append(float(met["loss"]))
+            ms.append(wall * 1e3)
+            launches.append(n)
+    finally:
+        tap.restore()
+    check(all(np.isfinite(losses)), f"losses {losses}")
+    if len(losses) > 1:
+        check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    tokens = c["batch"] * c["seq"]
+    warm = ms[1:] or ms
+    out.update(losses=losses, ms_per_step=ms,
+               ms_per_step_warm=sum(warm) / len(warm),
+               tokens_per_s=tokens * 1e3 / (sum(warm) / len(warm)),
+               peak_gb=_peak_gb(device), launches=launches,
+               grads_step1=tap.stats,
+               grad_norm_last=float(met["grad_norm"]))
+    return out
+
+
+class _RouteTap:
+    """Wraps ``moe.route_with_bulk_steal`` (what every MoE layer calls).
+    Counting: against the drop baseline's plan for the same
+    probabilities, the assignments the bulk steal rerouted and those it
+    still dropped, on the device; and each prefill-sized call's inputs,
+    for the plan check.  ``record`` / ``replay``: the plans of one
+    prefill, handed back in order to a second prefill (whose own plans
+    are computed and compared: ``flips``)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.real = moe, moe.route_with_bulk_steal
+        self.counting, self.record, self.replay = True, None, None
+        self.calls, self.rerouted, self.dropped, self.baseline_dropped = \
+            0, 0, 0, 0
+        self.flips, self.prefill_calls = 0, []
+        moe.route_with_bulk_steal = self
+
+    def __call__(self, probs, top_k, capacity, bulk_steal=True):
+        plan = self.real(probs, top_k, capacity, bulk_steal)
+        if self.replay is not None:
+            mine, plan = plan, self.replay.pop(0)
+            self.flips = self.flips + (mine[0] != plan[0]).sum()
+            return plan
+        if self.record is not None:
+            self.record.append(plan)
+        elif self.counting and bulk_steal:
+            base = self.real(probs, top_k, capacity, False)
+            moved = plan[3] & (plan[0] != base[0])
+            self.calls += 1
+            self.rerouted = self.rerouted + moved.sum()
+            self.dropped = self.dropped + (~plan[3]).sum()
+            self.baseline_dropped = self.baseline_dropped + (~base[3]).sum()
+            if probs.shape[0] > 64:
+                self.prefill_calls.append((moved.sum(), probs, top_k,
+                                           capacity))
+        return plan
+
+    def restore(self):
+        self.mod.route_with_bulk_steal = self.real
+
+    def plan_on_the_cpu(self) -> dict:
+        """The prefill call whose steal moved the most assignments,
+        routed again on its device and on the CPU from the same
+        probabilities: expert, slot and valid bit-equal (gated)."""
+        import torch
+        if not self.prefill_calls:
+            return {"calls": 0}
+        moved, probs, k, cap = max(self.prefill_calls,
+                                   key=lambda t: int(t[0]))
+        dev = self.real(probs, k, cap, True)
+        cpu = self.real(probs.cpu(), k, cap, True)
+        for name, a, b in zip(("expert", "slot", "weight", "valid"), dev,
+                              cpu):
+            if name != "weight":
+                check(torch.equal(a.cpu(), b),
+                      f"routing plan's {name} on {probs.device} differs "
+                      f"from the CPU's")
+        return {"tokens": probs.shape[0], "top_k": k, "capacity": cap,
+                "rerouted": int(moved), "bit_equal": True,
+                "weight_max_abs_diff": float((dev[2].cpu() - cpu[2]).abs()
+                                             .max())}
+
+
+def moe_first_wave(tap, cfg, params, tokens, logits_kernel, names):
+    """The first wave's float32 last-position logits through the kernels
+    against the plain versions', the second prefill replaying the first
+    one's routing plans: a near-tie in the router that the two
+    attentions' rounding would flip is counted (``plan_flips``) instead of
+    compared."""
+    from repro_torch.models.zoo import build_model
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    tap.record = []
+    try:
+        kern = f32.prefill(params, tokens)[0]
+        plans, tap.record = tap.record, None
+        tap.replay, tap.flips = list(plans), 0
+        with _plain(names):
+            plain = f32.prefill(params, tokens)[0]
+        check(not tap.replay, "the plain prefill routed fewer times")
+    finally:
+        tap.record, tap.replay = None, None
+    err = _close(kern, plain, SERVE_TOL_F32,
+                 f"MoE first wave, float32 compute: "
+                 f"{'+'.join(names)} vs plain")
+    return {"first_wave_f32_max_abs_err": err,
+            "first_wave_routing_calls": len(plans),
+            "first_wave_plan_flips": int(tap.flips),
+            "first_wave_greedy_agreement_bf16_f32": float(
+                (logits_kernel.argmax(-1) == kern.argmax(-1)).double()
+                .mean())}
+
+
+def phase_moe(device, c, *, reduced: bool = False) -> dict:
+    """(b) The MoE model (``c["n_layers"]`` of its layers) served in phase
+    4's setup with the routing tap counting; every request in full,
+    ``stolen > 0``, K6 once a layer and wave, the steal rerouting and
+    dropping nothing, the plan on the card equal to the CPU's, the first
+    wave's float32 logits equal to the plain versions' under one plan.
+    Then one train step at ``c["train_layers"]`` layers."""
+    import torch
+    cfg = _arch_cfg(c["arch"], reduced=reduced, n_layers=c["n_layers"])
+    tap = _RouteTap()
+    try:
+        serve = phase_serve(device, cfg=cfg, **c["serve"],
+                            first_wave=functools.partial(moe_first_wave,
+                                                         tap))
+        routing = {"calls": tap.calls, "rerouted": int(tap.rerouted),
+                   "dropped": int(tap.dropped),
+                   "dropped_without_steal": int(tap.baseline_dropped),
+                   "plan_vs_cpu": tap.plan_on_the_cpu()}
+    finally:
+        tap.restore()
+    check(routing["rerouted"] > 0, "the bulk steal rerouted nothing")
+    check(routing["dropped"] == 0,
+          f"the bulk steal dropped {routing['dropped']} assignments")
+    serve["routing"] = routing
+    del tap
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    train = train_run(device, c["train"], reduced=reduced,
+                      layers=c["train"]["layers"])
+    return {"serve": serve, "train": train}
+
+
+def vlm_prefill(device, c, *, reduced: bool = False) -> dict:
+    """(d) One prefill of ``c["n_prompts"]`` prompts behind their patch
+    prefix (random patches from the seed), K6 once a layer on the
+    tensor-core route in bf16; the float32 last-position logits through
+    K6 (SIMT) against the plain version's within ``SERVE_TOL_F32``."""
+    import torch
+    from repro_torch.models.zoo import build_model
+    cfg = _arch_cfg(c["arch"], reduced=reduced)
+    model, params, init_s = _init_model(cfg, device, c["seed"])
+    rng = np.random.default_rng(c["seed"])
+    B, S = c["n_prompts"], c["text_len"]
+    tokens = torch.tensor(rng.integers(1, cfg.vocab_size, (B, S)),
+                          dtype=torch.int32, device=device)
+    patches = torch.tensor(rng.standard_normal(
+        (B, cfg.n_patches, cfg.frontend_dim)), dtype=torch.float32,
+        device=device)
+    expect = serve_launches(cfg)
+    (logits, cache), wall, n, n_tc = _run_counted(
+        device, expect, lambda: model.prefill(params, tokens, patches))
+    _check_step_launches(device, expect, n, n_tc, True, "vlm prefill")
+    check(cache["pos"] == cfg.n_patches + S,
+          f"cache at {cache['pos']}, not {cfg.n_patches + S}")
+    check(bool(torch.isfinite(logits).all()), "vlm logits not finite")
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    kern, wall32, n32, n32_tc = _run_counted(
+        device, expect, lambda: f32.prefill(params, tokens, patches)[0])
+    _check_step_launches(device, expect, n32, n32_tc, False,
+                         "vlm float32 prefill")
+    with _plain(list(expect)):
+        plain = f32.prefill(params, tokens, patches)[0]
+    err = _close(kern, plain, SERVE_TOL_F32,
+                 "vlm prefill, float32 compute: K6 vs plain")
+    return {"arch": cfg.name, "params": cfg.param_count(), "init_s": init_s,
+            "shape": [B, cfg.n_patches, S], "prefill_ms": wall * 1e3,
+            "prefill_f32_ms": wall32 * 1e3, "launches": n,
+            "launches_tensor_core": n_tc, "f32_max_abs_err": err,
+            "greedy_agreement_bf16_f32": float(
+                (logits.argmax(-1) == kern.argmax(-1)).double().mean())}
+
+
+def phase_train(device, cfg) -> dict:
+    """Phase 11: (a) dense training, (b) MoE serving and a train step, (c)
+    SSM training, (d) the VLM prefix; each part's model freed before the
+    next."""
+    import torch
+    reduced = cfg.get("reduced", False)
+    out = {}
+    for name, fn in (("dense", train_run), ("moe", phase_moe),
+                     ("ssm", train_run), ("vlm", vlm_prefill)):
+        part = dict(cfg[name])
+        layers = part.pop("layers", None) if fn is train_run else None
+        t0 = time.perf_counter()
+        if fn is train_run:
+            out[name] = fn(device, part, reduced=reduced, layers=layers)
+        else:
+            out[name] = fn(device, part, reduced=reduced)
+        out[name]["wall_s"] = time.perf_counter() - t0
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -2857,6 +3328,11 @@ def main() -> int:
 
     decode = phase_decode(device, counters, PHASE10, expect=PHASE10_EXPECT)
     print(json.dumps({"phase": "decode", "card": card, "result": decode}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train = phase_train(device, PHASE11)
+    print(json.dumps({"phase": "train", "card": card, "result": train}),
           flush=True)
 
     launches = {**solver["launches"],

@@ -46,18 +46,20 @@ def tree_leaves_with_path(tree: Any, prefix: str = ""
 def tree_unflatten(template: Any, leaves: List[Any]) -> Any:
     """``template``'s structure with its leaves replaced, in
     :func:`tree_leaves` order."""
-    it = iter(leaves)
+    return _build(template, iter(leaves))
 
-    def build(t):
-        if isinstance(t, dict):
-            return {k: build(t[k]) for k in sorted(t)}
-        if isinstance(t, tuple) and hasattr(t, "_fields"):
-            return type(t)(*(build(x) for x in t))
-        if isinstance(t, (tuple, list)):
-            return type(t)(build(x) for x in t)
-        return next(it)
 
-    return build(template)
+def _build(t: Any, it) -> Any:
+    # A module-level recursion: a recursive closure would be a reference
+    # cycle holding ``it``, and through it every leaf, until the cyclic
+    # garbage collector ran (gigabytes of gradients and moments a step).
+    if isinstance(t, dict):
+        return {k: _build(t[k], it) for k in sorted(t)}
+    if isinstance(t, tuple) and hasattr(t, "_fields"):
+        return type(t)(*(_build(x, it) for x in t))
+    if isinstance(t, (tuple, list)):
+        return type(t)(_build(x, it) for x in t)
+    return next(it)
 
 
 def tree_map(fn: Callable, tree: Any, *rest: Any) -> Any:

@@ -14,9 +14,19 @@ by indexing the KV head:
 
 There is no other route: a CUDA tensor that neither kernel takes raises.
 ``mha.launches`` counts every launch, ``mha.launches_tc`` those of the
-tensor-core kernel.  :func:`mha_simt` reaches the SIMT kernel in bfloat16
-too, the earlier design of the bf16 route, for timing beside it; no model
-calls it.
+tensor-core kernel.
+
+On CUDA tensors the launch is a ``torch.autograd.Function``: its backward
+recomputes the plain version from the saved q, k and v and returns that
+function's gradients (``kernels/_backward.plain_grads``; GQA's KV-head
+gradients are summed over the group by the plain version's index).  The
+kernel fills its output through raw pointers, so without it the output
+would have no ``grad_fn`` and a loss would silently lose attention's share
+of every gradient.  There is no backward kernel: the JAX package has none
+either (its models take the jnp path, differentiated by XLA).
+
+:func:`mha_simt` reaches the SIMT kernel in bfloat16 too, the earlier
+design of the bf16 route, for timing beside it; no model calls it.
 """
 
 from __future__ import annotations
@@ -26,6 +36,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels._backward import plain_grads
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
 __all__ = ["mha", "mha_simt", "route", "kv_tile_range", "query_blocks",
@@ -121,20 +132,11 @@ def _launch_simt(q, k, v, dev, causal, window, softcap):
     return out
 
 
-def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-        causal: bool = True, window: Optional[int] = None,
-        softcap: Optional[float] = None) -> torch.Tensor:
-    """Online-softmax attention; ``mha.launches`` counts the CUDA launches,
-    ``mha.launches_tc`` the tensor-core kernel's among them."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
+def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
+    """K6 on CUDA tensors, on the kernel :func:`route` picks."""
     dev = _check(q, k, v, window)
     if route(q.dtype) == SIMT:
-        out = _launch_simt(q, k, v, dev, causal, window, softcap)
-        if out.numel():
-            mha.launches += 1
-        return out
+        return _launch_simt(q, k, v, dev, causal, window, softcap)
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
@@ -145,8 +147,37 @@ def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _lib.launch("fa_flash_attention_wgmma", q.data_ptr(), k.data_ptr(),
                 v.data_ptr(), out.data_ptr(), *_dims(q, k),
                 *_flags(q.shape[3], causal, window, softcap), device=dev)
-    mha.launches += 1
-    mha.launches_tc += 1
+    return out
+
+
+class _Attention(torch.autograd.Function):
+    """Forward: K6.  Backward: the plain version's gradients."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.opts = dict(causal=causal, window=window, softcap=softcap)
+        return _launch(q, k, v, causal, window, softcap)
+
+    @staticmethod
+    def backward(ctx, dout):
+        return plain_grads(attention_ref, ctx.saved_tensors, (dout,),
+                           ctx.needs_input_grad[:3], **ctx.opts) + (
+                               None, None, None)
+
+
+def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+        causal: bool = True, window: Optional[int] = None,
+        softcap: Optional[float] = None) -> torch.Tensor:
+    """Online-softmax attention; ``mha.launches`` counts the CUDA launches,
+    ``mha.launches_tc`` the tensor-core kernel's among them."""
+    if q.device.type == "cpu":
+        return attention_ref(q, k, v, causal=causal, window=window,
+                             softcap=softcap)
+    out = _Attention.apply(q, k, v, causal, window, softcap)
+    if out.numel():
+        mha.launches += 1
+        mha.launches_tc += route(q.dtype) == TENSOR_CORE
     return out
 
 

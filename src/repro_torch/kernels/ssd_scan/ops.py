@@ -23,6 +23,18 @@ fails to build or launch raises.  ``ssd.launches`` counts the calls that
 ran a kernel, ``ssd.launches_tc`` those on the tensor-core route.
 :func:`ssd_simt` reaches the SIMT kernel in bfloat16 at every shape, the
 earlier design of the bf16 route, for timing beside it; no model calls it.
+
+On CUDA tensors the launch is a ``torch.autograd.Function`` whose backward
+recomputes ``ssd_chunked`` from the saved inputs and returns its gradients
+for x, dt, A, Bm, Cm and D (``kernels/_backward.plain_grads``; an output
+whose gradient is ``None``, as the final state's is in training, adds
+nothing).  ``ssd_chunked`` rather than ``ssd_chunk_parallel``: it is the
+function the CPU path runs and the tests hold against the JAX package's
+autodiff, and it keeps its ``(B, Q, Q, nh)`` intermediates one chunk at a
+time (at chunk 256, 80 heads of 64 and batch 2, ~0.25 GB a chunk with the
+float64 differences), where ``ssd_chunk_parallel`` forms every chunk's
+``(B, nc, Q, Q, nh)`` float64 differences and products at once.  There is
+no backward kernel: the JAX package has none either.
 """
 
 from __future__ import annotations
@@ -30,6 +42,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels import _lib
+from repro_torch.kernels._backward import plain_grads
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
 __all__ = ["ssd", "ssd_simt", "route", "HEAD_DIMS", "STATE_DIMS",
@@ -119,6 +132,26 @@ def _launch_tc(x, dt, A, Bm, Cm, D, chunk, dev):
     return y, fin
 
 
+class _Scan(torch.autograd.Function):
+    """Forward: K7 on the route :func:`route` picks.  Backward: the plain
+    version's gradients."""
+
+    @staticmethod
+    def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
+        dev = _check(x, dt, A, Bm, Cm, D, chunk)
+        tc = route(x.dtype, x.shape[3], Bm.shape[-1], chunk) == TENSOR_CORE
+        ctx.save_for_backward(x, dt, A, Bm, Cm, D)
+        ctx.chunk = chunk
+        ctx.set_materialize_grads(False)
+        return (_launch_tc if tc else _launch_simt)(x, dt, A, Bm, Cm, D,
+                                                    chunk, dev)
+
+    @staticmethod
+    def backward(ctx, dy, dfinal):
+        return plain_grads(ssd_chunked, ctx.saved_tensors, (dy, dfinal),
+                           ctx.needs_input_grad[:6], ctx.chunk) + (None,)
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
         chunk: int):
@@ -126,13 +159,11 @@ def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
     kernel, ``ssd.launches_tc`` those on the tensor-core route."""
     if x.device.type == "cpu":
         return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
-    dev = _check(x, dt, A, Bm, Cm, D, chunk)
-    tc = route(x.dtype, x.shape[3], Bm.shape[-1], chunk) == TENSOR_CORE
-    out = (_launch_tc if tc else _launch_simt)(x, dt, A, Bm, Cm, D, chunk,
-                                               dev)
+    out = _Scan.apply(x, dt, A, Bm, Cm, D, chunk)
     if x.shape[0] and x.shape[2]:
         ssd.launches += 1
-        ssd.launches_tc += tc
+        ssd.launches_tc += route(x.dtype, x.shape[3], Bm.shape[-1],
+                                 chunk) == TENSOR_CORE
     return out
 
 

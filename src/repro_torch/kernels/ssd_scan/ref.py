@@ -39,6 +39,18 @@ __all__ = ["ssd_chunk_ref", "ssd_chunked", "ssd_chunk_parallel",
            "chunk_states", "pass_states", "chunk_output"]
 
 
+def _causal(causal: torch.Tensor, diff: torch.Tensor) -> torch.Tensor:
+    """``diff`` (the log decay ``cs_i - cs_j``) where ``j <= i``, -inf
+    above the diagonal, so that its ``exp`` is the causal decay with zeros
+    above.  Masking before the ``exp`` (the JAX package masks after it,
+    ``where(causal, exp(diff), 0)``) gives the same values and a finite
+    gradient: above the diagonal ``diff`` is the positive sum of the decay
+    in between, whose ``exp`` overflows to inf once a chunk's decay passes
+    ~88 (at chunk 256 mamba2's reaches ~170), and the backward of the
+    masking ``where`` then multiplies that inf by a zero gradient: NaN."""
+    return diff.masked_fill(~causal, float("-inf"))
+
+
 def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a, B: torch.Tensor,
                   C: torch.Tensor, D, state: torch.Tensor
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -50,7 +62,7 @@ def ssd_chunk_ref(x: torch.Tensor, dt: torch.Tensor, a, B: torch.Tensor,
     diff = cs[:, None] - cs[None, :]                      # (Q, Q)
     causal = torch.tril(torch.ones((Q, Q), dtype=torch.bool,
                                    device=x.device))
-    L = torch.where(causal, torch.exp(diff), 0.0) * dt[None, :]
+    L = torch.exp(_causal(causal, diff)) * dt[None, :]
     G = C @ B.T                                           # (Q, Q)
     y = (G * L) @ x                                       # intra
     y = y + torch.exp(cs)[:, None] * (C @ state.T)        # inter
@@ -108,7 +120,7 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
 
         # intra-chunk: L[i,j,h] = exp(cs_i - cs_j) for j <= i
         diff = cs[:, :, None, :] - cs[:, None, :, :]      # (B,Q,Q,nh)
-        Lmat = torch.where(causal, torch.exp(diff.to(f32)), 0.0)
+        Lmat = torch.exp(_causal(causal, diff).to(f32))
         G = torch.einsum("bin,bjn->bij", Cc, Bc)          # (B,Q,Q)
         M = G[..., None] * Lmat * dtc[:, None, :, :]      # (B,Q,Q,nh)
         y_intra = torch.einsum("bijh,bjhd->bihd", M, xc)
@@ -174,7 +186,7 @@ def chunk_output(xq: torch.Tensor, dtq: torch.Tensor, cs: torch.Tensor,
                                    device=xq.device))[:, :, None]
     G = torch.einsum("bcin,bcjn->bcij", Cq, Bq)
     diff = cs[:, :, :, None, :] - cs[:, :, None, :, :]      # (B,nc,Q,Q,nh)
-    L = torch.where(causal, torch.exp(diff.float()), 0.0) * dtq[:, :, None]
+    L = torch.exp(_causal(causal, diff).float()) * dtq[:, :, None]
     y = torch.einsum("bcij,bcijh,bcjhd->bcihd", G, L, xq)
     y = y + torch.exp(cs.float())[..., None] * torch.einsum(
         "bcin,bchdn->bcihd", Cq, s_in)

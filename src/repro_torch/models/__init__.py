@@ -1,1 +1,2 @@
-"""Models (port of ``repro.models``): the decoder family, for serving."""
+"""Models (port of ``repro.models``): the decoder, MoE, VLM, SSM and hybrid
+families, for serving and training."""

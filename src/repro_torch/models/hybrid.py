@@ -1,6 +1,5 @@
 """The SSM family: the pure Mamba2 LM (mamba2-2.7b) and the hybrid Mamba2 +
-shared-attention LM (zamba2-7b) (port of ``repro.models.hybrid``, serving
-half).
+shared-attention LM (zamba2-7b) (port of ``repro.models.hybrid``).
 
 :class:`SSMLM` stacks ``n_layers`` pre-normed Mamba2 blocks.
 :class:`HybridLM`'s layer plan for ``n_layers=81, attn_every=6``: 13
@@ -9,16 +8,21 @@ SHARED attention + MLP block (one parameter set reused 13 times), then a
 tail of 81 - 78 = 3 Mamba2 blocks.  The shared block's KV caches are per
 application (13 of them) although its weights are shared.
 
-Every block's prefill scan runs through K7 (``models.ssm.mamba_block``);
-the shared block's prefill attention through K6
-(``models.attention.attention``).  Decode is plain PyTorch: the O(1)
-state update and ``decode_attention``; like ``DecoderLM.decode_step`` it
-writes the new conv inputs, states and K / V into the cache tensors in
-place.  Parameters keep the JAX package's layout (stacked ``(L, ...)``
-leaves, ``(NG, AE, ...)`` for the hybrid's groups), so its weights carry
-over unchanged.  The JAX package scans the layers; the port loops over
-them in Python.  ``loss_fn``, ``param_specs`` and ``cache_specs`` wait for
-training.
+Every block's scan in ``forward`` and ``prefill`` runs through K7
+(``models.ssm.mamba_block``); the shared block's attention through K6
+(``models.attention.attention``); both kernels' CUDA routes have a
+gradient (their plain versions').  ``forward`` is differentiable: under
+``cfg.remat`` each SSMLM layer, each hybrid group (its six blocks and the
+shared block) and each tail layer runs under ``torch.utils.checkpoint``,
+as the JAX package wraps them in ``jax.checkpoint``.  ``loss_fn`` is the
+chunked LM-head cross-entropy.  Decode is plain PyTorch: the O(1) state
+update and ``decode_attention``; like ``DecoderLM.decode_step`` it writes
+the new conv inputs, states and K / V into the cache tensors in place.
+Parameters keep the JAX package's layout (stacked ``(L, ...)`` leaves,
+``(NG, AE, ...)`` for the hybrid's groups), so its weights carry over
+unchanged.  The JAX package scans the layers; the port loops over them in
+Python.  ``param_specs`` and ``cache_specs`` wait for the sharded-model
+path.
 """
 
 from __future__ import annotations
@@ -32,8 +36,9 @@ from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
                                           decode_attention)
-from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rms_norm)
+from repro_torch.models.layers import (chunked_ce_loss, dense_init,
+                                       embed_init, mlp_apply, mlp_init,
+                                       remat_call, rms_norm)
 from repro_torch.models.ssm import (SSMCache, SSMConfig, mamba_block,
                                     mamba_decode_step, ssm_init)
 
@@ -71,6 +76,14 @@ class _MambaLM:
         """Final norm -> head -> float32."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         return (x @ self._head(params).to(self.cdtype)).float()
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch`` (tokens, labels, optional
+        loss_mask), the LM head in sequence chunks."""
+        hidden = self.forward(params, batch["tokens"])
+        return chunked_ce_loss(hidden, self._head(params).to(self.cdtype),
+                               batch["labels"], batch.get("loss_mask"),
+                               remat=self.cfg.remat)
 
     def _mamba(self, pl, x: torch.Tensor, capture: bool = False):
         """One residual block, ``pl`` holding ``ln`` and ``ssm``; with
@@ -139,12 +152,12 @@ class SSMLM(_MambaLM):
         for l in range(self.cfg.n_layers):
             yield l, tree_map(lambda a: a[l], params["layers"])
 
-    @torch.no_grad()
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, D) hidden (after final norm)."""
+        """(B, S) tokens -> (B, S, D) hidden (after final norm);
+        differentiable, each layer rematerialized under ``cfg.remat``."""
         x = self._embed(params, tokens)
         for _, pl in self._layers(params):
-            x = self._mamba(pl, x)
+            x = remat_call(self._mamba, pl, x, enabled=self.cfg.remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def make_cache(self, batch: int, seq_len: int, device=None) -> Pytree:
@@ -247,19 +260,27 @@ class HybridLM(_MambaLM):
         return x + mlp_apply(s["mlp"], rms_norm(x, s["ln2"], eps),
                              self.cdtype)
 
-    @torch.no_grad()
+    def _group_fn(self, params, g: int, x: torch.Tensor,
+                  positions: torch.Tensor) -> torch.Tensor:
+        """Group ``g``'s Mamba2 blocks, then the shared block."""
+        for _, pl in self._group(params, g):
+            x = self._mamba(pl, x)
+        return self._shared_block(params, x, lambda p, h: attention(
+            p, h, self.acfg, self.cdtype, positions=positions))
+
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, D) hidden (after final norm)."""
+        """(B, S) tokens -> (B, S, D) hidden (after final norm);
+        differentiable, each group and each tail layer rematerialized
+        under ``cfg.remat``."""
         x = self._embed(params, tokens)
         positions = torch.arange(x.shape[1], dtype=torch.int32,
                                  device=x.device)
+        remat = self.cfg.remat
         for g in range(self.n_groups):
-            for _, pl in self._group(params, g):
-                x = self._mamba(pl, x)
-            x = self._shared_block(params, x, lambda p, h: attention(
-                p, h, self.acfg, self.cdtype, positions=positions))
+            x = remat_call(self._group_fn, params, g, x, positions,
+                           enabled=remat)
         for _, pl in self._tail(params):
-            x = self._mamba(pl, x)
+            x = remat_call(self._mamba, pl, x, enabled=remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def make_cache(self, batch: int, seq_len: int, device=None) -> Pytree:

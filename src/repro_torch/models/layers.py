@@ -1,5 +1,5 @@
 """Shared building blocks: norms, softcap, initializers, the SwiGLU MLP
-(port of ``repro.models.layers``).
+and the sequence-chunked LM-head loss (port of ``repro.models.layers``).
 
 Models are plain functions over parameter trees (dicts of tensors), as in
 the JAX package; stacked layers carry a leading ``(L, ...)`` dimension, so
@@ -17,6 +17,7 @@ from typing import Any, Optional, Sequence
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 Pytree = Any
 
@@ -27,6 +28,8 @@ __all__ = [
     "embed_init",
     "mlp_init",
     "mlp_apply",
+    "chunked_ce_loss",
+    "remat_call",
 ]
 
 
@@ -74,3 +77,53 @@ def mlp_apply(p: Pytree, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     h = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
     return (F.silu(h) * u) @ p["w_down"].to(compute_dtype)
+
+
+def remat_call(fn, *args, enabled: bool = True):
+    """``fn(*args)``, under ``torch.utils.checkpoint`` when ``enabled`` and
+    autograd is recording: its activations are recomputed in the backward
+    instead of kept (the JAX package's ``jax.checkpoint`` with
+    ``nothing_saveable``)."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _chunk_nll(h, head, labels, mask, final_softcap):
+    """Sum of one chunk's masked token NLL and of its mask: logits in the
+    head's dtype, softcapped, then float32 for the logsumexp."""
+    logits = softcap(h @ head, final_softcap).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
+def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
+                    labels: torch.Tensor, mask: Optional[torch.Tensor], *,
+                    final_softcap: Optional[float] = None, chunk: int = 512,
+                    remat: bool = True) -> torch.Tensor:
+    """Mean token cross-entropy of the LM head over ``hidden``, in sequence
+    chunks so that the ``(B, S, V)`` logits never exist at once.
+
+    hidden: (B, S, D); head: (D, V); labels: (B, S) int; mask: optional
+    (B, S).  ``S // chunk`` chunks, fewer until they divide S (vlm's text
+    length need not be a multiple).  With ``remat`` each chunk runs
+    under ``torch.utils.checkpoint``: its float32 logits are recomputed in
+    the backward (at a 128,256-entry vocab and a 4 x 512 chunk they are
+    1.05 GB)."""
+    B, S, _ = hidden.shape
+    nchunk = max(S // chunk, 1)
+    while S % nchunk:
+        nchunk -= 1
+    csz = S // nchunk
+    if mask is None:
+        mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
+    mask = mask.float()
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for c in range(nchunk):
+        part = slice(c * csz, (c + 1) * csz)
+        nll, m = remat_call(_chunk_nll, hidden[:, part], head,
+                            labels[:, part], mask[:, part], final_softcap,
+                            enabled=remat)
+        tot, cnt = tot + nll, cnt + m
+    return tot / torch.clamp(cnt, min=1.0)

@@ -1,19 +1,26 @@
-"""Decoder-only LM for the dense family (port of
-``repro.models.transformer.DecoderLM``, serving half).
+"""Decoder-only LM for the dense, MoE and VLM families (port of
+``repro.models.transformer.DecoderLM``).
 
-Structure: token embedding -> layer GROUPS -> final norm -> (tied) LM
-head.  A "group" is the layer repeat unit: 1 for uniform archs, 2 for
-gemma2's (local, global) alternation.  Parameters keep the JAX package's
-layout, each group kind's layers stacked on a leading ``(NG, ...)`` dim,
-so the JAX package's weights carry over unchanged.  The JAX package scans
-the groups under remat; serving takes no gradient, so the port loops over
-them in Python.
+Structure: token (+ optional patch-prefix) embedding -> layer GROUPS ->
+final norm -> (tied) LM head.  A "group" is the layer repeat unit: 1 for
+uniform archs, 2 for gemma2's (local, global) alternation.  Parameters
+keep the JAX package's layout, each group kind's layers stacked on a
+leading ``(NG, ...)`` dim, so the JAX package's weights carry over
+unchanged.  The JAX package scans the groups; the port loops over them in
+Python, and under ``cfg.remat`` runs each group of ``forward`` under
+``torch.utils.checkpoint`` (the JAX package's ``jax.checkpoint``).
 
-Prefill attention runs through K6 (``models.attention.attention``);
+An MoE layer (``n_experts > 0``) takes ``models.moe.moe_apply`` (bulk-steal
+routing) where a dense one takes the SwiGLU MLP: capacity factor 1.25 in
+``forward`` and ``prefill``, 2.0 in ``decode_step``, as in the JAX package.
+The VLM family prefixes the text with ``patches`` projected by
+``patch_proj``; ``loss_fn`` scores the text positions only.
+
+Prefill and training attention run through K6 (``models.attention
+.attention``), whose CUDA route has a gradient (its plain version's);
 decode attention is plain PyTorch.  ``decode_step`` writes the new
-token's K / V into the cache in place.  MoE layers (``n_experts > 0``) and
-the VLM patch prefix wait for their ROADMAP items; ``loss_fn``,
-``param_specs`` and ``cache_specs`` wait for training.
+token's K / V into the cache in place.  ``param_specs`` and
+``cache_specs`` wait for the sharded-model path.
 """
 
 from __future__ import annotations
@@ -25,14 +32,20 @@ import torch
 
 from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
                                           decode_attention)
-from repro_torch.models.layers import (dense_init, embed_init, mlp_apply,
-                                       mlp_init, rms_norm, softcap)
+from repro_torch.models.layers import (chunked_ce_loss, dense_init,
+                                       embed_init, mlp_apply, mlp_init,
+                                       remat_call, rms_norm, softcap)
 
 Pytree = Any
 
 __all__ = ["DecoderLM"]
+
+_LOSS_CHUNK = 512           # sequence chunk of the LM-head loss
+_CAPACITY = 1.25            # MoE capacity factor over a prompt or batch
+_DECODE_CAPACITY = 2.0      # ... and over one decode token a row
 
 
 def _attn_cfg(cfg: ModelConfig, *, local: bool) -> AttnConfig:
@@ -50,17 +63,9 @@ def _attn_cfg(cfg: ModelConfig, *, local: bool) -> AttnConfig:
 
 
 class DecoderLM:
-    """Functional model bundle for one dense decoder config."""
+    """Functional model bundle for one config (dense / moe / vlm)."""
 
     def __init__(self, cfg: ModelConfig):
-        if cfg.n_experts:
-            raise NotImplementedError(
-                f"{cfg.name}: MoE layers (models/moe.py) wait for ROADMAP "
-                f"queue A item 10")
-        if cfg.family == "vlm":
-            raise NotImplementedError(
-                f"{cfg.name}: the VLM patch prefix waits for ROADMAP queue A "
-                f"item 10")
         self.cfg = cfg
         # Layer grouping: gemma2 alternates (local, global).
         if cfg.local_global_every:
@@ -93,7 +98,11 @@ class DecoderLM:
             if cfg.sandwich_norm:
                 sub["ln1_post"] = ones(NG, D)
                 sub["ln2_post"] = ones(NG, D)
-            sub["mlp"] = mlp_init(gen, NG, D, cfg.d_ff, self.dtype)
+            if cfg.n_experts:
+                sub["moe"] = moe_mod.moe_init(gen, NG, D, cfg.n_experts,
+                                              cfg.d_ff_expert, self.dtype)
+            else:
+                sub["mlp"] = mlp_init(gen, NG, D, cfg.d_ff, self.dtype)
             blocks[f"g{gi}"] = sub
         params = {
             "embed": embed_init(gen, Vp, D, self.dtype),
@@ -102,15 +111,25 @@ class DecoderLM:
         }
         if not cfg.tie_embeddings:
             params["lm_head"] = dense_init(gen, (D, Vp), self.dtype)
+        if cfg.family == "vlm":
+            params["patch_proj"] = dense_init(gen, (cfg.frontend_dim, D),
+                                              self.dtype)
         return params
 
     # ----------------------------------------------------------- embedding
 
-    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+    def _embed(self, params, tokens: torch.Tensor,
+               patches: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """(B, S_text) tokens [+ (B, P, frontend_dim) patches] -> (B, P +
+        S_text, D) in the compute dtype, the projected patches first."""
         x = params["embed"][tokens.long()]               # (B, S, D)
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
                                  device=x.device)
+        if patches is not None:
+            pp = patches.to(self.cdtype) @ params["patch_proj"].to(
+                self.cdtype)
+            x = torch.cat([pp.to(x.dtype), x], dim=1)
         return x.to(self.cdtype)
 
     def _head(self, params) -> torch.Tensor:
@@ -126,43 +145,84 @@ class DecoderLM:
 
     # ------------------------------------------------------------- layers
 
+    def _group_params(self, params, g: int) -> Pytree:
+        """Group ``g``'s parameters, ``{"g<gi>": that layer's}``."""
+        return tree_map(lambda a: a[g], params["blocks"])
+
     def _layers(self, params):
         """Yield ``(group index, kind index, kind, that layer's params)`` in
         layer order."""
         for g in range(self.n_groups):
+            pgroup = self._group_params(params, g)
             for gi, kind in enumerate(self.layer_kinds):
-                yield g, gi, kind, tree_map(lambda a: a[g],
-                                            params["blocks"][f"g{gi}"])
+                yield g, gi, kind, pgroup[f"g{gi}"]
 
-    def _block(self, pg, x, attn_fn):
-        """One layer: attention (``attn_fn(params, normed x)``) and MLP, each
-        pre-normed (and post-normed with sandwich norms) on the residual."""
+    def _ffn(self, pg, h: torch.Tensor, capacity_factor: float):
+        """The MLP, or the MoE layer with bulk-steal routing."""
+        cfg = self.cfg
+        if cfg.n_experts:
+            return moe_mod.moe_apply(
+                pg["moe"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
+                capacity_factor=capacity_factor, compute_dtype=self.cdtype,
+                bulk_steal=cfg.moe_bulk_steal, impl=cfg.moe_impl)
+        return mlp_apply(pg["mlp"], h, self.cdtype)
+
+    def _block(self, pg, x, attn_fn, capacity_factor: float = _CAPACITY):
+        """One layer: attention (``attn_fn(params, normed x)``) and MLP or
+        MoE, each pre-normed (and post-normed with sandwich norms) on the
+        residual."""
         cfg = self.cfg
         a = attn_fn(pg["attn"], rms_norm(x, pg["ln1"], cfg.norm_eps))
         if cfg.sandwich_norm:
             a = rms_norm(a, pg["ln1_post"], cfg.norm_eps)
         x = x + a
-        m = mlp_apply(pg["mlp"], rms_norm(x, pg["ln2"], cfg.norm_eps),
-                      self.cdtype)
+        m = self._ffn(pg, rms_norm(x, pg["ln2"], cfg.norm_eps),
+                      capacity_factor)
         if cfg.sandwich_norm:
             m = rms_norm(m, pg["ln2_post"], cfg.norm_eps)
         return x + m
 
     # ------------------------------------------------------------- forward
 
-    @torch.no_grad()
+    def _group_fn(self, x, pgroup, positions):
+        """One group's layers, full-sequence attention through K6."""
+        for gi, kind in enumerate(self.layer_kinds):
+            acfg = _attn_cfg(self.cfg, local=(kind == "local"))
+            x = self._block(pgroup[f"g{gi}"], x, lambda p, h: attention(
+                p, h, acfg, self.cdtype, positions=positions))
+        return x
+
     def forward(self, params, tokens: torch.Tensor,
+                patches: Optional[torch.Tensor] = None,
                 positions: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """(B, S) tokens -> (B, S, D) hidden (after final norm)."""
-        x = self._embed(params, tokens)
+        """(B, S) tokens [+ patches] -> (B, S_total, D) hidden (after final
+        norm); differentiable, each group rematerialized under
+        ``cfg.remat``."""
+        x = self._embed(params, tokens, patches)
         S = x.shape[1]
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
-        for _, _, kind, pg in self._layers(params):
-            acfg = _attn_cfg(self.cfg, local=(kind == "local"))
-            x = self._block(pg, x, lambda p, h: attention(
-                p, h, acfg, self.cdtype, positions=positions))
+        for g in range(self.n_groups):
+            x = remat_call(self._group_fn, x, self._group_params(params, g),
+                           positions, enabled=self.cfg.remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+
+    # --------------------------------------------------------------- loss
+
+    def loss_fn(self, params, batch) -> torch.Tensor:
+        """Mean token cross-entropy of ``batch``: tokens (B, S), labels
+        (B, S), optional loss_mask and patches.  The LM head and the CE run
+        in sequence chunks (``layers.chunked_ce_loss``), over the text
+        positions only when there are patches."""
+        patches = batch.get("patches")
+        hidden = self.forward(params, batch["tokens"], patches)
+        if patches is not None:
+            hidden = hidden[:, patches.shape[1]:]
+        head = self._head(params).to(self.cdtype)
+        return chunked_ce_loss(hidden, head, batch["labels"],
+                               batch.get("loss_mask"),
+                               final_softcap=self.cfg.final_logit_softcap,
+                               chunk=_LOSS_CHUNK, remat=self.cfg.remat)
 
     # ------------------------------------------------------------- serving
 
@@ -214,11 +274,13 @@ class DecoderLM:
         return new
 
     @torch.no_grad()
-    def prefill(self, params, tokens: torch.Tensor
+    def prefill(self, params, tokens: torch.Tensor,
+                patches: Optional[torch.Tensor] = None
                 ) -> Tuple[torch.Tensor, Pytree]:
-        """Forward over the prompt; returns (last-position logits (B,1,V)
+        """Forward over the prompt [and its patch prefix, which takes the
+        first cache positions]; returns (last-position logits (B,1,V)
         float32, cache)."""
-        x = self._embed(params, tokens)
+        x = self._embed(params, tokens, patches)
         B, S, _ = x.shape
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
         kvs = {f"g{gi}": ([], []) for gi in range(len(self.layer_kinds))}
@@ -264,7 +326,8 @@ class DecoderLM:
             acfg = _attn_cfg(self.cfg, local=(kind == "local"))
             cg = cache[f"g{gi}"]
             x = self._block(pg, x, lambda p, h: decode_attention(
-                p, h, cg["k"][g], cg["v"][g], pos, acfg, self.cdtype)[0])
+                p, h, cg["k"][g], cg["v"][g], pos, acfg, self.cdtype)[0],
+                _DECODE_CAPACITY)
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         return self._logits(params, x), new_cache

@@ -2,10 +2,12 @@
 :func:`params_from_numpy`, which carries parameters made by the JAX
 package (as numpy arrays) over to the port.
 
-The dense decoder and the SSM families (``ssm``, ``hybrid``); MoE layers,
-the VLM prefix and the enc-dec family raise, naming the ROADMAP item they
-wait for.  ``input_specs`` is the JAX package's dry-run machinery and has
-no counterpart here.
+The decoder families (``decoder``, ``moe``, ``vlm``: ``DecoderLM``) and the
+SSM families (``ssm``, ``hybrid``); the enc-dec family raises, naming the
+ROADMAP item it waits for (A10's rest, with the sharded-model path).
+Every bundle has ``init``, ``forward``, ``loss_fn``, ``prefill``,
+``decode_step``, ``make_cache`` and ``grow_cache``.  ``input_specs`` is
+the JAX package's dry-run machinery and has no counterpart here.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ __all__ = ["build_model", "params_from_numpy"]
 
 def build_model(cfg: ModelConfig) -> Union[DecoderLM, SSMLM, HybridLM]:
     if cfg.family in ("decoder", "moe", "vlm"):
-        return DecoderLM(cfg)  # which raises for MoE layers and the VLM prefix
+        return DecoderLM(cfg)
     if cfg.family == "ssm":
         return SSMLM(cfg)
     if cfg.family == "hybrid":
@@ -32,7 +34,7 @@ def build_model(cfg: ModelConfig) -> Union[DecoderLM, SSMLM, HybridLM]:
     if cfg.family == "encdec":
         raise NotImplementedError(
             f"{cfg.name}: the enc-dec family (models/encdec.py) waits for "
-            f"ROADMAP queue A item 10")
+            f"the rest of ROADMAP queue A item 10")
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

@@ -1,4 +1,5 @@
-"""Training-side controls (port of ``repro.train``): the straggler
-monitor, ``GracefulExit`` and ``run_supervised`` (``fault``) and the
-atomic checkpoints the runtime's snapshots ride (``checkpoint``); the
-trainer waits for the training slice."""
+"""Training (port of ``repro.train``): AdamW (``optimizer``), the train
+step with microbatch accumulation (``trainer``), the straggler monitor,
+``GracefulExit`` and ``run_supervised`` (``fault``) and the atomic
+checkpoints that training and the runtime's snapshots ride
+(``checkpoint``); ``launch/train.py`` drives them."""

@@ -604,3 +604,150 @@ def test_decode_cluster_on_the_card_matches_the_cpu(steal):
     assert got == want
     assert k3 == k1 == k4 == got["rounds"] and k2 > 0
     assert (got["migrated"] > 0) == (steal == "migrate")
+
+
+# --------------------------------------------- training: K6 and K7's gradient
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hd", [64, 128])
+def test_flash_attention_gradient_on_the_card_is_the_plain_one(dtype, hd):
+    """``mha`` on CUDA tensors (the SIMT kernel in float32, the tensor-core
+    kernel in bf16) has a ``grad_fn``, launches once, and its q, k, v
+    gradients are those of plain autograd through ``attention_ref`` (GQA 8
+    query heads on 2 KV heads, window 40, softcap 30): its backward
+    recomputes that function, so they agree to the dtype's K6 tolerance."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(hd)
+    shapes = ((2, 96, 8, hd), (2, 96, 2, hd), (2, 96, 2, hd))
+    inputs = [torch.tensor(rng.standard_normal(s), dtype=dt, device=dev)
+              for s in shapes]
+    dout = torch.tensor(rng.standard_normal(shapes[0]), dtype=dt, device=dev)
+    opts = dict(causal=True, window=40, softcap=30.0)
+    grads, outs = [], []
+    for fn in (mha, attention_ref):
+        leaves = [t.clone().requires_grad_(True) for t in inputs]
+        before = mha.launches
+        out = fn(*leaves, **opts)
+        assert mha.launches - before == (fn is mha)
+        assert out.grad_fn is not None
+        out.backward(dout)
+        outs.append(out.detach())
+        grads.append([t.grad for t in leaves])
+    tol = C.FLASH_TOL[dtype]
+    torch.testing.assert_close(outs[0], outs[1], atol=tol, rtol=tol)
+    for g, w in zip(*grads):
+        assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+        torch.testing.assert_close(g, w, atol=tol, rtol=tol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_ssd_scan_gradient_on_the_card_is_the_plain_one(dtype):
+    """``ssd`` on CUDA tensors (bf16 at head dim 64, state 64, chunk 64: the
+    tensor-core kernel; float32: the SIMT kernel) has a ``grad_fn`` and
+    gives plain autograd's gradients through ``ssd_chunked`` for x, dt,
+    A, Bm, Cm and D, from y and from y and the final state, to K7's
+    tolerance of the dtype."""
+    dev = _cuda()
+    dt = getattr(torch, dtype)
+    rng = np.random.default_rng(7)
+    B, S, nh, hd, ns, chunk = 2, 200, 4, 64, 64, 64
+    arrs = [(rng.standard_normal((B, S, nh, hd)), dt),
+            (np.log1p(np.exp(rng.standard_normal((B, S, nh)) - 2.0)),
+             torch.float32),
+            (-np.exp(rng.standard_normal(nh) * 0.3), torch.float32),
+            (rng.standard_normal((B, S, ns)) * 0.3, dt),
+            (rng.standard_normal((B, S, ns)) * 0.3, dt),
+            (rng.standard_normal(nh), torch.float32)]
+    inputs = [torch.tensor(a, dtype=t, device=dev) for a, t in arrs]
+    dy = torch.tensor(rng.standard_normal((B, S, nh, hd)), dtype=dt,
+                      device=dev)
+    atol, rtol = C.SSD_TOL[dtype]
+    for use_final in (False, True):
+        grads = []
+        for fn in (lambda *t: ssd(*t, chunk=chunk),
+                   lambda *t: ssd_chunked(*t, chunk)):
+            leaves = [t.clone().requires_grad_(True) for t in inputs]
+            y, final = fn(*leaves)
+            assert y.grad_fn is not None
+            loss = (y.float() * dy.float()).sum()
+            if use_final:
+                loss = loss + final.sum()
+            loss.backward()
+            grads.append([t.grad for t in leaves])
+        for g, w in zip(*grads):
+            assert bool(torch.isfinite(g).all()) and float(g.abs().max()) > 0
+            torch.testing.assert_close(g.float(), w.float(), atol=atol,
+                                       rtol=rtol)
+
+
+@pytest.mark.cuda
+def test_moe_routing_plan_on_the_card_equals_the_cpu():
+    """The bulk-steal plan (expert, slot, valid) on CUDA tensors is the
+    CPU's bit for bit: skewed probabilities that overflow, exactly tied
+    rows, with and without the steal, at qwen3-moe's 128 experts top 8."""
+    from repro_torch.models import moe
+
+    dev = _cuda()
+    rng = np.random.default_rng(3)
+    for T, E, k in ((257, 8, 2), (1024, 128, 8), (64, 4, 1)):
+        logits = rng.standard_normal((T, E)) * 2.0
+        logits[:, : max(E // 4, 1)] += 3.0
+        skewed = torch.softmax(torch.tensor(logits, dtype=torch.float32), -1)
+        ints = torch.tensor(rng.integers(1, 4, (T, E)), dtype=torch.float32)
+        tied = ints / ints.sum(-1, keepdim=True)
+        for probs in (skewed, tied):
+            for cf in (1.0, 1.25):
+                cap = moe.capacity_of(T, k, E, cf)
+                for steal in (False, True):
+                    cpu = moe.route_with_bulk_steal(probs, k, cap, steal)
+                    got = moe.route_with_bulk_steal(probs.to(dev), k, cap,
+                                                    steal)
+                    for i in (0, 1, 3):
+                        assert torch.equal(got[i].cpu(), cpu[i]), (T, E, k)
+                    torch.testing.assert_close(got[2].cpu(), cpu[2],
+                                               atol=1e-6, rtol=1e-6)
+
+
+@pytest.mark.cuda
+def test_train_steps_on_the_card_match_the_cpu():
+    """Reduced llama3.2-1b in float32: the same parameters and batches give
+    the same losses, gradient norms and parameters after two
+    ``make_train_step`` steps on the card (K6 forward, the plain backward,
+    remat: 8 launches a step) as on the CPU (AdamW's eps 1e-6, as in
+    tests/test_torch_train.py, so that a gradient element near 1e-8 does
+    not turn rounding into a different fraction of a step)."""
+    from repro_torch.data.synthetic import synth_batch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step
+
+    dev = _cuda()
+    cfg = dataclasses.replace(configs.reduced(configs.get("llama3.2-1b")),
+                              compute_dtype="float32")
+    model = build_model(cfg)
+    step = make_train_step(model, AdamWConfig(lr=1e-3, warmup_steps=2,
+                                              total_steps=10, eps=1e-6))
+    params = model.init(torch.Generator().manual_seed(0))
+    runs = {}
+    for where in ("cpu", dev):
+        p = tree_map(lambda t: t.to(where), params)
+        opt = adamw_init(p)
+        metrics = []
+        for i in range(2):
+            raw = synth_batch(0, 0, i, 4, 32, cfg.vocab_size)
+            batch = {k: torch.from_numpy(v).to(where) for k, v in raw.items()}
+            before = mha.launches
+            p, opt, met = step(p, opt, batch)
+            if where is dev:
+                assert mha.launches - before == 2 * cfg.n_layers
+            metrics.append({k: float(v) for k, v in met.items()})
+        runs[str(where)] = (p, metrics)
+    (p_cpu, m_cpu), (p_dev, m_dev) = runs["cpu"], runs[str(dev)]
+    for a, b in zip(m_dev, m_cpu):
+        for k in ("loss", "grad_norm", "lr"):
+            assert abs(a[k] - b[k]) <= 1e-5 * (1 + abs(b[k])), (k, a, b)
+    for a, b in zip(tree_leaves(p_dev), tree_leaves(p_cpu)):
+        torch.testing.assert_close(a.cpu(), b, atol=1e-5, rtol=0)

@@ -54,7 +54,10 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.distributed.executor',\n"
         "          'repro_torch.distributed.launch',\n"
         "          'repro_torch.distributed.serve',\n"
-        "          'repro_torch.serve.paged_kv', 'repro_torch.serve.decode'):\n"
+        "          'repro_torch.serve.paged_kv', 'repro_torch.serve.decode',\n"
+        "          'repro_torch.models.moe', 'repro_torch.train.optimizer',\n"
+        "          'repro_torch.train.trainer', 'repro_torch.launch.train',\n"
+        "          'repro_torch.kernels._backward'):\n"
         "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr

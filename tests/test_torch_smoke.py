@@ -252,3 +252,44 @@ def test_wave_phase_runs_the_hybrid_through_both_kernels():
     assert len(out["prefill_ms"]) == 1 and out["decode_steps"] == 3
     assert set(out["launches"]) == {"flash_attention", "ssd_scan"}
     _assert_first_wave_is_the_plain_computation(out)
+
+
+def test_train_phase_holds_every_gate_at_a_cpu_size():
+    """Phase 11 at ``PHASE11_SMALL`` (reduced widths): training falls,
+    every gradient is finite and reaches the kernels' inputs in every
+    layer, the MoE serving's bulk steal reroutes what the drop baseline
+    would drop and drops nothing, its plan equals the CPU's, and the VLM
+    prefix prefills behind its patches.  On the CPU the wrappers run the
+    plain versions, so the float32 comparisons are exact.  On one intra-op
+    thread: the tier-1 run puts several test processes on the host's
+    cores, where a thread pool per process mostly waits."""
+    smoke = _chip_smoke()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.phase_train(CPU, smoke.PHASE11_SMALL)
+    finally:
+        torch.set_num_threads(n)
+    dense, moe, ssm, vlm = (out[k] for k in ("dense", "moe", "ssm", "vlm"))
+    assert dense["launches_expected_per_step"] == {"flash_attention": 8}
+    assert len(dense["losses"]) == 4
+    assert dense["losses"][-1] < dense["losses"][0]
+    for part in (dense, ssm):
+        assert part["float32_vs_plain"]["max_grad_err_over_leaf_max"] == 0.0
+        assert part["grads_step1"]["finite"]
+    assert ssm["launches_expected_per_step"] == {"ssd_scan": 16}
+    routing = moe["serve"]["routing"]
+    assert routing["rerouted"] > 0 and routing["dropped"] == 0
+    assert routing["rerouted"] == routing["dropped_without_steal"]
+    assert routing["plan_vs_cpu"]["bit_equal"]
+    assert moe["serve"]["first_wave_plan_flips"] == 0
+    assert moe["serve"]["requests"] == 10 and moe["serve"]["stolen"] > 0
+    assert moe["train"]["grads_step1"]["zero_layer_slices"] == {}
+    assert vlm["f32_max_abs_err"] == 0.0
+    assert vlm["shape"] == [4, 8, 12]
+    # the card's launch expectations at full width
+    from repro_torch import configs
+    assert smoke.train_launches(configs.get("llama3.2-1b")) == {
+        "flash_attention": 32}
+    assert smoke.train_launches(smoke._arch_cfg(
+        "mamba2-2.7b", n_layers=8)) == {"ssd_scan": 16}

@@ -186,6 +186,39 @@ check that does not hold:
    prefill of 4 prompts behind their 256 patches, K6 once a layer, the
    float32 logits within 1e-4 of the plain version's.  ms a step,
    tokens/s and peak memory, not gated.
+12. The enc-dec family (``{"phase": "encdec"}``, after phase 11;
+   ``PHASE12``): seamless-m4t-medium at its published widths and depth.
+   (a) A bf16 prefill of 4 utterances of 1,000 seeded stub frames with
+   256-token target prefixes: K6 36 times (12 encoder, 12 decoder self,
+   12 cross-attention, counted by mode), all on the tensor-core kernel;
+   16 greedy decode steps; in float32 the prefill logits through K6
+   within 1e-4 of its plain version's, the bf16 prefill's mean distance
+   from float32 at most 1.1x the plain bf16 prefill's, and 4 float32
+   decode steps after the kernel prefill and after the plain one within
+   1e-4.  (b) 8 train steps on one repeated 4 x (1,024 frames, 1,024
+   tokens) batch, the pipeline's tokens behind seeded frames (float32
+   parameters, bf16 compute, remat): K6 72
+   launches a step, the float32 first step on seeded frames against the
+   plain step (loss 1e-4, each leaf 1e-3 of its largest |g|), every
+   layer's encoder, decoder and cross-attention projections with a
+   non-zero gradient, the loss falling.  The kernels line's
+   ``flash_attention_cross`` row is K6 at (a)'s cross-attention shape.
+13. The sharded-model path (``{"phase": "sharded"}``, after phase 12;
+   ``PHASE13``): 8 gloo ranks on the one card as a (data 2, model 4)
+   model mesh, every collective staged through the host.  (a)
+   Flash-decoding, llama3.2-1b at its widths and depth in bf16: each data
+   rank prefills its 8 of 16 seeded 2,500-token prompts through K6,
+   grows the cache to 8,192 and keeps its model rank's 2,048 positions;
+   16 teacher-forced steps against the unsharded decode of the same rows
+   in this process: no NaN, and every rank's mean distance from the
+   float32 decode of the same parameters at most 1.1x the unsharded bf16
+   decode's (the distance past atol = rtol = 3e-2 reported); then
+   float32 at 4 of 16 layers, every logit within 1e-4.  (b) Expert parallelism,
+   qwen3-moe-30b-a3b at its widths, 2 of 48 layers, float32: each model
+   rank holds 32 of 128 experts; each data rank's prefill of 8 prompts
+   of 256 tokens within 2e-5 + 2e-4 |x| of the whole dispatch on the same
+   rows, its routing plans bit-equal.  ms per decode step and per
+   prefill, sharded and unsharded, not gated.
 
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
@@ -249,6 +282,7 @@ PHASE6 = dict(arch="zamba2-7b", n_prompts=4, prompt_lens=(128, 1024),
 SERVE_TOL_F32 = 1e-4
 SERVE_TOL_BF16 = 2e-2  # reported: share of logits outside it
 SERVE_BF16_RATIO = 1.1
+SHARDED_BF16_WITNESS_RATIO = 2.0
 
 PEAK_BF16_FLOPS = 989e12  # H100 SXM dense bf16 tensor cores (data sheet)
 # The sequential solver (``bnb.solve``) on PHASE3's instance at its
@@ -433,6 +467,60 @@ PHASE11_SMALL = dict(
              train=dict(PHASE11["moe"]["train"], seq=32)),
     ssm=dict(PHASE11["ssm"], seq=40),
     vlm=dict(PHASE11["vlm"], text_len=12))
+# Phase 12: the enc-dec family, seamless-m4t-medium at its published
+# widths and depth (12 + 12 layers, d 1,024, 16 heads of 64, vocab
+# 256,206), random weights from seed 0.  (a) bf16 prefill of 4 utterances
+# of 1,000 stub frames with target prefixes of 256 tokens, 16 greedy
+# decode steps, the float32 comparisons over 4; (b) 8 train steps on one
+# repeated 4 x (1,024 frames, 1,024 tokens) batch of launch/train's
+# pipeline (float32 parameters, bf16 compute, remat).
+PHASE12 = dict(
+    serve=dict(arch="seamless-m4t-medium", batch=4, frames=1000,
+               prefix=256, new=16, f32_steps=4, seed=0),
+    train=dict(_STEP, arch="seamless-m4t-medium", batch=4, seq=1024,
+               steps=8, compare=True))
+# The CPU rehearsal (tests/test_torch_smoke.py): reduced widths.
+PHASE12_SMALL = dict(
+    reduced=True,
+    serve=dict(PHASE12["serve"], frames=40, prefix=12, new=4, f32_steps=2),
+    train=dict(PHASE12["train"], batch=2, seq=32, steps=3))
+# Phase 13: the sharded-model path on 8 gloo ranks of the one card, a
+# (data 2, model 4) model mesh.  (a) flash-decoding: llama3.2-1b at its
+# widths and depth in bf16, 16 seeded prompts of 2,500 tokens, each data
+# rank prefilling its 8 rows, the cache grown to 8,192 (_SEQ_SHARD_MIN,
+# so the branch is taken without moving the threshold) and sliced 2,048
+# a model rank, 16 teacher-forced steps against the unsharded decode of
+# the same rows.  In bf16 at this width two correct decodes of the same
+# rows round apart by more than the JAX package's 3e-2
+# (tests/test_perf_variants.py, set at reduced width): the unsharded
+# decode of 8 rows and of all 16 lie ~0.1 apart.  So, as phase 4 does,
+# the bf16 run must be as accurate as the unsharded one: its mean
+# distance from the float32 decode of the same parameters at most 1.1x
+# the unsharded bf16 decode's, and each rank's largest distance from the
+# unsharded decode within 3e-2 or at most 2x that of the two unsharded
+# decodes (on the CPU they agree exactly, and 3e-2 holds).  Then
+# in float32 at 4 of 16 layers within 1e-4.  (b) expert parallelism:
+# qwen3-moe-30b-a3b at its widths (128 experts of 768, top-8), 2 of 48
+# layers, float32, 16 prompts of 256 tokens, 32 experts a model rank.
+_FLASH13 = dict(arch="llama3.2-1b", batch=16, prompt=2500, cache=8192,
+                steps=16, seed=0, param_dtype="bfloat16",
+                compute_dtype="bfloat16", tol=3e-2)
+PHASE13 = dict(
+    mesh=((2, 4), ("data", "model")), timeout=900,
+    flash=dict(_FLASH13, f32_reference=True),
+    flash_f32=dict(_FLASH13, layers=4, param_dtype="float32",
+                   compute_dtype="float32", tol=1e-4),
+    moe=dict(arch="qwen3-moe-30b-a3b", layers=2, batch=16, prompt=256,
+             seed=0, param_dtype="float32", compute_dtype="float32"))
+# The CPU rehearsal: reduced widths on 8 gloo CPU ranks, the threshold
+# lowered to 16 as the JAX package's own test lowers it.
+PHASE13_SMALL = dict(
+    PHASE13, reduced=True, timeout=240, seq_shard_min=16,
+    flash=dict(_FLASH13, prompt=24, cache=40, steps=3, f32_reference=True),
+    flash_f32=dict(PHASE13["flash_f32"], prompt=24, cache=40, steps=3,
+                   layers=None),
+    moe=dict(PHASE13["moe"], prompt=12, layers=None))
+
 # Float32 loss and gradients through the kernels (their SIMT routes)
 # against the plain versions': the loss to 1e-4 (+ relative), as
 # serving's float32 logits; each gradient leaf to 1e-3 of its largest
@@ -465,6 +553,11 @@ KERNELS = (
      "src/repro/kernels/flash_attention/kernel.py:100"),
     # the same kernel at zamba2-7b's head dim, timed at its prefill shape
     ("flash_attention_hd112",
+     "src/repro_torch/kernels/flash_attention/flash_attention_wgmma.cu",
+     "src/repro/kernels/flash_attention/kernel.py:100"),
+    # the same kernel unmasked at seamless-m4t-medium's cross-attention
+    # (S 256 against T 1,000), timed at its prefill shape
+    ("flash_attention_cross",
      "src/repro_torch/kernels/flash_attention/flash_attention_wgmma.cu",
      "src/repro/kernels/flash_attention/kernel.py:100"),
     ("ssd_scan", "src/repro_torch/kernels/ssd_scan/ssd_scan_wgmma.cu",
@@ -1098,7 +1191,8 @@ def flash_checks(device, rng, shapes):
     from repro_torch.kernels.flash_attention.ops import mha
     from repro_torch.kernels.flash_attention.ref import attention_ref
 
-    err, cases = 0.0, C.FLASH_CASES + C.FLASH_EXTRA_CASES + list(shapes)
+    err, cases = 0.0, (C.FLASH_CASES + C.FLASH_EXTRA_CASES
+                       + C.FLASH_RAGGED_CASES + list(shapes))
     for case in cases:
         B, S, T, H, K, hd, causal, window, cap, dtype = case
         q, k, v = _flash_inputs(device, rng, case)
@@ -1112,24 +1206,25 @@ def flash_timing(device, rng, timer, shape):
     """K6 (through ``mha``'s route for the shape's dtype), its earlier bf16
     design (the SIMT kernel, ``mha_simt``), its plain version and SDPA,
     each checked against the plain version within tolerance first, at
-    ``shape``, and the bound: the larger of 4 hd flops per visible (q, k)
-    pair per head at the dense bf16 tensor-core peak and q, k, v and o's
-    bytes at the memory rate."""
+    ``shape`` (causal with S == T, or unmasked at any S and T), and the
+    bound: the larger of 4 hd flops per visible (q, k) pair per head at
+    the dense bf16 tensor-core peak and q, k, v and o's bytes at the
+    memory rate."""
     import torch.nn.functional as F
     from repro_torch.kernels import cases as C
     from repro_torch.kernels.flash_attention.ops import mha, mha_simt
     from repro_torch.kernels.flash_attention.ref import attention_ref, visible
 
     B, S, T, H, K, hd, causal, window, cap, dtype = shape
-    check(causal and S == T and window is None and cap is None,
-          "SDPA's is_causal computes K6's function only for causal S == T")
+    check((S == T or not causal) and window is None and cap is None,
+          "SDPA computes K6's function only unmasked, or causal at S == T")
     q, k, v = _flash_inputs(device, rng, shape)
     kw = dict(causal=causal, window=window, softcap=cap)
 
     def library():
         return F.scaled_dot_product_attention(
             q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-            is_causal=True, enable_gqa=True).transpose(1, 2)
+            is_causal=causal, enable_gqa=True).transpose(1, 2)
 
     plain = attention_ref(q, k, v, **kw)
     tol = C.FLASH_TOL[dtype]
@@ -1152,7 +1247,7 @@ def flash_timing(device, rng, timer, shape):
                 bound_by="operations" if flop_ms >= byte_ms else "bytes",
                 bound_flops=flops, bound_bytes=nbytes, shape_max_abs_err=err,
                 timed_at=f"B {B}, S {S}, T {T}, H {H}, K {K}, hd {hd}, "
-                         f"{dtype}, causal",
+                         f"{dtype}, {'causal' if causal else 'unmasked'}",
                 device_time_clean=clean and earlier_clean and plain_clean)
 
 
@@ -1406,9 +1501,10 @@ def ssd_timing(device, rng, timer, shape):
 def phase_kernels(device, seed: int = 0, flash_shapes=None,
                   ssd_shapes=None):
     """Every kernel against its plain version, then timed.  ``flash_shapes``
-    are K6's two timed shapes (default: the serving slice's prefill and
-    zamba2-7b's, reported as ``flash_attention`` and
-    ``flash_attention_hd112``) and ``ssd_shapes`` K7's (default: the SSM
+    are K6's three timed shapes (default: the serving slice's prefill,
+    zamba2-7b's and seamless-m4t-medium's cross-attention, reported as
+    ``flash_attention``, ``flash_attention_hd112`` and
+    ``flash_attention_cross``) and ``ssd_shapes`` K7's (default: the SSM
     slice's prefill and zamba2-7b's, reported as ``ssd_scan`` and
     ``ssd_scan_hd64_ns64``)."""
     from repro_torch.kernels import cases as C
@@ -1418,7 +1514,8 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None,
         errs[name] = max(errs.get(name, 0.0),
                          _compare(k_out, p_out, f"{name} {what}"))
         counts[name] = counts.get(name, 0) + 1
-    flash_shapes = flash_shapes or (C.FLASH_SLICE, C.FLASH_ZAMBA)
+    flash_shapes = flash_shapes or (C.FLASH_SLICE, C.FLASH_ZAMBA,
+                                    C.FLASH_CROSS)
     ssd_shapes = ssd_shapes or (C.SSD_SLICE, C.SSD_HYBRID)
     # the dd_expand row: K5's redesign, the fused explore, and K5 itself
     fused_err, fused_n = explore_checks(device, rng)
@@ -1438,13 +1535,15 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None,
     timings["dd_expand"] = dict(explore_timing(device, rng, timer),
                                 earlier_ms=per_layer["ms"],
                                 earlier=per_layer)
-    for name, shape in zip(("flash_attention", "flash_attention_hd112"),
-                           flash_shapes):
+    flash_rows = ("flash_attention", "flash_attention_hd112",
+                  "flash_attention_cross")
+    for name, shape in zip(flash_rows, flash_shapes):
         timings[name] = flash_timing(device, rng, timer, shape)
-    # the hd 112 row: its own shape's error, the case tables' count
-    errs["flash_attention_hd112"] = timings["flash_attention_hd112"][
-        "shape_max_abs_err"]
-    counts["flash_attention_hd112"] = counts["flash_attention"]
+    # the hd 112 and cross rows: their own shape's error, the case tables'
+    # count
+    for name in flash_rows[1:]:
+        errs[name] = timings[name]["shape_max_abs_err"]
+        counts[name] = counts["flash_attention"]
     for name, shape in zip(("ssd_scan", "ssd_scan_hd64_ns64"), ssd_shapes):
         timings[name] = ssd_timing(device, rng, timer, shape)
     errs["ssd_scan_hd64_ns64"] = timings["ssd_scan_hd64_ns64"][
@@ -2337,6 +2436,8 @@ def serve_launches(cfg) -> dict:
     if cfg.family == "hybrid":
         return {"flash_attention": cfg.n_layers // cfg.attn_every,
                 "ssd_scan": cfg.n_layers}
+    if cfg.family == "encdec":  # encoder; decoder self and cross
+        return {"flash_attention": cfg.n_encoder_layers + 2 * cfg.n_layers}
     return {"flash_attention": cfg.n_layers}
 
 
@@ -2903,7 +3004,8 @@ def grad_stats(grads) -> dict:
         leaves += 1
         check(bool(torch.isfinite(g).all()), f"gradient {key} not finite")
         lead = (2 if key.startswith("grouped/") else
-                1 if key.startswith(("blocks/", "layers/", "tail/")) else 0)
+                1 if key.startswith(("blocks/", "layers/", "tail/",
+                                     "encoder/", "decoder/")) else 0)
         rows = int(np.prod(g.shape[:lead]))
         per_layer = g.reshape(rows, -1).abs().amax(1) > 0
         if key.endswith(THROUGH_KERNELS):
@@ -3007,6 +3109,7 @@ def train_run(device, c, *, reduced: bool = False, layers=None) -> dict:
     the plain versions'.  Gates: finite losses, the last below the first
     (over more than one step), every gradient leaf of step 1 finite and
     those of ``THROUGH_KERNELS`` non-zero in every layer, the launches."""
+    import torch
     from repro_torch.models.zoo import build_model
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.trainer import make_train_step
@@ -3020,6 +3123,13 @@ def train_run(device, c, *, reduced: bool = False, layers=None) -> dict:
     out = {"arch": cfg.name, "n_layers": cfg.n_layers,
            "params": cfg.param_count(), "batch": [c["batch"], c["seq"]],
            "init_s": init_s, "launches_expected_per_step": expect}
+    if "frames" in batch:
+        # launch/train's stub frames are ones: every encoder position the
+        # same, so the encoder's q / k and cross-attention's k would get
+        # exactly zero gradient; draw them from the seed instead
+        gen = torch.Generator(device=device).manual_seed(c["seed"])
+        batch = dict(batch, frames=torch.randn(
+            batch["frames"].shape, generator=gen, device=device))
     if c.get("compare"):
         f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
         cmp, wall, n, n_tc = _run_counted(
@@ -3252,6 +3362,545 @@ def phase_train(device, cfg) -> dict:
     return out
 
 
+# ------------------------------------------ phase 12: the enc-dec family
+
+
+class _AttnModes:
+    """Wraps ``encdec.attention`` (every attention an ``EncDecLM`` prefill
+    or forward calls) and splits by mode the calls and the K6 launches
+    they make, read from K6's own counters around each call: the
+    encoder's bidirectional self-attention, the decoder's causal
+    self-attention, and cross-attention."""
+
+    def __init__(self):
+        from repro_torch.kernels.flash_attention import ops as flash_ops
+        from repro_torch.models import encdec
+        self.mod, self.real, self.mha = encdec, encdec.attention, \
+            flash_ops.mha
+        self.calls = {"encoder": 0, "self": 0, "cross": 0}
+        self.launches, self.launches_tc = dict(self.calls), dict(self.calls)
+        encdec.attention = self
+
+    def __call__(self, p, x, cfg, compute_dtype, **kw):
+        mode = ("cross" if kw.get("kv_x") is not None else
+                "self" if cfg.causal else "encoder")
+        self.calls[mode] += 1
+        n, tc = self.mha.launches, self.mha.launches_tc
+        out = self.real(p, x, cfg, compute_dtype, **kw)
+        self.launches[mode] += self.mha.launches - n
+        self.launches_tc[mode] += self.mha.launches_tc - tc
+        return out
+
+    def restore(self):
+        self.mod.attention = self.real
+
+
+def encdec_serve(device, c, *, reduced: bool = False) -> dict:
+    """(a) Prefill and greedy decode: ``c["batch"]`` utterances of
+    ``c["frames"]`` seeded stub frames with target prefixes of
+    ``c["prefix"]`` tokens, bf16 compute; K6 once per encoder layer and
+    twice per decoder layer (self, cross), all on the tensor-core route.
+    Then ``c["new"]`` greedy decode steps.  Gates: in float32 the prefill
+    logits through K6 (SIMT) within ``SERVE_TOL_F32`` of the plain
+    version's, the bf16 kernel prefill's mean distance from them at most
+    ``SERVE_BF16_RATIO`` times the bf16 plain prefill's, and
+    ``c["f32_steps"]`` float32 decode steps after the kernel prefill and
+    after the plain one within ``SERVE_TOL_F32`` of each other."""
+    import torch
+    from repro_torch.models.zoo import build_model
+    cfg = _arch_cfg(c["arch"], reduced=reduced)
+    model, params, init_s = _init_model(cfg, device, c["seed"])
+    rng = np.random.default_rng(c["seed"])
+    B, F, S = c["batch"], c["frames"], c["prefix"]
+    frames = torch.tensor(rng.standard_normal((B, F, cfg.frontend_dim)),
+                          dtype=torch.float32, device=device)
+    tokens = torch.tensor(rng.integers(1, cfg.vocab_size, (B, S)),
+                          dtype=torch.int32, device=device)
+    expect = serve_launches(cfg)
+    modes = _AttnModes()
+    try:
+        (logits, cache), wall, n, n_tc = _run_counted(
+            device, expect, lambda: model.prefill(params, frames, tokens))
+    finally:
+        modes.restore()
+    _check_step_launches(device, expect, n, n_tc, True, "encdec prefill")
+    want_modes = {"encoder": cfg.n_encoder_layers, "self": cfg.n_layers,
+                  "cross": cfg.n_layers}
+    check(modes.calls == want_modes,
+          f"attention calls by mode {modes.calls}, not {want_modes}")
+    if device.type == "cuda":
+        check(modes.launches == want_modes == modes.launches_tc,
+              f"K6 launches by mode {modes.launches} (tensor-core "
+              f"{modes.launches_tc}), not {want_modes}")
+    check(bool(torch.isfinite(logits).all()), "encdec logits not finite")
+    check(tuple(cache["cross"]["k"].shape[1:3]) == (B, F)
+          and tuple(cache["self"]["k"].shape[1:3]) == (B, S),
+          "encdec cache shapes")
+
+    cache = model.grow_cache(cache, S + c["new"])
+    tok, decode_ms = logits.argmax(-1).int(), []
+    for _ in range(c["new"]):
+        sync(device)
+        t0 = time.perf_counter()
+        lg, cache = model.decode_step(params, cache, tok)
+        sync(device)
+        decode_ms.append((time.perf_counter() - t0) * 1e3)
+        check(bool(torch.isfinite(lg).all()), "encdec decode not finite")
+        tok = lg.argmax(-1).int()
+
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    (kern, kcache), wall32, n32, n32_tc = _run_counted(
+        device, expect, lambda: f32.prefill(params, frames, tokens))
+    _check_step_launches(device, expect, n32, n32_tc, False,
+                         "encdec float32 prefill")
+    with _plain(list(expect)):
+        plain, pcache = f32.prefill(params, frames, tokens)
+        plain_bf16 = model.prefill(params, frames, tokens)[0]
+    err = _close(kern, plain, SERVE_TOL_F32,
+                 "encdec prefill, float32 compute: K6 vs plain")
+    dev_k = float((logits - plain).abs().mean())
+    dev_p = float((plain_bf16 - plain).abs().mean())
+    check(dev_k <= SERVE_BF16_RATIO * dev_p,
+          f"encdec bf16 prefill {dev_k} from float32, the plain bf16 "
+          f"prefill {dev_p}")
+    kcache = f32.grow_cache(kcache, S + c["f32_steps"])
+    pcache = f32.grow_cache(pcache, S + c["f32_steps"])
+    tok, decode_err = kern.argmax(-1).int(), 0.0
+    for t in range(c["f32_steps"]):
+        lk, kcache = f32.decode_step(params, kcache, tok)
+        lp, pcache = f32.decode_step(params, pcache, tok)
+        decode_err = max(decode_err, _close(
+            lk, lp, SERVE_TOL_F32, f"encdec float32 decode step {t} after "
+                                   f"the kernel and the plain prefill"))
+        tok = lk.argmax(-1).int()
+    warm = decode_ms[1:] or decode_ms
+    return {"arch": cfg.name, "params": cfg.param_count(), "init_s": init_s,
+            "shape": {"utterances": B, "frames": F, "prefix": S},
+            "prefill_ms": wall * 1e3, "prefill_f32_ms": wall32 * 1e3,
+            "launches": n, "launches_tensor_core": n_tc,
+            "calls_by_mode": modes.calls,
+            "launches_by_mode": modes.launches,
+            "decode_ms_per_step": sum(warm) / len(warm),
+            "decode_steps": c["new"],
+            "f32_max_abs_err": err,
+            "bf16_mean_dev_from_f32": {"kernel": dev_k, "plain": dev_p},
+            "f32_decode_max_abs_err": decode_err}
+
+
+def phase_encdec(device, cfg) -> dict:
+    """Phase 12: (a) seamless-m4t-medium's prefill and decode, (b) its
+    training (``train_run``), the first model freed before the second."""
+    import torch
+    reduced = cfg.get("reduced", False)
+    out = {}
+    t0 = time.perf_counter()
+    out["serve"] = encdec_serve(device, cfg["serve"], reduced=reduced)
+    out["serve"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    out["train"] = train_run(device, cfg["train"], reduced=reduced)
+    out["train"]["wall_s"] = time.perf_counter() - t0
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+# ------------------------------------- phase 13: the sharded-model path
+
+
+def _sharded_model(device, c, *, reduced: bool, **changes):
+    """``c``'s model (decode / MoE bodies as ``changes`` say) and a
+    function that makes its parameters from ``c["seed"]`` on ``device``."""
+    import torch
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models.zoo import build_model
+    kw = dict(param_dtype=c["param_dtype"], compute_dtype=c["compute_dtype"],
+              **changes)
+    if c.get("layers"):
+        kw["n_layers"] = c["layers"]
+    cfg = _arch_cfg(c["arch"], reduced=reduced, **kw)
+    model = build_model(cfg, ParallelConfig())
+    return model, lambda: model.init(
+        torch.Generator(device=device).manual_seed(c["seed"]))
+
+
+def _sharded_tokens(cfg, c) -> np.ndarray:
+    return np.random.default_rng(c["seed"]).integers(
+        1, cfg.vocab_size, (c["batch"], c["prompt"] + c.get("steps", 0))
+    ).astype(np.int32)
+
+
+def flash_reference(device, c, *, reduced: bool, groups: int) -> dict:
+    """The unsharded decode: ``groups`` slices of the ``c["batch"]`` rows
+    (one a data rank) each prefilled, grown to ``c["cache"]`` and decoded
+    ``c["steps"]`` teacher-forced steps, as the ranks do theirs; the
+    logits (steps, B, V) on the host, ms per step and per prefill.  Also
+    all rows in one batch: how far two correct decodes of the same rows
+    in other batch shapes lie apart (``batch_shape_max_abs_dev``); and
+    with ``c["f32_reference"]`` the same slices in float32 compute on the
+    same parameters (``f32_logits``), the yardstick of a bf16 run's
+    accuracy."""
+    import torch
+    from repro_torch.models.zoo import build_model
+    model, init = _sharded_model(device, c, reduced=reduced)
+    params = init()
+    toks = torch.from_numpy(_sharded_tokens(model.cfg, c)).to(device)
+    P0, B = c["prompt"], c["batch"]
+
+    def decode(rows, model=model):
+        sync(device)
+        t0 = time.perf_counter()
+        _, cache = model.prefill(params, toks[rows, :P0])
+        sync(device)
+        prefill_ms = (time.perf_counter() - t0) * 1e3
+        cache = model.grow_cache(cache, c["cache"])
+        out, ms = [], []
+        for t in range(c["steps"]):
+            sync(device)
+            t0 = time.perf_counter()
+            lg, cache = model.decode_step(params, cache,
+                                          toks[rows, P0 + t:P0 + t + 1])
+            sync(device)
+            ms.append((time.perf_counter() - t0) * 1e3)
+            out.append(lg[:, 0].float().cpu())
+        del cache
+        return torch.stack(out), ms, prefill_ms
+
+    slices = [slice(g * B // groups, (g + 1) * B // groups)
+              for g in range(groups)]
+    parts = [decode(rows) for rows in slices]
+    whole = decode(slice(0, B))
+    logits = torch.cat([p[0] for p in parts], dim=1)
+    ms = [m for p in parts for m in p[1][1:]]
+    f32 = None
+    if c.get("f32_reference"):
+        m32 = build_model(dataclasses.replace(model.cfg,
+                                              compute_dtype="float32"))
+        f32 = torch.cat([decode(rows, m32)[0] for rows in slices], dim=1)
+    return {"logits": logits, "f32_logits": f32,
+            "ms_per_step": sum(ms) / len(ms),
+            "prefill_ms": [p[2] for p in parts],
+            "batch_shape_max_abs_dev": float((whole[0] - logits).abs()
+                                             .max()),
+            "whole_batch_ms_per_step": sum(whole[1][1:])
+            / max(len(whole[1]) - 1, 1)}
+
+
+def _flash_rank(mesh, device, c, ref_path, *, reduced: bool) -> dict:
+    """One rank of (a): prefill this data rank's rows through K6, grow the
+    cache, keep this model rank's slice (``shard_cache``) and decode
+    ``c["steps"]`` teacher-forced steps under the mesh, flash-decoding on
+    every layer; each step's largest distance from the unsharded
+    reference's rows, absolute and over ``c["tol"]`` (absolute and
+    relative), which the parent gates; no NaN."""
+    import torch
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.models import attention as attn_mod
+    model, init = _sharded_model(device, c, reduced=reduced,
+                                 decode_impl="flash_shardmap")
+    params = init()
+    d, nd = mesh.coords["data"], mesh.shape["data"]
+    rows = slice(d * c["batch"] // nd, (d + 1) * c["batch"] // nd)
+    toks = torch.from_numpy(_sharded_tokens(model.cfg, c)[rows]).to(device)
+    P0 = c["prompt"]
+    flash_ops.mha.launches = flash_ops.mha.launches_tc = 0
+    sync(device)
+    t0 = time.perf_counter()
+    _, cache = model.prefill(params, toks[:, :P0])
+    sync(device)
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    launches = (flash_ops.mha.launches, flash_ops.mha.launches_tc)
+    if device.type == "cuda":
+        check(launches[0] == model.cfg.n_layers,
+              f"rank {mesh.rank}: K6 launched {launches[0]} times in the "
+              f"prefill, not {model.cfg.n_layers}")
+        check(launches[1] == (launches[0] if c["compute_dtype"] ==
+                              "bfloat16" else 0),
+              f"rank {mesh.rank}: {launches[1]} tensor-core launches")
+    local = model.shard_cache(model.grow_cache(cache, c["cache"]), mesh)
+    del cache
+    C_loc = c["cache"] // mesh.shape["model"]
+    check(local["g0"].get("seq_len") == c["cache"]
+          and local["g0"]["k"].shape[2] == C_loc,
+          f"rank {mesh.rank}: cache slice {tuple(local['g0']['k'].shape)}")
+    valid_slots = max(0, min(C_loc, P0 + 1 - mesh.coords["model"] * C_loc))
+    refs = torch.load(ref_path)
+    ref = refs["logits"][:, rows]
+    ref32 = None if refs["f32"] is None else refs["f32"][:, rows]
+    del refs
+    dev_sharded = dev_unsharded = 0.0
+    real, taken = attn_mod.decode_attention_shardmap, [0]
+
+    def counted(*a, **kw):
+        out = real(*a, **kw)
+        taken[0] += out is not None
+        return out
+
+    attn_mod.decode_attention_shardmap = counted
+    worst, worst_rel, ms = [], [], []
+    try:
+        with mesh:
+            for t in range(c["steps"]):
+                sync(device)
+                t0 = time.perf_counter()
+                lg, local = model.decode_step(params, local,
+                                              toks[:, P0 + t:P0 + t + 1])
+                sync(device)
+                ms.append((time.perf_counter() - t0) * 1e3)
+                got = lg[:, 0].float().cpu()
+                check(not bool(torch.isnan(got).any()),
+                      f"rank {mesh.rank}: NaN logits at step {t}")
+                diff = (got - ref[t]).abs()
+                bound = c["tol"] + c["tol"] * ref[t].abs()
+                worst.append(float(diff.max()))
+                worst_rel.append(float((diff / bound).max()))
+                if ref32 is not None:
+                    dev_sharded += float((got - ref32[t]).abs().mean())
+                    dev_unsharded += float((ref[t] - ref32[t]).abs()
+                                           .mean())
+    finally:
+        attn_mod.decode_attention_shardmap = real
+    check(taken[0] == c["steps"] * model.cfg.n_layers,
+          f"rank {mesh.rank}: flash-decoding taken {taken[0]} times")
+    warm = ms[1:] or ms
+    steps = c["steps"]
+    return {"max_abs_err": max(worst), "max_err_over_tol": max(worst_rel),
+            "max_abs_err_by_step": worst,
+            "mean_dev_from_f32": (None if ref32 is None else
+                                  {"sharded": dev_sharded / steps,
+                                   "unsharded": dev_unsharded / steps}),
+            "prefill_ms": prefill_ms, "prefill_launches": launches[0],
+            "prefill_launches_tensor_core": launches[1],
+            "decode_ms_per_step": sum(warm) / len(warm),
+            "flash_decode_calls": taken[0],
+            "valid_slots_at_first_step": valid_slots}
+
+
+def _plan_digests(calls) -> list:
+    """SHA-256 digests (16 hex) of each routing plan's expert, slot and
+    valid tensors."""
+    return [_digest(np.concatenate([np.asarray(t.cpu().numpy(), np.int64)
+                                    .reshape(-1) for t in (e, s, v)]))
+            for e, s, _, v in calls]
+
+
+class _PlanTap:
+    """Wraps ``moe.route_with_bulk_steal`` and keeps every plan."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+        self.mod, self.real, self.plans = moe, moe.route_with_bulk_steal, []
+        moe.route_with_bulk_steal = self
+
+    def __call__(self, *a, **kw):
+        plan = self.real(*a, **kw)
+        self.plans.append(plan)
+        return plan
+
+    def restore(self):
+        self.mod.route_with_bulk_steal = self.real
+
+
+def moe_reference(device, c, *, reduced: bool) -> dict:
+    """The dispatch run whole (``moe_impl="gspmd"``): each data rank's rows
+    prefilled on their own (the routing's scope is a rank's tokens),
+    their last logits on the host, their plans' digests, ms per
+    prefill."""
+    import torch
+    model, init = _sharded_model(device, c, reduced=reduced,
+                                 moe_impl="gspmd")
+    params = init()
+    toks = torch.from_numpy(_sharded_tokens(model.cfg, c)).to(device)
+    nd = c["data"]
+    out = {"logits": [], "plans": [], "ms": []}
+    for d in range(nd):
+        rows = slice(d * c["batch"] // nd, (d + 1) * c["batch"] // nd)
+        tap = _PlanTap()
+        try:
+            sync(device)
+            t0 = time.perf_counter()
+            lg, _ = model.prefill(params, toks[rows])
+            sync(device)
+        finally:
+            tap.restore()
+        out["ms"].append((time.perf_counter() - t0) * 1e3)
+        out["logits"].append(lg[:, 0].float().cpu())
+        out["plans"].append(_plan_digests(tap.plans))
+    return out
+
+
+def _moe_rank(mesh, device, c, ref_path, *, reduced: bool) -> dict:
+    """One rank of (b): the full parameters made in turns (one rank at a
+    time, each keeping its model rank's experts: ``shard_params``), then
+    this data rank's prefill under the mesh, every MoE layer through the
+    EP body; its last logits' distance from the reference's over 2e-5 +
+    2e-4 |x|, and whether its routing plans are bit-equal to the
+    reference's (the parent gates both)."""
+    import torch
+    from repro_torch.models import moe as moe_mod
+    model, init = _sharded_model(device, c, reduced=reduced,
+                                 moe_impl="ep_shardmap")
+    local = None
+    for turn in range(int(np.prod(list(mesh.shape.values())))):
+        if turn == mesh.rank:
+            full = init()
+            local = model.shard_params(full, mesh)
+            del full
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        mesh.barrier()
+    tp = mesh.shape["model"]
+    held = local["blocks"]["g0"]["moe"]["w_gate"].shape[1]
+    check(held == model.cfg.n_experts // tp,
+          f"rank {mesh.rank} holds {held} experts")
+    d, nd = mesh.coords["data"], mesh.shape["data"]
+    rows = slice(d * c["batch"] // nd, (d + 1) * c["batch"] // nd)
+    toks = torch.from_numpy(_sharded_tokens(model.cfg, c)[rows]).to(device)
+    ref = torch.load(ref_path)
+    real, taken = moe_mod.moe_apply_ep_shardmap, [0]
+
+    def counted(*a, **kw):
+        out = real(*a, **kw)
+        taken[0] += out is not None
+        return out
+
+    moe_mod.moe_apply_ep_shardmap = counted
+    tap = _PlanTap()
+    try:
+        with mesh:
+            sync(device)
+            t0 = time.perf_counter()
+            lg, _ = model.prefill(local, toks)
+            sync(device)
+            ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        tap.restore()
+        moe_mod.moe_apply_ep_shardmap = real
+    got, want = lg[:, 0].float().cpu(), ref["logits"][d]
+    diff = (got - want).abs()
+    plans = _plan_digests(tap.plans)
+    check(taken[0] == model.cfg.n_layers,
+          f"rank {mesh.rank}: the EP body taken {taken[0]} times")
+    return {"max_abs_err": float(diff.max()),
+            "max_err_over_tol": float((diff / (2e-5 + 2e-4 * want.abs()))
+                                      .max()),
+            "finite": bool(torch.isfinite(got).all()), "prefill_ms": ms,
+            "experts_held": int(held), "ep_calls": taken[0],
+            "plans_bit_equal": plans == ref["plans"][d],
+            "plan_calls": len(plans)}
+
+
+def _sharded_rank(rank: int, cfg: dict, device_type: str, ref_dir: str,
+                  reduced: bool) -> dict:
+    """One rank of phase 13: (a) flash-decoding in both precisions, then
+    (b) expert-parallel MoE, each part's model freed before the next."""
+    import torch
+    _port()
+    from repro_torch.launch.mesh import make_model_mesh
+    from repro_torch.models import transformer
+    device = _rank_device(rank, device_type)
+    mesh = make_model_mesh(*cfg["mesh"], device=device)
+    if cfg.get("seq_shard_min"):
+        transformer._SEQ_SHARD_MIN = cfg["seq_shard_min"]
+    out = {"coords": mesh.coords}
+    for name in ("flash", "flash_f32"):
+        out[name] = _flash_rank(mesh, device, cfg[name],
+                                Path(ref_dir) / f"{name}.pt",
+                                reduced=reduced)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    out["moe"] = _moe_rank(mesh, device, cfg["moe"],
+                           Path(ref_dir) / "moe.pt", reduced=reduced)
+    return out
+
+
+def phase_sharded(device, cfg) -> dict:
+    """Phase 13: the unsharded references in this process (freed before
+    the spawn), then ``prod(mesh)`` gloo ranks on the one card as a model
+    mesh, each measuring its results against the references; the gates
+    over every rank's."""
+    import tempfile
+    import torch
+    from repro_torch.launch.mesh import run_workers
+    reduced = cfg.get("reduced", False)
+    ref_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_sharded_"))
+    out = {}
+    try:
+        for name in ("flash", "flash_f32"):
+            ref = flash_reference(device, cfg[name], reduced=reduced,
+                                  groups=cfg["mesh"][0][0])
+            torch.save({"logits": ref.pop("logits"),
+                        "f32": ref.pop("f32_logits")}, ref_dir / f"{name}.pt")
+            out[name] = {f"unsharded_{k}": v for k, v in ref.items()}
+            del ref
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        moe = moe_reference(device, dict(cfg["moe"],
+                                         data=cfg["mesh"][0][0]),
+                            reduced=reduced)
+        torch.save(moe, ref_dir / "moe.pt")
+        out["moe"] = {"unsharded_prefill_ms_per_data_rank": moe["ms"]}
+        del moe
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        ranks = run_workers(functools.partial(
+            _sharded_rank, cfg=cfg, device_type=device.type,
+            ref_dir=str(ref_dir), reduced=reduced),
+            int(np.prod(cfg["mesh"][0])), backend="gloo",
+            timeout=cfg["timeout"])
+        wall = time.perf_counter() - t0
+    finally:
+        import shutil
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    for name in ("flash", "flash_f32", "moe"):
+        rows = [r[name] for r in ranks]
+        keys = [k for k in rows[0]
+                if isinstance(rows[0][k], (int, float, list, dict))]
+        out[name].update({k: [r[k] for r in rows] for k in keys})
+        c = cfg[name]
+        out[name]["config"] = {k: c[k] for k in c if k != "seed"}
+    out.update(coords=[r["coords"] for r in ranks], spawn_wall_s=wall,
+               transport="gloo, staged through the host",
+               mesh=dict(zip(cfg["mesh"][1], cfg["mesh"][0])))
+    for name in ("flash", "flash_f32", "moe"):
+        if cfg[name].get("f32_reference"):
+            # bf16: as accurate as the unsharded decode on the mean; on
+            # the max within the JAX package's bound, or (at full width,
+            # where bf16 rounding alone passes it) no farther from the
+            # unsharded decode than twice the distance of two correct
+            # unsharded decodes (batches of 8 and 16)
+            witness = out[name]["unsharded_batch_shape_max_abs_dev"]
+            for r, (dev, err, rel) in enumerate(zip(
+                    out[name]["mean_dev_from_f32"],
+                    out[name]["max_abs_err"],
+                    out[name]["max_err_over_tol"])):
+                check(dev["sharded"] <= SERVE_BF16_RATIO * dev["unsharded"],
+                      f"rank {r}: sharded bf16 decode {dev['sharded']} "
+                      f"from float32, the unsharded {dev['unsharded']}")
+                check(rel <= 1.0 or err <= SHARDED_BF16_WITNESS_RATIO
+                      * witness,
+                      f"rank {r}: sharded bf16 decode {err} from the "
+                      f"unsharded one ({rel} x the {cfg[name]['tol']} "
+                      f"bound), two unsharded decodes {witness} apart")
+            continue
+        worst = max(out[name]["max_err_over_tol"])
+        check(worst <= 1.0,
+              f"sharded {name}: {max(out[name]['max_abs_err'])} from the "
+              f"unsharded run, {worst} x its tolerance")
+    check(all(out["moe"]["plans_bit_equal"]) and all(out["moe"]["finite"]),
+          "EP routing plans differ from the whole dispatch's, or its "
+          "logits are not finite")
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3334,12 +3983,24 @@ def main() -> int:
     train = phase_train(device, PHASE11)
     print(json.dumps({"phase": "train", "card": card, "result": train}),
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    encdec = phase_encdec(device, PHASE12)
+    print(json.dumps({"phase": "encdec", "card": card, "result": encdec}),
+          flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded = phase_sharded(device, PHASE13)
+    print(json.dumps({"phase": "sharded", "card": card, "result": sharded}),
+          flush=True)
 
     launches = {**solver["launches"],
                 "flash_attention": serving["serve"]["launches"][
                     "flash_attention"],
                 "flash_attention_hd112": serving["wave_hybrid"]["launches"][
                     "flash_attention"],
+                "flash_attention_cross": encdec["serve"]["launches_by_mode"][
+                    "cross"],
                 "ssd_scan": serving["serve_ssm"]["launches"]["ssd_scan"],
                 "ssd_scan_hd64_ns64": serving["wave_hybrid"]["launches"][
                     "ssd_scan"]}

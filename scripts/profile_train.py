@@ -1,10 +1,12 @@
 #!/usr/bin/env python3
 """Where the time of one training step goes on one GPU.
 
-Builds llama3.2-1b (the model ``chip_smoke.py`` phase 11 trains) at its
-published widths and depth with random float32 weights from seed 0,
-bf16 compute, and takes ``make_train_step``'s parts on the first 4 x
-1,024 batch of ``launch/train``'s pipeline, each timed with the host
+Builds ``--arch`` (default llama3.2-1b, which ``chip_smoke.py`` phase 11
+trains; seamless-m4t-medium is phase 12's) at its published widths and
+depth with random float32 weights from seed 0, bf16 compute, and takes
+``make_train_step``'s parts on the first 4 x 1,024 batch of
+``launch/train``'s pipeline (an enc-dec batch's frames drawn from the
+seed, as phase 12 draws them), each timed with the host
 clock between synchronizes after a warm-up step: the forward and loss
 alone, the forward and backward (``value_and_grad``), AdamW, and within
 the backward the plain attention backward that K6's launches carry
@@ -14,11 +16,12 @@ under ``torch.profiler``: device busy time and idle share, launches, K6's
 launches and device time, and the kernels that take the most.  Prints
 one JSON line.
 
-    python3 scripts/profile_train.py
+    python3 scripts/profile_train.py [--arch seamless-m4t-medium]
 """
 
 from __future__ import annotations
 
+import argparse
 import dataclasses
 import gc
 import json
@@ -32,6 +35,9 @@ B, S, REPEAT = 4, 1024, 3
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="llama3.2-1b")
+    args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("profile_train: no CUDA device", file=sys.stderr)
@@ -49,11 +55,15 @@ def main() -> int:
     from repro_torch.train.trainer import make_train_step, value_and_grad
 
     dev = torch.device("cuda")
-    cfg = configs.get("llama3.2-1b")
+    cfg = configs.get(args.arch)
     pipeline = WorkStealingPipeline(1, make_batch=lambda shard, step:
                                     synth_batch(0, shard, step, B, S,
                                                 cfg.vocab_size))
     batch = make_batch(cfg, pipeline.next_batch(0), dev)
+    if "frames" in batch:  # ones would leave the encoder one position
+        batch["frames"] = torch.randn(
+            batch["frames"].shape, device=dev,
+            generator=torch.Generator(device=dev).manual_seed(0))
     params = build_model(cfg).init(
         torch.Generator(device=dev).manual_seed(0))
     opt_cfg = AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=10)

@@ -129,7 +129,8 @@ class MeshLanes:
         return t.cpu() if self.staged else t
 
     def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (``(1, ...)``) of every lane, stacked ``(n, ...)``."""
+        """``x`` (``(r, ...)``; a lane's is ``(1, ...)``) of every lane,
+        concatenated ``(n * r, ...)`` in lane order."""
         wire = self._to_wire(x)
         out = torch.empty((self.n * wire.shape[0],) + tuple(wire.shape[1:]),
                           dtype=wire.dtype, device=wire.device)
@@ -145,8 +146,14 @@ class MeshLanes:
         return tree_unflatten(tree, _unpack(out, leaves))
 
     def max(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, dist.ReduceOp.MAX)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        return self._reduce(x, dist.ReduceOp.SUM)
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         wire = self._to_wire(x).clone()
-        dist.all_reduce(wire, op=dist.ReduceOp.MAX, group=self.group)
+        dist.all_reduce(wire, op=op, group=self.group)
         return wire.to(x.device)
 
     def route(self, block: Any, dest: torch.Tensor) -> Any:

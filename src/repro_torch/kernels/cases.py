@@ -176,6 +176,25 @@ FLASH_EXTRA_CASES = [
     (2, 256, 256, 4, 2, 128, False, None, None, "bfloat16"),  # hd 128, full
     (2, 100, 100, 4, 2, 64, True, None, 30.0, "bfloat16"),    # ragged, cap
     (1, 256, 256, 16, 2, 64, True, None, None, "bfloat16"),   # GQA group 8
+] + [
+    # unmasked, 16 heads of 64 (MHA): the enc-dec family's cross-attention
+    # (S != T) and bidirectional encoder, whole and ragged KV tails
+    (B, S, T, 16, 16, 64, False, None, None, dtype)
+    for B, S, T in ((2, 128, 256),      # S < T
+                    (2, 256, 128),      # S > T
+                    (1, 100, 100),      # ragged, S = T
+                    (1, 64, 100),       # ragged T, S < T
+                    (1, 100, 60))       # ragged, S > T
+    for dtype in ("bfloat16", "float32")
+]
+
+# Unmasked rows whose KV length is ragged past a whole tile (the JAX
+# kernel takes only whole blocks, so the CPU tests hold these against the
+# JAX package's reference): seamless-m4t-medium's cross-attention at 1,000
+# encoder frames, and its encoder over them.
+FLASH_RAGGED_CASES = [
+    (1, S, 1000, 16, 16, 64, False, None, None, dtype)
+    for S in (256, 1000) for dtype in ("bfloat16", "float32")
 ]
 
 # Prefill attention of the serving slice: a wave of 4 prompts of 1,024
@@ -183,6 +202,9 @@ FLASH_EXTRA_CASES = [
 FLASH_SLICE = (4, 1024, 1024, 32, 8, 64, True, None, None, "bfloat16")
 # The same wave through zamba2-7b's shared attention (32 heads of 112, MHA).
 FLASH_ZAMBA = (4, 1024, 1024, 32, 32, 112, True, None, None, "bfloat16")
+# seamless-m4t-medium's cross-attention in a prefill of 4 utterances: 256
+# target tokens against 1,000 encoder frames, 16 heads of 64, unmasked.
+FLASH_CROSS = (4, 256, 1000, 16, 16, 64, False, None, None, "bfloat16")
 
 # The JAX package's tolerances for the flash kernel (tests/test_kernels.py).
 FLASH_TOL = {"float32": 2e-5, "bfloat16": 2e-2}

@@ -1,5 +1,5 @@
-"""Worker meshes over ``torch.distributed`` (PyTorch port of
-``repro.launch.mesh``'s ``make_worker_mesh``) and a launcher of ranks.
+"""Worker and model meshes over ``torch.distributed`` (port of
+``repro.launch.mesh``) and a launcher of ranks.
 
 The JAX package's worker mesh is a ``jax.sharding.Mesh`` of devices with
 one axis (flat) or two (``(pods, workers)``).  Here a lane is a process:
@@ -10,8 +10,21 @@ per pod, and one per row that crosses the pods (lane ``l`` of every
 pod).  :func:`run_workers` spawns ranks, joins them into a group and runs
 a function on each (the tests and ``chip_smoke.py`` use it).
 
-``make_production_mesh`` (tensor and data parallel for models) waits for
-the sharded model path.
+:class:`ModelMesh` is the model mesh: the first ``prod(shape)`` ranks in
+a ``(data, model)`` or ``(pod, data, model)`` grid, row-major as
+``jax.make_mesh`` lays out devices.  It gives each rank its coordinate on
+every axis and one process group per axis line (the ranks that differ
+only in that axis).  Its collectives, ``all_reduce`` (SUM / MAX) and
+``all_gather`` over one axis, go through a ``core.lanes.MeshLanes`` per
+axis line, the seam the queue lanes use (``torch.distributed``, staged
+through the host under ``gloo``).  ``with mesh:`` makes
+it the active model mesh (``models.layers._active_mesh``), under which
+flash-decoding and expert-parallel MoE take their collective branches.
+``shard`` and ``gather`` turn a full tree into this rank's block of it by
+a tree of specs, and back: what ``shard_map``'s ``in_specs`` and
+``out_specs`` do in JAX.  :func:`make_model_mesh` builds one
+(``jax.make_mesh``'s counterpart); :func:`make_production_mesh` the JAX
+package's ``(16, 16)`` and ``(2, 16, 16)`` meshes.
 """
 
 from __future__ import annotations
@@ -27,13 +40,16 @@ import time
 import traceback
 from typing import Any, Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch._tree import resolve_device
+from repro_torch._tree import resolve_device, tree_map
 from repro_torch.core.lanes import MeshLanes
+from repro_torch.models import layers
 
-__all__ = ["WorkerMesh", "make_worker_mesh", "run_workers"]
+__all__ = ["WorkerMesh", "make_worker_mesh", "ModelMesh", "make_model_mesh",
+           "make_production_mesh", "run_workers"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -146,6 +162,181 @@ def make_worker_mesh(n_workers: int, *, pod_size: Optional[int] = None,
         requested_device=device, group=group if member else None,
         pod_group=pod_group if member else None,
         row_group=row_group if member else None)
+
+
+# ---------------------------------------------------------------------------
+# The model mesh
+
+
+class ModelMesh:
+    """This rank's place in a model mesh of ``prod(shape)`` ranks, and the
+    collectives over its axes.  ``shape`` maps each axis name to its size
+    (as a JAX mesh's ``shape`` does), ``coords`` this rank's coordinate on
+    each axis.  ``lanes[axis]`` is this rank's line along ``axis`` as
+    ``core.lanes.MeshLanes`` (lane ``i`` the rank at coordinate ``i``),
+    through which every collective of the model goes.  On a rank outside
+    the mesh ``member`` is false and nothing but the constructor's group
+    creation may be called."""
+
+    def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                 rank: int, groups: dict, device, group=None):
+        self.axis_names = tuple(axis_names)
+        self.shape = dict(zip(self.axis_names, shape))
+        self.rank = rank
+        self.member = rank < int(np.prod(shape))
+        self.coords = ({a: int(c) for a, c in zip(
+            self.axis_names, np.unravel_index(rank, shape))}
+            if self.member else {})
+        self.lanes = ({a: MeshLanes(groups[a], self.shape[a], self.coords[a],
+                                    writer=self.coords[a] == 0)
+                       for a in self.axis_names} if self.member else {})
+        self.group = group          # every rank of the mesh
+        self.device = device
+
+    # -- the active mesh
+
+    def __enter__(self) -> "ModelMesh":
+        layers._MESHES.append(self)
+        return self
+
+    def __exit__(self, *exc) -> None:
+        layers._MESHES.remove(self)
+
+    # -- axes
+
+    def _axes(self, entry) -> Tuple[str, ...]:
+        """A spec entry's axes that this mesh has (the JAX package drops
+        the others, so one spec serves the single- and multi-pod meshes)."""
+        if entry is None:
+            return ()
+        names = entry if isinstance(entry, tuple) else (entry,)
+        return tuple(a for a in names if a in self.shape)
+
+    def size(self, entry) -> int:
+        """The number of blocks a spec entry splits a dimension into."""
+        return int(np.prod([self.shape[a] for a in self._axes(entry)],
+                           dtype=np.int64))
+
+    def index(self, entry) -> int:
+        """This rank's block along a spec entry (``lax.axis_index``):
+        mixed radix over the entry's axes, the first the major."""
+        i = 0
+        for a in self._axes(entry):
+            i = i * self.shape[a] + self.coords[a]
+        return i
+
+    # -- collectives (through core.lanes.MeshLanes, the one seam)
+
+    def all_reduce(self, x: torch.Tensor, axis: str, op: str = "sum"
+                   ) -> torch.Tensor:
+        """``x`` reduced (``"sum"`` or ``"max"``) over the ranks of this
+        rank's line along ``axis`` (``lax.psum`` / ``lax.pmax``); a
+        half-precision tensor is reduced in float32 and cast back."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        lanes = self.lanes[axis]
+        reduce = {"sum": lanes.sum, "max": lanes.max}[op]
+        wide = x.float() if x.dtype in (torch.bfloat16,
+                                        torch.float16) else x
+        return reduce(wide).to(x.dtype)
+
+    def all_gather(self, x: torch.Tensor, axis: str, dim: int
+                   ) -> torch.Tensor:
+        """The blocks ``x`` of the ranks along ``axis``, concatenated on
+        ``dim`` in coordinate order."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        out = self.lanes[axis].all_gather(x.movedim(dim, 0))
+        return out.movedim(0, dim)
+
+    # -- full trees <-> this rank's blocks
+
+    def shard(self, tree: Any, specs: Any) -> Any:
+        """This rank's block of every leaf of ``tree`` by the spec tree
+        ``specs`` (a ``P`` per tensor; ``None`` or a non-tensor leaf
+        passes through): each named dimension cut into ``size(entry)``
+        equal blocks, block ``index(entry)`` kept, as a new tensor."""
+        def one(x, spec):
+            if spec is None or not isinstance(x, torch.Tensor):
+                return x
+            for d, entry in enumerate(spec):
+                n = self.size(entry)
+                if n == 1:
+                    continue
+                if x.shape[d] % n:
+                    raise ValueError(
+                        f"dimension {d} of {tuple(x.shape)} does not split "
+                        f"into {n} blocks over {entry!r}")
+                w = x.shape[d] // n
+                x = x.narrow(d, self.index(entry) * w, w)
+            return x.clone()
+        return tree_map(one, tree, specs)
+
+    def gather(self, tree: Any, specs: Any) -> Any:
+        """The full tree from every rank's blocks (the inverse of
+        :meth:`shard`): each named dimension all-gathered over its axes,
+        the minor axis first."""
+        def one(x, spec):
+            if spec is None or not isinstance(x, torch.Tensor):
+                return x
+            for d, entry in enumerate(spec):
+                for a in reversed(self._axes(entry)):
+                    x = self.all_gather(x, a, d)
+            return x
+        return tree_map(one, tree, specs)
+
+    def barrier(self) -> None:
+        """Wait for every rank of the mesh."""
+        dist.barrier(group=self.group)
+
+
+def make_model_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *,
+                    device=None) -> ModelMesh:
+    """A model mesh of ``shape`` over the first ``prod(shape)`` ranks of the
+    initialised default process group (``jax.make_mesh``'s counterpart):
+    rank ``r`` at ``np.unravel_index(r, shape)``.  Every rank of the world
+    must call it, in the same order as the others (creating a group is
+    collective over the world).  ``device`` as in
+    :func:`make_worker_mesh`."""
+    if not dist.is_initialized():
+        raise RuntimeError(
+            "make_model_mesh needs an initialised default process group "
+            "(torch.distributed.init_process_group, or run_workers)")
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} and axes {axis_names} differ in "
+                         f"length")
+    world, rank = dist.get_world_size(), dist.get_rank()
+    n = int(np.prod(shape))
+    if world < n:
+        raise ValueError(
+            f"a {shape} model mesh needs {n} ranks; the world has {world} "
+            f"(ranks 0-{world - 1})")
+    grid = np.arange(n).reshape(shape)
+    group = dist.group.WORLD if n == world else dist.new_group(list(range(n)))
+    groups = {}
+    for ax, name in enumerate(axis_names):
+        lines = np.moveaxis(grid, ax, -1).reshape(-1, shape[ax])
+        for line in lines:
+            g = dist.new_group([int(r) for r in line])
+            if rank in line:
+                groups[name] = g
+    member = rank < n
+    dev = _lane_device(device) if member else None
+    if dev is not None and dev.type == "cuda":
+        torch.cuda.set_device(dev)
+    return ModelMesh(shape, axis_names, rank, groups, dev,
+                     group if member else None)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device=None) -> ModelMesh:
+    """The JAX package's production mesh: ``(data=16, model=16)``, or
+    ``(pod=2, data=16, model=16)`` with ``multi_pod``; raises a
+    ``ValueError`` naming the ranks it needs when the world is smaller."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_model_mesh(shape, axes, device=device)
 
 
 # ---------------------------------------------------------------------------

@@ -45,13 +45,19 @@ def build(arch: str, preset: str):
 
 def make_batch(cfg, raw: dict, device) -> dict:
     """A training batch on ``device`` from the pipeline's numpy tokens and
-    labels; the VLM family gets zero patches (its stub frontend)."""
+    labels; the VLM family gets zero patches and the enc-dec family frames
+    of ones, as long as the tokens (their stub frontends, as in the JAX
+    package's launcher)."""
     batch = {k: torch.from_numpy(raw[k]).to(device)
              for k in ("tokens", "labels")}
     if cfg.family == "vlm":
         batch["patches"] = torch.zeros(
             (raw["tokens"].shape[0], cfg.n_patches, cfg.frontend_dim),
             dtype=torch.float32, device=device)
+    if cfg.family == "encdec":
+        B, S = raw["tokens"].shape
+        batch["frames"] = torch.ones((B, S, cfg.frontend_dim),
+                                     dtype=torch.float32, device=device)
     return batch
 
 

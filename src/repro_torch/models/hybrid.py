@@ -21,13 +21,13 @@ the new conv inputs, states and K / V into the cache tensors in place.
 Parameters keep the JAX package's layout (stacked ``(L, ...)`` leaves,
 ``(NG, AE, ...)`` for the hybrid's groups), so its weights carry over
 unchanged.  The JAX package scans the layers; the port loops over them in
-Python.  ``param_specs`` and ``cache_specs`` wait for the sharded-model
-path.
+Python.  ``param_specs`` and ``cache_specs`` are the JAX package's GSPMD
+layouts (trees of ``layers.P``, equal leaf for leaf).
 """
 
 from __future__ import annotations
 
-from typing import Any, Iterator, Tuple
+from typing import Any, Iterator, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -36,9 +36,9 @@ from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
                                           decode_attention)
-from repro_torch.models.layers import (chunked_ce_loss, dense_init,
-                                       embed_init, mlp_apply, mlp_init,
-                                       remat_call, rms_norm)
+from repro_torch.models.layers import (P, ShardPlan, chunked_ce_loss,
+                                       dense_init, embed_init, mlp_apply,
+                                       mlp_init, remat_call, rms_norm)
 from repro_torch.models.ssm import (SSMCache, SSMConfig, mamba_block,
                                     mamba_decode_step, ssm_init)
 
@@ -46,13 +46,16 @@ Pytree = Any
 
 __all__ = ["HybridLM", "SSMLM"]
 
+_SEQ_SHARD_MIN = 8192       # the shared block's caches shard on seq from here
+
 
 class _MambaLM:
     """What both SSM models share: config, embedding, head, one residual
     Mamba2 block for prefill and for decode, and the SSM cache."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, sh: Optional[ShardPlan] = None):
         self.cfg = cfg
+        self.sh = sh or ShardPlan()
         self.dtype = getattr(torch, cfg.param_dtype)
         self.cdtype = getattr(torch, cfg.compute_dtype)
         self.scfg = SSMConfig(
@@ -60,6 +63,26 @@ class _MambaLM:
             n_heads=cfg.n_ssm_heads, head_dim=cfg.ssm_head_dim,
             state=cfg.ssm_state, conv_dim=cfg.ssm_conv_dim,
             chunk=cfg.ssm_chunk)
+
+    def _ssm_specs(self, lead: int) -> Pytree:
+        """The JAX package's specs of one Mamba2 block's leaves behind
+        ``lead`` stacked dims."""
+        tp, fs, n = self.sh.tp, self.sh.fsdp, (None,) * lead
+        return {
+            "w_z": P(*n, fs, tp), "w_x": P(*n, fs, tp),
+            "w_B": P(*n, fs, None), "w_C": P(*n, fs, None),
+            "w_dt": P(*n, fs, tp),
+            "conv_x": P(*n, None, tp), "conv_B": P(*n, None, None),
+            "conv_C": P(*n, None, None),
+            "A_log": P(*n, tp), "D": P(*n, tp), "dt_bias": P(*n, tp),
+            "out_proj": P(*n, tp, fs), "gate_norm": P(*n, tp),
+        }
+
+    def _ssm_cache_specs(self, lead: int, batch: int) -> Pytree:
+        dp = None if 0 < batch < 16 else self.sh.dp
+        n = (None,) * lead
+        return {"conv_buf": P(*n, dp, None, None),
+                "state": P(*n, dp, self.sh.tp, None, None)}
 
     def _ones(self, gen: torch.Generator, *shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=gen.device)
@@ -132,6 +155,20 @@ class _MambaLM:
 
 class SSMLM(_MambaLM):
     """Functional model bundle for one pure-SSM config."""
+
+    def param_specs(self) -> Pytree:
+        """The JAX package's GSPMD layout of ``init``'s tree."""
+        tp, fs = self.sh.tp, self.sh.fsdp
+        specs = {"embed": P(tp, fs),
+                 "layers": {"ln": P(None, None), "ssm": self._ssm_specs(1)},
+                 "final_norm": P(None)}
+        if not self.cfg.tie_embeddings:
+            specs["lm_head"] = P(fs, tp)
+        return specs
+
+    def cache_specs(self, seq_len: int, batch: int = 0) -> Pytree:
+        """The JAX package's GSPMD layout of the cache."""
+        return {"pos": P(), "ssm": self._ssm_cache_specs(1, batch)}
 
     def init(self, gen: torch.Generator) -> Pytree:
         """Random parameters on the generator's device."""
@@ -206,8 +243,8 @@ class SSMLM(_MambaLM):
 class HybridLM(_MambaLM):
     """Functional model bundle for one hybrid config."""
 
-    def __init__(self, cfg: ModelConfig):
-        super().__init__(cfg)
+    def __init__(self, cfg: ModelConfig, sh: Optional[ShardPlan] = None):
+        super().__init__(cfg, sh)
         self.n_groups = cfg.n_layers // cfg.attn_every
         self.tail = cfg.n_layers - self.n_groups * cfg.attn_every
         self.acfg = AttnConfig(
@@ -282,6 +319,43 @@ class HybridLM(_MambaLM):
         for _, pl in self._tail(params):
             x = remat_call(self._mamba, pl, x, enabled=remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
+
+    def param_specs(self) -> Pytree:
+        """The JAX package's GSPMD layout of ``init``'s tree."""
+        tp, fs = self.sh.tp, self.sh.fsdp
+        specs = {
+            "embed": P(tp, fs),
+            "grouped": {"ln": P(None, None, None), "ssm": self._ssm_specs(2)},
+            "shared": {
+                "ln1": P(None), "ln2": P(None),
+                "attn": {"wq": P(fs, tp), "wk": P(fs, tp),
+                         "wv": P(fs, tp), "wo": P(tp, fs)},
+                "mlp": {"w_gate": P(fs, tp), "w_up": P(fs, tp),
+                        "w_down": P(tp, fs)},
+            },
+            "final_norm": P(None),
+        }
+        if self.tail:
+            specs["tail"] = {"ln": P(None, None), "ssm": self._ssm_specs(1)}
+        if not self.cfg.tie_embeddings:
+            specs["lm_head"] = P(fs, tp)
+        return specs
+
+    def cache_specs(self, seq_len: int, batch: int = 0) -> Pytree:
+        """The JAX package's GSPMD layout of the cache."""
+        sh = self.sh
+        if 0 < batch < 16:
+            kv = P(None, None, tuple(sh.dp) + (sh.tp,), None, None)
+        elif seq_len >= _SEQ_SHARD_MIN:
+            kv = P(None, sh.dp, sh.tp, None, None)
+        else:
+            kv = P(None, sh.dp, None, None, None)
+        specs = {"pos": P(),
+                 "grouped_ssm": self._ssm_cache_specs(2, batch),
+                 "shared_attn": {"k": kv, "v": kv}}
+        if self.tail:
+            specs["tail_ssm"] = self._ssm_cache_specs(1, batch)
+        return specs
 
     def make_cache(self, batch: int, seq_len: int, device=None) -> Pytree:
         """Zeroed SSM caches, per-application shared-attention KV caches

@@ -1,19 +1,29 @@
-"""Shared building blocks: norms, softcap, initializers, the SwiGLU MLP
-and the sequence-chunked LM-head loss (port of ``repro.models.layers``).
+"""Shared building blocks: partition specs and the shard plan, norms,
+softcap, initializers, the SwiGLU MLP and the sequence-chunked LM-head
+loss (port of ``repro.models.layers``).
 
 Models are plain functions over parameter trees (dicts of tensors), as in
 the JAX package; stacked layers carry a leading ``(L, ...)`` dimension, so
-the JAX package's parameters carry over unchanged.  The port runs on one
-card, so it has no ``ShardPlan`` and no ``shard``: the JAX package's
-sharding constraints are no-ops without a mesh, and here there is none.
-Initializers draw from an explicit ``torch.Generator``; they do not
-reproduce ``jax.random`` streams (parity tests carry the JAX package's
-parameters over with ``models.zoo.params_from_numpy``).
+the JAX package's parameters carry over unchanged.  Initializers draw from
+an explicit ``torch.Generator``; they do not reproduce ``jax.random``
+streams (parity tests carry the JAX package's parameters over with
+``models.zoo.params_from_numpy``).
+
+Sharding.  :class:`P` is the port's partition spec (one entry per
+dimension: ``None``, an axis name, or a tuple of names), and
+:class:`ShardPlan` names the axes' roles, as in the JAX package; the
+models' ``param_specs`` and ``cache_specs`` are trees of ``P`` equal to
+the JAX package's.  A model mesh (``launch.mesh.ModelMesh``) is made
+active with ``with mesh:``, as a JAX mesh is, and :func:`_active_mesh`
+reads it; the explicit-collective bodies (flash-decoding, expert-parallel
+MoE) take their branch only under one.  The JAX package's ``shard`` (a
+``with_sharding_constraint``) has no counterpart: without GSPMD there is
+no partitioner for it to constrain.
 """
 
 from __future__ import annotations
 
-from typing import Any, Optional, Sequence
+from typing import Any, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -22,6 +32,8 @@ from torch.utils.checkpoint import checkpoint
 Pytree = Any
 
 __all__ = [
+    "P",
+    "ShardPlan",
     "rms_norm",
     "softcap",
     "dense_init",
@@ -31,6 +43,71 @@ __all__ = [
     "chunked_ce_loss",
     "remat_call",
 ]
+
+
+class P:
+    """A partition spec: one entry per dimension of a tensor, each
+    ``None`` (replicated), an axis name, or a tuple of axis names (the
+    dimension split over their product, the first the major).  The port's
+    own counterpart of ``jax.sharding.PartitionSpec``, and normalised as
+    it is (a one-name tuple is the name, an empty one None); a leaf of the
+    port's trees (not a tuple), so a tree of specs maps like any other."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(self._entry(e) for e in entries)
+
+    @staticmethod
+    def _entry(e):
+        if isinstance(e, (tuple, list)):
+            e = tuple(e)
+            return None if not e else e[0] if len(e) == 1 else e
+        return e
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __getitem__(self, i):
+        return self.entries[i]
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, P) and self.entries == other.entries
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"P{self.entries!r}"
+
+
+class ShardPlan:
+    """Named axis roles for a parallelism plan (``configs.ParallelConfig``).
+
+    dp:   batch axes (a tuple: the pod axis joins it on multi-pod meshes)
+    tp:   tensor-parallel axis (heads / d_ff / vocab / experts / sequence)
+    fsdp: parameter-sharding axis (None: replicated parameters, pure DP)
+    """
+
+    def __init__(self, dp: Tuple[str, ...] = ("data",), tp: str = "model",
+                 fsdp: Optional[str] = "data"):
+        self.dp, self.tp, self.fsdp = tuple(dp), tp, fsdp
+
+    @classmethod
+    def from_parallel(cls, par) -> "ShardPlan":
+        return cls(dp=par.batch_axes, tp=par.model_axis, fsdp=par.fsdp_axis)
+
+
+# The model meshes made active by ``with mesh:``, innermost last.
+_MESHES: list = []
+
+
+def _active_mesh():
+    """The model mesh installed by ``with mesh:``, or None."""
+    return _MESHES[-1] if _MESHES else None
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:

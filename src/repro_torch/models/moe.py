@@ -20,24 +20,30 @@ the lower expert, as ``lax.top_k``), every sort is stable, and each
 ``searchsorted`` takes the JAX call's side.  ``bulk_steal=False`` is the
 GShard drop baseline.  The expert products are batched matmuls over
 ``(E, C, D)`` buffers, as the JAX package's einsums are (no Pallas kernel
-there).  The port runs on one card: ``impl="ep_shardmap"`` computes what
-the JAX package computes without a mesh, the dispatch below; its
-``shard_map`` body waits for the sharded-model path.
+there).
+
+``impl="ep_shardmap"`` is explicit expert parallelism
+(:func:`moe_apply_ep_shardmap`, the JAX package's ``shard_map`` body):
+under an active model mesh each model rank holds ``E / tp`` experts, runs
+the same routing plan, computes its own experts' tokens and adds its
+share into one SUM all-reduce per chunk over the model axis.  Without a
+mesh, or where ``E % tp != 0``, it is the dispatch below, as in the JAX
+package.
 """
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import dense_init
+from repro_torch.models.layers import ShardPlan, _active_mesh, dense_init
 
 Pytree = Any
 
-__all__ = ["moe_init", "moe_apply", "route_with_bulk_steal",
-           "MOE_CHUNK_TOKENS"]
+__all__ = ["moe_init", "moe_apply", "moe_apply_ep_shardmap",
+           "route_with_bulk_steal", "MOE_CHUNK_TOKENS"]
 
 IMPLS = ("gspmd", "ep_shardmap")
 
@@ -133,9 +139,10 @@ def capacity_of(tokens: int, top_k: int, n_experts: int,
 
 
 def _moe_chunk(p: Pytree, xt: torch.Tensor, *, top_k: int, n_experts: int,
-               capacity_factor: float, compute_dtype,
-               bulk_steal: bool) -> torch.Tensor:
-    """MoE of one ``(Tc, D)`` token chunk."""
+               capacity_factor: float, compute_dtype, bulk_steal: bool,
+               experts: Optional[range] = None) -> torch.Tensor:
+    """MoE of one ``(Tc, D)`` token chunk; with ``experts`` (a range of
+    expert ids whose weights ``p`` holds, in order) only their share."""
     Tc, D = xt.shape
     E, cd = n_experts, compute_dtype
     probs = torch.softmax((xt @ p["router"].to(cd)).float(), dim=-1)
@@ -143,6 +150,10 @@ def _moe_chunk(p: Pytree, xt: torch.Tensor, *, top_k: int, n_experts: int,
     expert, slot, weight, valid = route_with_bulk_steal(
         probs, top_k, capacity, bulk_steal=bulk_steal)
     tok = torch.arange(Tc, device=xt.device).repeat_interleave(top_k)
+    if experts is not None:  # keep the assignments of this rank's experts
+        expert = expert.long() - experts.start
+        valid = valid & (expert >= 0) & (expert < len(experts))
+        E = len(experts)
 
     # dispatch into the (E, C, D) buffers; assignments without a slot go
     # to a spare last row, which is cut off (JAX's mode="drop")
@@ -165,26 +176,76 @@ def _moe_chunk(p: Pytree, xt: torch.Tensor, *, top_k: int, n_experts: int,
     return gathered.view(Tc, top_k, D).sum(1)
 
 
+def _chunks(xt: torch.Tensor, fn) -> torch.Tensor:
+    """``fn`` over the fewest equal chunks of at most ``MOE_CHUNK_TOKENS``
+    rows that divide ``xt``'s, concatenated."""
+    T, D = xt.shape
+    if T <= MOE_CHUNK_TOKENS:
+        return fn(xt)
+    nc = -(-T // MOE_CHUNK_TOKENS)
+    while T % nc:
+        nc += 1
+    return torch.cat([fn(c) for c in xt.view(nc, T // nc, D)])
+
+
+def moe_apply_ep_shardmap(p: Pytree, x: torch.Tensor, *, top_k: int,
+                          n_experts: int, capacity_factor: float, sh,
+                          compute_dtype, bulk_steal: bool = True):
+    """Explicit expert parallelism under the active model mesh (the JAX
+    package's ``shard_map`` body, ``repro.models.moe``).
+
+    Each rank holds its block as the body's ``in_specs`` give it: the
+    router whole, and of ``w_gate`` / ``w_up`` / ``w_down`` the ``E / tp``
+    experts of its model rank (``index * E / tp`` on); ``x`` (B, S, D) its
+    rows (the data parallelism is the caller's).  Every model rank routes
+    the same tokens to the same plan, gathers and computes only its own
+    experts' assignments, and the ranks' outputs are summed by one SUM
+    all-reduce per chunk over the model axis.  Returns None where the JAX
+    package's body does: no mesh, no ``sh.tp`` axis, or ``E % tp != 0``.
+    """
+    mesh = _active_mesh()
+    if mesh is None or sh.tp not in mesh.shape:
+        return None
+    tp = mesh.shape[sh.tp]
+    if n_experts % tp:
+        return None
+    Eo = n_experts // tp
+    if p["w_gate"].shape[0] != Eo:
+        raise ValueError(f"a rank of {tp} holds {Eo} of {n_experts} "
+                         f"experts, not {p['w_gate'].shape[0]}")
+    first = mesh.coords[sh.tp] * Eo
+    B, S, D = x.shape
+    kw = dict(top_k=top_k, n_experts=n_experts,
+              capacity_factor=capacity_factor, compute_dtype=compute_dtype,
+              bulk_steal=bulk_steal, experts=range(first, first + Eo))
+
+    def chunk(xt):
+        return mesh.all_reduce(_moe_chunk(p, xt, **kw), sh.tp, "sum")
+
+    return _chunks(x.reshape(B * S, D).to(compute_dtype), chunk
+                   ).view(B, S, D)
+
+
 def moe_apply(p: Pytree, x: torch.Tensor, *, top_k: int, n_experts: int,
               capacity_factor: float, compute_dtype, bulk_steal: bool = True,
-              impl: str = "gspmd") -> torch.Tensor:
+              impl: str = "gspmd", sh=None) -> torch.Tensor:
     """x: (B, S, D) -> (B, S, D); ``p`` leaves are one layer's (no L dim).
 
     Tokens are routed in chunks of at most ``MOE_CHUNK_TOKENS`` (the
     fewest equal chunks that divide B * S): the steal's scope is the chunk.
+    ``impl="ep_shardmap"`` under a model mesh is
+    :func:`moe_apply_ep_shardmap` (``sh``: the shard plan, default
+    ``ShardPlan()``); otherwise the dispatch runs here whole.
     """
     if impl not in IMPLS:
         raise ValueError(f"moe impl {impl!r} not in {IMPLS}")
-    B, S, D = x.shape
-    T = B * S
-    xt = x.reshape(T, D).to(compute_dtype)
     kw = dict(top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, compute_dtype=compute_dtype,
               bulk_steal=bulk_steal)
-    if T <= MOE_CHUNK_TOKENS:
-        return _moe_chunk(p, xt, **kw).view(B, S, D)
-    nc = -(-T // MOE_CHUNK_TOKENS)
-    while T % nc:
-        nc += 1
-    return torch.cat([_moe_chunk(p, c, **kw)
-                      for c in xt.view(nc, T // nc, D)]).view(B, S, D)
+    if impl == "ep_shardmap":
+        out = moe_apply_ep_shardmap(p, x, sh=sh or ShardPlan(), **kw)
+        if out is not None:
+            return out
+    B, S, D = x.shape
+    return _chunks(x.reshape(B * S, D).to(compute_dtype),
+                   lambda xt: _moe_chunk(p, xt, **kw)).view(B, S, D)

@@ -19,12 +19,21 @@ The VLM family prefixes the text with ``patches`` projected by
 Prefill and training attention run through K6 (``models.attention
 .attention``), whose CUDA route has a gradient (its plain version's);
 decode attention is plain PyTorch.  ``decode_step`` writes the new
-token's K / V into the cache in place.  ``param_specs`` and
-``cache_specs`` wait for the sharded-model path.
+token's K / V into the cache in place.
+
+Sharding.  ``param_specs`` and ``cache_specs`` are the JAX package's
+GSPMD layouts (trees of ``layers.P``, equal leaf for leaf).  What runs
+sharded is the two explicit-collective bodies, under an active model mesh
+(``launch.mesh.ModelMesh``): ``shard_params`` keeps this rank's experts
+(``moe_impl="ep_shardmap"``) and ``shard_cache`` this rank's slice of the
+global layers' cache sequence (``decode_impl="flash_shardmap"``, caches of
+at least ``_SEQ_SHARD_MIN`` positions); ``decode_step`` then takes
+flash-decoding on those layers, as the JAX package's does.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple
 
@@ -32,12 +41,14 @@ import torch
 
 from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
+from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
                                           decode_attention)
-from repro_torch.models.layers import (chunked_ce_loss, dense_init,
-                                       embed_init, mlp_apply, mlp_init,
-                                       remat_call, rms_norm, softcap)
+from repro_torch.models.layers import (P, ShardPlan, chunked_ce_loss,
+                                       dense_init, embed_init, mlp_apply,
+                                       mlp_init, remat_call, rms_norm,
+                                       softcap)
 
 Pytree = Any
 
@@ -46,6 +57,7 @@ __all__ = ["DecoderLM"]
 _LOSS_CHUNK = 512           # sequence chunk of the LM-head loss
 _CAPACITY = 1.25            # MoE capacity factor over a prompt or batch
 _DECODE_CAPACITY = 2.0      # ... and over one decode token a row
+_SEQ_SHARD_MIN = 8192       # decode caches at/above this length shard on seq
 
 
 def _attn_cfg(cfg: ModelConfig, *, local: bool) -> AttnConfig:
@@ -65,8 +77,9 @@ def _attn_cfg(cfg: ModelConfig, *, local: bool) -> AttnConfig:
 class DecoderLM:
     """Functional model bundle for one config (dense / moe / vlm)."""
 
-    def __init__(self, cfg: ModelConfig):
+    def __init__(self, cfg: ModelConfig, sh: Optional[ShardPlan] = None):
         self.cfg = cfg
+        self.sh = sh or ShardPlan()
         # Layer grouping: gemma2 alternates (local, global).
         if cfg.local_global_every:
             self.group = 2
@@ -116,6 +129,97 @@ class DecoderLM:
                                               self.dtype)
         return params
 
+    # ------------------------------------------------------------- specs
+
+    def param_specs(self) -> Pytree:
+        """The JAX package's GSPMD layout of ``init``'s tree."""
+        cfg, sh = self.cfg, self.sh
+        tp, fs = sh.tp, sh.fsdp
+        blocks = {}
+        for gi, _ in enumerate(self.layer_kinds):
+            attn = {"wq": P(None, fs, tp), "wk": P(None, fs, tp),
+                    "wv": P(None, fs, tp), "wo": P(None, tp, fs)}
+            if cfg.qk_norm:
+                attn["q_norm"] = P(None, None)
+                attn["k_norm"] = P(None, None)
+            sub = {"ln1": P(None, None), "ln2": P(None, None), "attn": attn}
+            if cfg.sandwich_norm:
+                sub["ln1_post"] = P(None, None)
+                sub["ln2_post"] = P(None, None)
+            if cfg.n_experts:
+                ep = cfg.n_experts % 16 == 0  # EP when experts divide TP
+                sub["moe"] = {
+                    "router": P(None, fs, None),
+                    "w_gate": P(None, tp, fs, None) if ep
+                    else P(None, None, fs, tp),
+                    "w_up": P(None, tp, fs, None) if ep
+                    else P(None, None, fs, tp),
+                    "w_down": P(None, tp, None, fs) if ep
+                    else P(None, None, tp, fs),
+                }
+            else:
+                sub["mlp"] = {"w_gate": P(None, fs, tp),
+                              "w_up": P(None, fs, tp),
+                              "w_down": P(None, tp, fs)}
+            blocks[f"g{gi}"] = sub
+        specs = {"embed": P(tp, fs), "blocks": blocks, "final_norm": P(None)}
+        if not cfg.tie_embeddings:
+            specs["lm_head"] = P(fs, tp)
+        if cfg.family == "vlm":
+            specs["patch_proj"] = P(None, fs)
+        return specs
+
+    def cache_specs(self, seq_len: int, batch: int = 0) -> Pytree:
+        """The JAX package's GSPMD layout of the cache: batch over dp
+        (long caches also their sequence over tp); a batch under 16
+        shards its sequence over dp and tp together."""
+        sh = self.sh
+        specs = {"pos": P()}
+        for gi, kind in enumerate(self.layer_kinds):
+            C = self.cache_len(kind, seq_len)
+            if 0 < batch < 16:
+                kv = P(None, None, tuple(sh.dp) + (sh.tp,), None, None)
+            elif C >= _SEQ_SHARD_MIN:
+                kv = P(None, sh.dp, sh.tp, None, None)
+            else:
+                kv = P(None, sh.dp, None, None, None)
+            specs[f"g{gi}"] = {"k": kv, "v": kv}
+        return specs
+
+    def shard_params(self, params, mesh) -> Pytree:
+        """This rank's block of ``params`` for the collective bodies: with
+        ``moe_impl="ep_shardmap"`` and experts that divide the model axis,
+        its model rank's experts; everything else whole."""
+        cfg, tp = self.cfg, self.sh.tp
+        specs = {}
+        if (cfg.n_experts and cfg.moe_impl == "ep_shardmap"
+                and tp in mesh.shape and cfg.n_experts % mesh.shape[tp] == 0):
+            expert = P(None, tp)           # (NG, E, ...): E over the model
+            specs["blocks"] = {g: {"moe": {"w_gate": expert, "w_up": expert,
+                                           "w_down": expert}}
+                               for g in params["blocks"]}
+        return mesh.shard(params, _fill(params, specs))
+
+    def shard_cache(self, cache, mesh) -> Pytree:
+        """This rank's block of a (grown) cache for flash-decoding: with
+        ``decode_impl="flash_shardmap"``, the global layers' caches of at
+        least ``_SEQ_SHARD_MIN`` positions that the model axis divides
+        keep this model rank's slice of the sequence, and record their
+        length as ``"seq_len"``; the rest stays whole (rows are the
+        caller's)."""
+        out = dict(cache)
+        for gi, kind in enumerate(self.layer_kinds):
+            cg = cache[f"g{gi}"]
+            C = cg["k"].shape[2]
+            acfg = _attn_cfg(self.cfg, local=(kind == "local"))
+            if (self.cfg.decode_impl == "flash_shardmap"
+                    and C >= _SEQ_SHARD_MIN
+                    and attn_mod.flash_decode_takes(acfg, self.sh, C, mesh)):
+                spec = P(None, None, self.sh.tp)
+                out[f"g{gi}"] = dict(mesh.shard(cg, {"k": spec, "v": spec}),
+                                     seq_len=C)
+        return out
+
     # ----------------------------------------------------------- embedding
 
     def _embed(self, params, tokens: torch.Tensor,
@@ -164,7 +268,8 @@ class DecoderLM:
             return moe_mod.moe_apply(
                 pg["moe"], h, top_k=cfg.top_k, n_experts=cfg.n_experts,
                 capacity_factor=capacity_factor, compute_dtype=self.cdtype,
-                bulk_steal=cfg.moe_bulk_steal, impl=cfg.moe_impl)
+                bulk_steal=cfg.moe_bulk_steal, impl=cfg.moe_impl,
+                sh=self.sh)
         return mlp_apply(pg["mlp"], h, self.cdtype)
 
     def _block(self, pg, x, attn_fn, capacity_factor: float = _CAPACITY):
@@ -324,10 +429,35 @@ class DecoderLM:
             pos = int(pos)
         for g, gi, kind, pg in self._layers(params):
             acfg = _attn_cfg(self.cfg, local=(kind == "local"))
-            cg = cache[f"g{gi}"]
-            x = self._block(pg, x, lambda p, h: decode_attention(
-                p, h, cg["k"][g], cg["v"][g], pos, acfg, self.cdtype)[0],
-                _DECODE_CAPACITY)
+            attn_fn = functools.partial(self._decode_attn,
+                                        cg=cache[f"g{gi}"], g=g, pos=pos,
+                                        acfg=acfg)
+            x = self._block(pg, x, attn_fn, _DECODE_CAPACITY)
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         return self._logits(params, x), new_cache
+
+    def _decode_attn(self, p, h, *, cg, g, pos, acfg):
+        """One layer's decode attention: flash-decoding on a cache that
+        ``shard_cache`` sequence-sharded (its ``seq_len`` recorded), else
+        the unsharded ``decode_attention``."""
+        if "seq_len" in cg:
+            out = attn_mod.decode_attention_shardmap(
+                p, h, cg["k"][g], cg["v"][g], pos, acfg, self.sh,
+                self.cdtype, seq_len=cg["seq_len"])
+            if out is None:
+                raise ValueError(
+                    "a sequence-sharded cache decodes only under its model "
+                    "mesh (with mesh: ...)")
+            return out[0]
+        return decode_attention(p, h, cg["k"][g], cg["v"][g], pos, acfg,
+                                self.cdtype)[0]
+
+
+def _fill(tree, specs):
+    """``specs`` spread to ``tree``'s leaves: a dict of specs names some
+    of a dict's entries, and None (or a missing entry) covers a whole
+    subtree."""
+    if isinstance(tree, dict):
+        return {k: _fill(v, (specs or {}).get(k)) for k, v in tree.items()}
+    return specs

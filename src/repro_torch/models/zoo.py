@@ -2,39 +2,44 @@
 :func:`params_from_numpy`, which carries parameters made by the JAX
 package (as numpy arrays) over to the port.
 
-The decoder families (``decoder``, ``moe``, ``vlm``: ``DecoderLM``) and the
-SSM families (``ssm``, ``hybrid``); the enc-dec family raises, naming the
-ROADMAP item it waits for (A10's rest, with the sharded-model path).
-Every bundle has ``init``, ``forward``, ``loss_fn``, ``prefill``,
-``decode_step``, ``make_cache`` and ``grow_cache``.  ``input_specs`` is
-the JAX package's dry-run machinery and has no counterpart here.
+Every family of the JAX package: the decoder families (``decoder``,
+``moe``, ``vlm``: ``DecoderLM``), the enc-dec family (``EncDecLM``) and
+the SSM families (``ssm``, ``hybrid``).  Every bundle has ``init``,
+``loss_fn``, ``prefill``, ``decode_step``, ``make_cache``, ``grow_cache``,
+``param_specs`` and ``cache_specs``; ``parallel`` (a
+``configs.ParallelConfig``) names the axes of the specs, as in the JAX
+package.  ``input_specs`` is the JAX package's dry-run machinery and has
+no counterpart here.
 """
 
 from __future__ import annotations
 
-from typing import Any, Union
+from typing import Any, Optional, Union
 
 import numpy as np
 import torch
 
 from repro_torch._tree import tree_map
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import ModelConfig, ParallelConfig
+from repro_torch.models.encdec import EncDecLM
 from repro_torch.models.hybrid import HybridLM, SSMLM
+from repro_torch.models.layers import ShardPlan
 from repro_torch.models.transformer import DecoderLM
 
 __all__ = ["build_model", "params_from_numpy"]
 
-def build_model(cfg: ModelConfig) -> Union[DecoderLM, SSMLM, HybridLM]:
+
+def build_model(cfg: ModelConfig, parallel: Optional[ParallelConfig] = None
+                ) -> Union[DecoderLM, EncDecLM, SSMLM, HybridLM]:
+    sh = ShardPlan.from_parallel(parallel) if parallel else ShardPlan()
     if cfg.family in ("decoder", "moe", "vlm"):
-        return DecoderLM(cfg)
-    if cfg.family == "ssm":
-        return SSMLM(cfg)
-    if cfg.family == "hybrid":
-        return HybridLM(cfg)
+        return DecoderLM(cfg, sh)
     if cfg.family == "encdec":
-        raise NotImplementedError(
-            f"{cfg.name}: the enc-dec family (models/encdec.py) waits for "
-            f"the rest of ROADMAP queue A item 10")
+        return EncDecLM(cfg, sh)
+    if cfg.family == "ssm":
+        return SSMLM(cfg, sh)
+    if cfg.family == "hybrid":
+        return HybridLM(cfg, sh)
     raise ValueError(f"unknown family {cfg.family!r}")
 
 

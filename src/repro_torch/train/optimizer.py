@@ -8,7 +8,8 @@ master copy of the parameters (``master_weights``: the parameters, e.g.
 bfloat16, are a cast of it).  The state is a tree of tensors, as
 ``OptState`` is in the JAX package, so a checkpoint of ``(params, opt)``
 written by either package restores into the other.  ``opt_state_specs``
-waits for the sharded-model path.
+lays the state out like the parameters (the JAX package's GSPMD layout:
+the moments and the master copy take each parameter's spec).
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ from typing import Any, NamedTuple, Tuple
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import P
 
 Pytree = Any
 
 __all__ = ["AdamWConfig", "OptState", "adamw_init", "adamw_update",
-           "cosine_lr"]
+           "opt_state_specs", "cosine_lr"]
 
 
 class AdamWConfig(NamedTuple):
@@ -57,6 +59,16 @@ def adamw_init(params: Pytree, *, master_weights: bool = False) -> OptState:
     return OptState(step=torch.zeros((), dtype=torch.int32, device=dev),
                     m=tree_map(zeros, params), v=tree_map(zeros, params),
                     master=master)
+
+
+def opt_state_specs(param_specs: Pytree, *,
+                    master_weights: bool = False) -> OptState:
+    """The optimizer state's spec tree: ``P()`` for the step, the
+    parameters' specs for the moments and the master copy."""
+    return OptState(step=P(), m=param_specs, v=tree_map(lambda s: s,
+                                                        param_specs),
+                    master=(tree_map(lambda s: s, param_specs)
+                            if master_weights else ()))
 
 
 def cosine_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:

@@ -251,9 +251,10 @@ def test_linearize_sweep_on_the_card():
 @pytest.mark.cuda
 def test_flash_attention_kernel_matches_plain_version():
     """K6 within the JAX package's tolerances (2e-5 float32, 2e-2 bfloat16)
-    on the case tables and at the serving slice's and zamba2-7b's prefill
-    shapes, launching once per call: bfloat16 on the tensor-core route,
-    float32 on the SIMT kernel."""
+    on the case tables (the unmasked S != T and ragged rows among them)
+    and at the serving slice's and zamba2-7b's prefill shapes, launching
+    once per call: bfloat16 on the tensor-core route, float32 on the SIMT
+    kernel."""
     dev = _cuda()
     shapes = (C.FLASH_SLICE, C.FLASH_ZAMBA)
     before, before_tc = mha.launches, mha.launches_tc
@@ -261,7 +262,8 @@ def test_flash_attention_kernel_matches_plain_version():
                                         shapes)
     torch.cuda.synchronize()
     bf16 = sum(c[-1] == "bfloat16" for c in
-               C.FLASH_CASES + C.FLASH_EXTRA_CASES + list(shapes))
+               C.FLASH_CASES + C.FLASH_EXTRA_CASES + C.FLASH_RAGGED_CASES
+               + list(shapes))
     assert mha.launches - before == n
     assert mha.launches_tc - before_tc == bf16 < n
     assert err < C.FLASH_TOL["bfloat16"]
@@ -275,7 +277,7 @@ def test_simt_flash_kernel_in_bfloat16_matches_plain_version():
     smoke = _chip_smoke()
     rng = np.random.default_rng(0)
     before = (mha.launches, mha.launches_tc)
-    for case in C.FLASH_CASES + C.FLASH_EXTRA_CASES:
+    for case in C.FLASH_CASES + C.FLASH_EXTRA_CASES + C.FLASH_RAGGED_CASES:
         if case[-1] != "bfloat16":
             continue
         q, k, v = smoke._flash_inputs(dev, rng, case)
@@ -454,6 +456,39 @@ def test_prefill_on_the_card_matches_the_cpu():
                                    toks.to(dev))
         assert cache["g0"]["k"].device.type == "cuda"
         torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+def test_encdec_prefill_on_the_card_launches_k6_per_attention():
+    """Reduced seamless-m4t-medium: a bf16 prefill launches K6 once per
+    encoder layer and twice per decoder layer (self, cross), all on the
+    tensor-core kernel; in float32 the card's logits and both caches
+    equal the CPU's (K6's plain version) within 1e-4."""
+    dev = _cuda()
+    cfg = configs.reduced(configs.get("seamless-m4t-medium"))
+    model = build_model(cfg)
+    params = model.init(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(0)
+    frames = torch.tensor(rng.standard_normal((2, 100, cfg.frontend_dim)),
+                          dtype=torch.float32)
+    toks = torch.tensor(rng.integers(1, cfg.vocab_size, (2, 24)),
+                        dtype=torch.int32)
+    on_card = tree_map(lambda t: t.to(dev), params)
+    before, before_tc = mha.launches, mha.launches_tc
+    logits, _ = model.prefill(on_card, frames.to(dev), toks.to(dev))
+    torch.cuda.synchronize()
+    n = cfg.n_encoder_layers + 2 * cfg.n_layers
+    assert mha.launches - before == n == mha.launches_tc - before_tc
+    assert bool(torch.isfinite(logits).all())
+    f32 = build_model(dataclasses.replace(cfg, compute_dtype="float32"))
+    want, wcache = f32.prefill(params, frames, toks)
+    got, gcache = f32.prefill(on_card, frames.to(dev), toks.to(dev))
+    torch.testing.assert_close(got.cpu(), want, atol=1e-4, rtol=1e-4)
+    for part in ("self", "cross"):
+        for kv in ("k", "v"):
+            torch.testing.assert_close(gcache[part][kv].cpu(),
+                                       wcache[part][kv], atol=1e-4,
+                                       rtol=1e-4)
 
 
 @pytest.mark.cuda

@@ -220,15 +220,14 @@ def test_forward_matches():
     ("qwen3-moe-30b-a3b", "item 10"), ("internvl2-2b", "item 10"),
     ("seamless-m4t-medium", "item 10")])
 def test_families_not_ported_yet_raise(arch, error):
-    """Of ROADMAP A10's three families the MoE and VLM ones are ported and
-    build a ``DecoderLM``; the enc-dec family still raises, naming the
-    item."""
+    """The three families that once raised naming their queue item are
+    all ported: the MoE and VLM ones build a ``DecoderLM`` and the enc-dec
+    one an ``EncDecLM``."""
+    from repro_torch.models.encdec import EncDecLM
     cfg = configs.reduced(configs.get(arch))
-    if cfg.family == "encdec":
-        with pytest.raises(NotImplementedError, match=error):
-            build_model(cfg)
-    else:
-        assert isinstance(build_model(cfg), DecoderLM)
+    model = build_model(cfg)
+    want = EncDecLM if cfg.family == "encdec" else DecoderLM
+    assert isinstance(model, want), (arch, error)
 
 
 # ---------------------------------------------------------- the VLM prefix

@@ -24,6 +24,7 @@ CPU = torch.device("cpu")
 # slices' and zamba2-7b's: K6 at head dim 112, K7 at state width 64).
 FLASH_SMALL = (2, 128, 128, 4, 2, 32, True, None, None, "bfloat16")
 FLASH_SMALL_112 = (2, 128, 128, 4, 4, 112, True, None, None, "bfloat16")
+FLASH_SMALL_CROSS = (2, 64, 100, 4, 4, 64, False, None, None, "bfloat16")
 SSD_SMALL = (2, 100, 4, 16, 32, 32, "bfloat16")
 SSD_SMALL_64 = (1, 130, 3, 64, 64, 64, "bfloat16")
 
@@ -39,7 +40,7 @@ def _chip_smoke():
 def test_kernel_phase_checks_every_kernel():
     smoke = _chip_smoke()
     out = smoke.phase_kernels(
-        CPU, flash_shapes=(FLASH_SMALL, FLASH_SMALL_112),
+        CPU, flash_shapes=(FLASH_SMALL, FLASH_SMALL_112, FLASH_SMALL_CROSS),
         ssd_shapes=(SSD_SMALL, SSD_SMALL_64))
     assert set(out) == {name for name, _, _ in smoke.KERNELS}
     for name, row in out.items():
@@ -50,8 +51,12 @@ def test_kernel_phase_checks_every_kernel():
             assert row["library_ms"] is None, name
         else:
             assert row["library_ms"] > 0, name
-    for name in ("flash_attention", "flash_attention_hd112"):
-        assert out[name]["parity_cases"] == 17
+    flash_rows = ("flash_attention", "flash_attention_hd112",
+                  "flash_attention_cross")
+    for name in flash_rows:
+        assert out[name]["parity_cases"] == (
+            len(C.FLASH_CASES + C.FLASH_EXTRA_CASES + C.FLASH_RAGGED_CASES)
+            + len(flash_rows))
         assert out[name]["bound_by"] == "bytes"  # at this tiny size
         assert out[name]["earlier_ms"] > 0
     # the fused explore on its case table, K5 per layer (its earlier
@@ -293,3 +298,53 @@ def test_train_phase_holds_every_gate_at_a_cpu_size():
         "flash_attention": 32}
     assert smoke.train_launches(smoke._arch_cfg(
         "mamba2-2.7b", n_layers=8)) == {"ssd_scan": 16}
+
+
+def test_encdec_phase_holds_every_gate_at_a_cpu_size():
+    """Phase 12 at ``PHASE12_SMALL`` (reduced seamless-m4t-medium): the
+    prefill calls attention once per encoder layer and twice per decoder
+    layer (and launches nothing: the split by mode of K6's launches is
+    read from its counters), decodes, and its float32 comparisons are exact on the CPU
+    (both sides the plain version); training falls, with every layer's
+    attention projections reached.  On one intra-op thread."""
+    smoke = _chip_smoke()
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        out = smoke.phase_encdec(CPU, smoke.PHASE12_SMALL)
+    finally:
+        torch.set_num_threads(n)
+    serve, train = out["serve"], out["train"]
+    assert serve["calls_by_mode"] == {"encoder": 2, "self": 2, "cross": 2}
+    # K6's counters move only where it launches, which the CPU never does
+    assert serve["launches_by_mode"] == {"encoder": 0, "self": 0,
+                                         "cross": 0}
+    assert serve["f32_max_abs_err"] == serve["f32_decode_max_abs_err"] == 0
+    assert train["launches_expected_per_step"] == {"flash_attention": 12}
+    assert train["losses"][-1] < train["losses"][0]
+    assert train["grads_step1"]["zero_layer_slices"] == {}
+    assert train["float32_vs_plain"]["max_grad_err_over_leaf_max"] == 0.0
+    # the card's expectations at full depth: 36 a prefill, 72 a step
+    from repro_torch import configs
+    cfg = configs.get("seamless-m4t-medium")
+    assert smoke.serve_launches(cfg) == {"flash_attention": 36}
+    assert smoke.train_launches(cfg) == {"flash_attention": 72}
+
+
+def test_sharded_phase_holds_every_gate_at_a_cpu_size(monkeypatch):
+    """Phase 13 at ``PHASE13_SMALL``: 8 gloo CPU ranks as a (data 2, model
+    4) mesh; flash-decoding within its tolerances of the unsharded decode
+    on every rank (model ranks 2 and 3 start with 5 and 0 valid slots),
+    and expert-parallel prefill with bit-equal plans."""
+    # the ranks import chip_smoke by name, from the path they inherit
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke = importlib.import_module("chip_smoke")
+    out = smoke.phase_sharded(CPU, smoke.PHASE13_SMALL)
+    assert out["mesh"] == {"data": 2, "model": 4}
+    for name in ("flash", "flash_f32"):
+        assert all(x <= 1.0 for x in out[name]["max_err_over_tol"])
+        assert out[name]["flash_decode_calls"] == [12] * 8  # 3 steps x 4
+        assert out[name]["valid_slots_at_first_step"] == [10, 10, 5, 0] * 2
+    assert out["moe"]["experts_held"] == [2] * 8
+    assert out["moe"]["ep_calls"] == [4] * 8
+    assert all(out["moe"]["plans_bit_equal"])

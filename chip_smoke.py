@@ -220,6 +220,26 @@ check that does not hold:
    rows, its routing plans bit-equal.  ms per decode step and per
    prefill, sharded and unsharded, not gated.
 
+14. Observability (``{"phase": "obs"}``, after phase 13;
+   ``repro_torch.obs``).  Phase 8's flat and hierarchical DAG replays
+   again, each drained with and without a phase probe
+   (``attach_phase_probe()``), in turns, three times: (a) the probed runs
+   equal ``PHASE8_EXPECT`` (bit-identity with the probe on); (b) K1-K4
+   launch as often as in the unprobed replay; (c) ``phase_summary()``
+   times every round run and estimates none, every phase total is >= 0,
+   the fractions sum to 1 within 1e-9, and the rounds' attributed time is
+   at most the drain's wall; (d) ``rt.metrics()``'s Prometheus text gives
+   ``repro_rounds_total``, ``repro_steals_total`` and
+   ``repro_items_transferred_total`` equal to the pinned summary's; (e)
+   ``export_trace`` of the probed flat stream passes ``validate_trace``;
+   (f) ``run_resilient(metrics_path=...)`` over a probed flat drain on
+   the card writes a textfile equal to a final ``rt.metrics()``; (g)
+   ``ServeCluster.metrics()`` after phase 4 counts every request phase 4
+   served in ``repro_serve_served_total``.  ms per round probed and
+   unprobed, the ratio of their medians and the four phase fractions of
+   each replay, not gated (the phases are device-timeline times from
+   CUDA events; the drain's wall is host time).
+
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -2022,11 +2042,14 @@ RESILIENCE_KERNELS = ("ring_gather", "ring_transfer", "ring_slice",
                       "ring_scatter")
 
 
-def _replay(device, counters, cfg, plan, pod_size):
+def _replay(device, counters, cfg, plan, pod_size, probe: bool = False):
     """One drain of the DAG from lane 0's root, the path's launch counters
-    zeroed just before it and read just after it."""
+    zeroed just before it and read just after it (``probe``: with a phase
+    probe attached, phase 14)."""
     import torch
     rt = _dag_runtime(device, cfg, plan, pod_size)
+    if probe:
+        rt.attach_phase_probe()
     body = dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
                     fanout=cfg["fanout"])
     for name in RESILIENCE_KERNELS:
@@ -2538,12 +2561,13 @@ def _check_launches(device, cfg, expect, launches, launches_tc,
 def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
                 max_new: int, max_seq: int, wave_size: int,
                 slow_speed: float, seed: int = 0,
-                first_wave=None):
+                first_wave=None, poll=None):
     """The wave engine behind the admission master, with the launch
     counters of the path's kernels zeroed just before the run and read
     just after it; then the first wave's prefill once more with the plain
     versions swapped in, to compare logits (``first_wave``, default
-    :func:`first_wave_check`)."""
+    :func:`first_wave_check`).  ``poll(cluster)``, if given, runs once
+    after the drain (phase 14 reads the cluster's metrics there)."""
     from repro_torch.core.policy import StealPolicy
     from repro_torch.serve.engine import Replica, ServeCluster
     from repro_torch.serve.scheduler import AdmissionMaster, Request
@@ -2567,6 +2591,8 @@ def phase_serve(device, *, cfg, n_requests: int, prompt_lens,
 
     done, wall, launches, launches_tc = _run_counted(device, expect, serve)
     clock.restore()
+    if poll is not None:
+        poll(cluster)
 
     st = master.stats()
     tokens = sum(len(r.output or []) for r in done)
@@ -3901,6 +3927,137 @@ def phase_sharded(device, cfg) -> dict:
     return out
 
 
+# --------------------------------------------- phase 14: observability
+
+
+def _prom_value(text: str, name: str) -> float:
+    """The value of the unlabelled sample ``name`` in Prometheus text."""
+    for line in text.splitlines():
+        if line.startswith(name + " "):
+            return float(line.split()[1])
+    raise KeyError(name)
+
+
+def phase_obs(device, counters, cfg, expect=None, served=None,
+              turns: int = 3) -> dict:
+    """Phase 14: phase 8's DAG replays with a phase probe attached, the
+    metrics and the trace of the probed runs, ``run_resilient``'s
+    textfile, and (``served``: ``(requests served, the ServeCluster's
+    metrics)`` from phase 4) the serving metrics; see the module
+    docstring."""
+    import tempfile
+
+    import torch
+    from repro_torch.launch.resilient import run_resilient
+    from repro_torch.obs.phase import PHASES
+    from repro_torch.obs.trace import export_trace, validate_trace
+
+    t_phase = time.perf_counter()
+    out, ms = {}, {}
+    for name, plan, pod in (("flat", cfg["flat_plan"], None),
+                            ("hier", cfg["hier_plan"], cfg["pod_size"])):
+        ms[name] = {"unprobed": [], "probed": []}
+        for turn in range(turns):
+            # in turns: unprobed first on even turns, probed first on odd
+            order = (False, True) if turn % 2 == 0 else (True, False)
+            runs = {}
+            for probe in order:
+                runs[probe] = _replay(device, counters, cfg, plan, pod,
+                                      probe=probe)
+                rt, _, rounds, _, _, wall = runs[probe]
+                ms[name]["probed" if probe else "unprobed"].append(
+                    wall * 1e3 / rounds)
+            rt, carry, rounds, dispatched, launches, wall = runs[True]
+            got = _pins(rt, carry, rounds)
+            # (a) bit-identity with the probe on
+            want = expect[name] if expect is not None else _pins(
+                *(runs[False][i] for i in (0, 1, 2)))
+            check(got == want, f"obs {name}: probed pins {got} != {want}")
+            # (b) the same launches as the unprobed replay
+            check(launches == runs[False][4],
+                  f"obs {name}: launches {launches} probed, "
+                  f"{runs[False][4]} unprobed")
+            # (c) every round measured, none estimated; the fractions sum
+            # to 1 and the rounds' time stays inside the drain's wall
+            ps = rt.telemetry.phase_summary()
+            fractions = {p: ps["phases"][p]["fraction"] for p in PHASES}
+            check(ps["timed_rounds"] == rounds
+                  and ps["estimated_rounds"] == 0
+                  and all(ps["phases"][p]["total_s"] >= 0 for p in PHASES)
+                  and abs(sum(fractions.values()) - 1.0) <= 1e-9
+                  and ps["wall_s"] <= wall,
+                  f"obs {name}: phase summary {ps} over {rounds} rounds "
+                  f"in {wall} s")
+            # (d) the Prometheus text carries the pinned totals
+            text = rt.metrics().to_prometheus()
+            summary = want["summary"]
+            for metric, key in (("repro_rounds_total", "rounds"),
+                                ("repro_steals_total", "steals"),
+                                ("repro_items_transferred_total",
+                                 "items_transferred")):
+                check(_prom_value(text, metric) == summary[key],
+                      f"obs {name}: {metric} "
+                      f"{_prom_value(text, metric)} != {summary[key]}")
+            if turn == 0:
+                out[name] = {"rounds": rounds, "dispatched": dispatched,
+                             "launches": launches,
+                             "phase_fractions": fractions,
+                             "phase_ms_per_round": {
+                                 p: ps["phases"][p]["mean_s"] * 1e3
+                                 for p in PHASES},
+                             "attributed_s": ps["wall_s"], "drain_s": wall}
+                if name == "flat":
+                    # (e) the probed stream's trace is well-formed
+                    counts = validate_trace(export_trace(rt.telemetry))
+                    check(counts.get("round") == rounds
+                          and counts.get("phase") == len(PHASES) * rounds,
+                          f"obs: trace counts {counts} for {rounds} rounds")
+                    out["trace_counts"] = counts
+        med = {k: float(np.median(v)) for k, v in ms[name].items()}
+        out[name]["overhead_ratio"] = med["probed"] / med["unprobed"]
+    out["ms_per_round"] = ms
+
+    # (f) run_resilient's textfile on the card, rewritten between every
+    # block, equals a final poll of the runtime it drove
+    with tempfile.TemporaryDirectory() as tmp:
+        path, final = str(Path(tmp) / "repro.prom"), {}
+
+        def make_runtime():
+            rt = _dag_runtime(device, cfg, cfg["flat_plan"])
+            rt.attach_phase_probe()
+            return rt
+
+        def drive(rt, should_stop):
+            body = dag_body(rt.ops, n_nodes=cfg["n_nodes"], pop=cfg["pop"],
+                            fanout=cfg["fanout"])
+            carry = torch.zeros((cfg["lanes"],), dtype=torch.int32,
+                                device=device)
+            while rt.total_size() > 0 and not should_stop():
+                carry, _, _ = rt.run_fused(cfg["block"], body, carry,
+                                           until_drained=True)
+            final["rt"] = rt
+            return rt.rounds_run
+
+        rounds = run_resilient(make_runtime, drive,
+                               snapshot_dir=str(Path(tmp) / "snap"),
+                               max_restarts=0, metrics_path=path,
+                               metrics_every_s=0.0)
+        text = Path(path).read_text()
+        check(text == final["rt"].metrics().to_prometheus()
+              and _prom_value(text, "repro_rounds_total") == rounds,
+              "run_resilient's textfile is not the final poll")
+        out["textfile"] = {"rounds": rounds, "lines": len(text.splitlines())}
+
+    # (g) the serving cluster's metrics after phase 4
+    if served is not None:
+        n, snap = served
+        got = snap["repro_serve_served_total"]["values"]
+        check(got == n, f"repro_serve_served_total {got} != {n} served")
+        out["serve_served_total"] = got
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -3964,11 +4121,13 @@ def main() -> int:
     print(json.dumps({"phase": "mesh", "card": card, "result": mesh}),
           flush=True)
     from repro_torch import configs
-    serving = {}
+    serving, serve_metrics = {}, []
     for phase, fn, kw in (("serve", phase_serve, PHASE4),
                           ("serve_ssm", phase_serve, PHASE5),
                           ("wave_hybrid", phase_wave, PHASE6)):
         kw = dict(kw)
+        if phase == "serve":  # phase 14 (g) reads the cluster's metrics
+            kw["poll"] = lambda c: serve_metrics.append(c.metrics())
         serving[phase] = fn(device, cfg=configs.get(kw.pop("arch")), **kw)
         print(json.dumps({"phase": phase, "result": serving[phase]}),
               flush=True)
@@ -3992,6 +4151,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     sharded = phase_sharded(device, PHASE13)
     print(json.dumps({"phase": "sharded", "card": card, "result": sharded}),
+          flush=True)
+    obs = phase_obs(device, counters, PHASE8, expect=PHASE8_EXPECT,
+                    served=(serving["serve"]["requests"],
+                            serve_metrics[0].snapshot()))
+    print(json.dumps({"phase": "obs", "card": card, "result": obs}),
           flush=True)
 
     launches = {**solver["launches"],

@@ -65,7 +65,7 @@ prefix, collapsed by :func:`probe_token`; it never commits state.
 from __future__ import annotations
 
 import math
-from typing import Any, NamedTuple, Optional, Tuple
+from typing import Any, Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -227,6 +227,7 @@ def superstep(
     sizes: Optional[torch.Tensor] = None,
     donate: bool = False,
     lanes=None,
+    mark: Optional[Callable[[str], None]] = None,
 ) -> Tuple[QueueState, RebalanceStats]:
     """One rebalancing round over the W lanes of ``q`` (stacked), or over
     the lanes of ``lanes`` (default: ``q``'s stack).
@@ -242,7 +243,9 @@ def superstep(
     runtime's own loop); ``donate=False`` leaves ``q`` untouched.  Nothing
     here reads a device value on the host, unless ``ops`` is the
     sanitizer's wrapper (``check=True`` or ``REPRO_CHECK=1``), which adds
-    the conservation check of the sizes.
+    the conservation check of the sizes.  ``mark`` is the phase probe's
+    boundary hook (:class:`repro_torch.obs.phase.PhaseClock.mark`),
+    called with ``"exchange"`` once the exchange is issued.
     """
     if ops is None:
         ops = bulk_ops.make_ops(policy.backend)
@@ -257,6 +260,8 @@ def superstep(
     src, amt = plan[:, 0], plan[:, 1]
     q, bytes_moved = _exchange(q, ops, lanes, policy, sizes, src, amt,
                                exchange, donate)
+    if mark is not None:
+        mark("exchange")
     _check_level(ops, lanes, before, q)
     zero = torch.zeros((), dtype=I32, device=q.size.device)
     stats = RebalanceStats(
@@ -438,6 +443,7 @@ def hierarchical_superstep(
     dead: Optional[torch.Tensor] = None,
     drop: Optional[torch.Tensor] = None,
     lanes=None,
+    mark: Optional[Callable[[str], None]] = None,
 ) -> Tuple[QueueState, RebalanceStats]:
     """Two-level rebalancing of the W lanes in pods of ``pod_size``: the
     flat superstep within each pod, then one across the pods, where each
@@ -452,7 +458,10 @@ def hierarchical_superstep(
     The fault layer's round passes ``dead`` (``(W,)`` bool, on every
     lane) and ``drop`` (0-d bool): dead lanes advertise the sentinel
     within their pod, a pod whose representative is dead abstains across
-    the pods, and a dropped round plans no move at either level."""
+    the pods, and a dropped round plans no move at either level.
+    ``mark`` (as in :func:`superstep`) closes the ``"exchange"`` phase
+    after the intra-pod exchange; the cross-pod level falls in the
+    splice's share, as in the JAX package's probe."""
     if ops is None:
         ops = bulk_ops.make_ops(policy.backend)
     if exchange is None:
@@ -472,6 +481,8 @@ def hierarchical_superstep(
         pods.view(dead), sentinel, sizes).to(I32)
     plan = _unless_dropped(plan_transfers(planned, policy), drop)
     q, intra = pods.exchange(q, sizes, plan, **kw)
+    if mark is not None:
+        mark("exchange")
     _check_level(ops, lanes, before, q)
 
     # Across pods: only lane 0 of each pod takes part with its true size.

@@ -20,8 +20,8 @@ The class implements the master surface
 On a mesh every rank builds the master and makes the same calls in the
 same order (the SPMD contract of :mod:`repro_torch.distributed.executor`):
 a replica's wave is popped by its lane's owner and broadcast from there,
-so every rank resolves the same requests.  ``metrics()`` waits for the
-observability slice (ROADMAP A12).
+so every rank resolves the same requests.  ``metrics()`` polls the
+admission surface and the backing runtime into one Prometheus registry.
 """
 
 from __future__ import annotations
@@ -320,9 +320,12 @@ class RuntimeAdmissionMaster:
         }
 
     def metrics(self, registry=None):
-        """The JAX package polls this master and its runtime into a
-        metrics registry (``repro.obs.metrics``), which waits for the
-        observability slice (ROADMAP A12)."""
-        raise NotImplementedError(
-            "RuntimeAdmissionMaster.metrics() needs obs/metrics.py, which "
-            "waits for ROADMAP A12")
+        """Poll this master into a :class:`repro_torch.obs.metrics.
+        MetricsRegistry`: the admission surface (per-replica loads,
+        steal totals, detector census) PLUS the backing runtime's lane
+        metrics — one registry covers both layers of the device
+        master."""
+        from repro_torch.obs.metrics import collect_runtime, master_metrics
+
+        reg = master_metrics(self, registry)
+        return collect_runtime(reg, self.runtime)

@@ -16,13 +16,17 @@ The CLI is a demonstration harness::
 
 crashes the drive loop at round 6 on the first attempt, then shows the
 supervised restart resuming from the last snapshot and draining to
-completion.  Without ``--device`` it runs on the GPU.
+completion.  Without ``--device`` it runs on the GPU.  With
+``--metrics-path FILE`` it also keeps a Prometheus textfile of the
+runtime's metrics there, rewritten between rounds at most once every
+``--metrics-every-s`` seconds and once more at the end.
 """
 
 from __future__ import annotations
 
 import argparse
 import tempfile
+import time
 from typing import Callable, Optional
 
 from repro_torch.train import checkpoint as ckpt_lib
@@ -38,7 +42,8 @@ def run_resilient(make_runtime: Callable[[], "object"],
                   keep: int = 3,
                   max_restarts: int = 3,
                   on_restart: Optional[Callable] = None,
-                  metrics_path: Optional[str] = None) -> int:
+                  metrics_path: Optional[str] = None,
+                  metrics_every_s: float = 1.0) -> int:
     """Run ``drive(runtime, should_stop)`` under snapshot + restart
     supervision.
 
@@ -54,14 +59,15 @@ def run_resilient(make_runtime: Callable[[], "object"],
         when one exists, so a new process pointed at the same directory
         resumes where the dead one left off.
       max_restarts / on_restart: forwarded to ``run_supervised``.
-      metrics_path: the JAX package's Prometheus textfile; not ported
-        yet (it needs the port's ``obs/metrics.py``), so it raises
-        ``NotImplementedError``.
+      metrics_path / metrics_every_s: when ``metrics_path`` is set, the
+        ``should_stop`` callable the drive loop already polls between
+        rounds ALSO refreshes a Prometheus textfile there (atomic
+        tmp + rename via :func:`repro_torch.obs.metrics.write_textfile`,
+        at most one write per ``metrics_every_s``, on ``time.monotonic``)
+        — the node-exporter textfile-collector contract, so a live run is
+        scrapable with no change to the drive loop.  A final write lands
+        after the loop exits.
     """
-    if metrics_path is not None:
-        raise NotImplementedError(
-            "metrics_path: the metrics textfile needs repro_torch.obs, "
-            "which is not ported yet (ROADMAP queue A, item A12)")
 
     def attempt(resume) -> int:
         rt = make_runtime()
@@ -70,11 +76,31 @@ def run_resilient(make_runtime: Callable[[], "object"],
             rt.restore_state(snapshot_dir)
             if resume is not None:
                 rt.telemetry.record_fault("restart")
+
+        def write_metrics() -> None:
+            from repro_torch.obs.metrics import write_textfile
+
+            write_textfile(rt.metrics(), metrics_path)
+
         with GracefulExit() as stop:
-            result = drive(rt, lambda: stop.requested)
+            if metrics_path is None:
+                should_stop = lambda: stop.requested  # noqa: E731
+            else:
+                last = [float("-inf")]
+
+                def should_stop() -> bool:
+                    now = time.monotonic()
+                    if now - last[0] >= metrics_every_s:
+                        last[0] = now
+                        write_metrics()
+                    return stop.requested
+
+            result = drive(rt, should_stop)
             # A graceful exit's final state may postdate the last cadence
             # snapshot; save it so the NEXT process resumes exactly here.
             rt.save_state(snapshot_dir, keep=keep)
+            if metrics_path is not None:
+                write_metrics()
         return result
 
     return run_supervised(attempt, max_restarts=max_restarts,
@@ -101,6 +127,10 @@ def main(argv: Optional[list] = None) -> int:
                     help="raise mid-drive at this round on attempt 0")
     ap.add_argument("--device", default=None,
                     help="cpu to run on the CPU (default: the GPU)")
+    ap.add_argument("--metrics-path", default=None,
+                    help="write a Prometheus textfile here between rounds "
+                         "(atomic; node-exporter textfile collector format)")
+    ap.add_argument("--metrics-every-s", type=float, default=1.0)
     args = ap.parse_args(argv)
     snapshot_dir = args.snapshot_dir or tempfile.mkdtemp(prefix="steal_snap_")
     crashed = {"done": False}
@@ -148,7 +178,9 @@ def main(argv: Optional[list] = None) -> int:
         return rt.rounds_run
 
     rounds = run_resilient(make_runtime, drive, snapshot_dir=snapshot_dir,
-                           snapshot_every=args.snapshot_every)
+                           snapshot_every=args.snapshot_every,
+                           metrics_path=args.metrics_path,
+                           metrics_every_s=args.metrics_every_s)
     print(f"[resilient] finished after {rounds} global rounds "
           f"(snapshots in {snapshot_dir})")
     return 0

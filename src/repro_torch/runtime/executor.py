@@ -65,6 +65,18 @@ after the block's read-back the runtime checks each round's size vector,
 and for rounds with no worker body the multiset of live items across all
 lanes, then raises :class:`~repro_torch.analysis.sanitize.SanitizerError`
 on anything recorded.  These checks read back per op.
+
+Observability (:mod:`repro_torch.obs`): :meth:`StealRuntime.metrics`
+polls the runtime into a Prometheus registry, and
+:meth:`StealRuntime.attach_phase_probe` splits every round's time into
+``worker_body`` / ``exchange`` / ``splice`` / ``adaptive_update``.  The
+JAX package times truncated prefix programs of a round and estimates
+fused rounds from calibrated fractions; here the round is issued from
+Python, so a :class:`~repro_torch.obs.phase.PhaseClock` marks each
+boundary as it is issued (CUDA events on the device, ``perf_counter`` on
+the CPU) and the block's times are read once, after its read-back, for
+every round, fused or not.  The probe adds no host sync, no launch and
+no change to any result.
 """
 
 from __future__ import annotations
@@ -153,8 +165,6 @@ class StealRuntime:
     host-side results (``sizes``, stats, telemetry, ``drain``) are the
     stacked runtime's on every rank.
 
-    The JAX runtime's phase probe and ``metrics()`` are not ported yet
-    (they wait for the observability slice).
     """
 
     def __init__(self, n_workers: int, capacity: int, item_spec: Pytree, *,
@@ -219,6 +229,8 @@ class StealRuntime:
         self._snapshot_keep = 3
         self._last_snapshot_round = -1
         self._resilient: Dict[Any, Callable] = {}
+        self._phase_probe = None  # attach_phase_probe
+        self._clock = None
 
     # -- state access --------------------------------------------------------
 
@@ -531,11 +543,12 @@ class StealRuntime:
     # -- the round -----------------------------------------------------------
 
     def _step(self, worker_fn: Optional[WorkerFn], qs, carry,
-              proportion: torch.Tensor, faults=None):
+              proportion: torch.Tensor, faults=None, mark=None):
         """One round on the stacked lanes, on the device: worker body, then
         the superstep(s) at the float32 ``proportion``, splicing in place.
         ``faults`` is the round's :class:`~repro_torch.runtime.resilience.
-        RoundFaults` when the fault layer is armed."""
+        RoundFaults` when the fault layer is armed; ``mark`` the phase
+        clock's boundary hook, or None."""
         if self.fault is not None:
             fn = self._resilient.get(worker_fn)
             if fn is None:
@@ -543,17 +556,20 @@ class StealRuntime:
                     resilience.make_resilient_round(
                         self.policy, self.ops, worker_fn,
                         pod_size=self.pod_size, lanes=self.lanes))
-            return fn(qs, carry, proportion, faults)
+            return fn(qs, carry, proportion, faults, mark=mark)
         if worker_fn is not None:
             qs, carry = worker_fn(qs, carry)
+        if mark is not None:
+            mark("worker_body")
         pol = dataclasses.replace(self.policy, proportion=proportion)
         if self.pod_size is not None:
             qs, stats = master_ops.hierarchical_superstep(
                 qs, pol, pod_size=self.pod_size, ops=self.ops, donate=True,
-                lanes=self.lanes)
+                lanes=self.lanes, mark=mark)
         else:
             qs, stats = master_ops.superstep(qs, pol, ops=self.ops,
-                                             donate=True, lanes=self.lanes)
+                                             donate=True, lanes=self.lanes,
+                                             mark=mark)
         return qs, carry, stats
 
     def _ctx(self, k: int):
@@ -574,6 +590,71 @@ class StealRuntime:
         return torch.full((), self.proportion, dtype=torch.float32,
                           device=self.device)
 
+    # -- observability -------------------------------------------------------
+
+    def attach_phase_probe(self, probe=None, **kwargs):
+        """Arm per-round phase attribution (:mod:`repro_torch.obs.phase`):
+        every later :meth:`round` and :meth:`run_fused` round gets the
+        ``t_worker`` / ``t_exchange`` / ``t_splice`` / ``t_adaptive``
+        fields of its :class:`~repro_torch.runtime.telemetry.
+        RoundRecord`, measured at the phase boundaries
+        (``Telemetry.phase_summary()`` aggregates them).  Pass an existing
+        :class:`~repro_torch.obs.phase.PhaseProbe` or its constructor
+        kwargs (``enabled=``, ``calibrate_every=``).  Returns the probe
+        (also at ``_phase_probe``); ``probe.enabled = False`` disarms it,
+        and the runtime then makes no mark and creates no event."""
+        from repro_torch.obs.phase import PhaseClock, PhaseProbe
+
+        if probe is None:
+            probe = PhaseProbe(**kwargs)
+        self._phase_probe = probe
+        self._clock = PhaseClock(self.device)
+        return probe
+
+    def _phase_clock(self):
+        """The phase clock, started, when an enabled probe is attached;
+        None otherwise."""
+        if self._phase_probe is None or not self._phase_probe.enabled:
+            return None
+        self._clock.start()
+        return self._clock
+
+    def _phase_records(self, clock, wall_s: float, rounds: int,
+                       t_adaptive: Optional[float] = None) -> List:
+        """The probe's ``phases=`` records of a block's first ``rounds``
+        rounds, read from ``clock`` after the block's read-back; the
+        rounds partition ``wall_s`` (plus ``t_adaptive``, the host
+        controller's time after the wall, for a :meth:`round`): the last
+        one's splice takes what the marks do not cover."""
+        if clock is None or rounds == 0:
+            return [None] * rounds
+        probe, out, spent = self._phase_probe, [], 0.0
+        for r, ph in enumerate(clock.rounds()[:rounds]):
+            w, x = ph["worker_body"], ph["exchange"]
+            if t_adaptive is None:  # on the device, inside the wall
+                a, rest = ph["adaptive_update"], ph["adaptive_update"]
+            else:
+                a, rest = t_adaptive, 0.0
+            full = (wall_s - spent - rest if r == rounds - 1
+                    else w + x + ph["splice"])
+            sample = probe.direct_sample(t_worker=w, t_exchange=w + x,
+                                         t_full=full, t_adaptive=a)
+            spent += sample.total
+            out.append(sample.as_record())
+        return out
+
+    def metrics(self, registry=None):
+        """Poll this runtime into a :class:`repro_torch.obs.metrics.
+        MetricsRegistry` (queue depths, steal totals, fault/detector
+        census, phase attribution when probed).  Pull-style and
+        side-effect free — call it mid-run at any cadence;
+        ``registry.to_prometheus()`` / ``.snapshot()`` render it."""
+        from repro_torch.obs.metrics import runtime_metrics
+
+        return runtime_metrics(self, registry)
+
+    # -- the round (continued) -----------------------------------------------
+
     def round(self, worker_fn: Optional[WorkerFn] = None,
               carry: Optional[Pytree] = None
               ) -> Tuple[Pytree, master_ops.RebalanceStats]:
@@ -589,19 +670,26 @@ class StealRuntime:
         snap = self._pre_dispatch_snapshot(worker_fn)
         ctx = self._ctx(1)
         t0 = time.perf_counter()
+        clock = self._phase_clock()
         with self._deferred():
             self.queues, carry, stats = self._step(
                 worker_fn, self.queues, carry, self._p(),
-                None if ctx is None else ctx.round(0))
+                None if ctx is None else ctx.round(0),
+                mark=None if clock is None else clock.mark)
+        if clock is not None:
+            clock.mark("splice")
         [stats] = stack_stats(self.lanes, [stats], pod_size=self.pod_size)
         host = master_ops.RebalanceStats(*_read_back(*stats))
         wall_s = time.perf_counter() - t0
         if self._check:
             self._post_dispatch_checks([host], snap,
                                        context="StealRuntime.round")
-        self._record(host, proportion)
+        t_a0 = time.perf_counter()
         if self.controller is not None:
             self.controller.update(self._controller_sizes(host.sizes_after))
+        [phases] = self._phase_records(clock, wall_s, 1,
+                                       t_adaptive=time.perf_counter() - t_a0)
+        self._record(host, proportion, phases)
         r0 = self.rounds_run
         self.rounds_run += 1
         self._feed_detector(r0, 1, wall_s=wall_s)
@@ -643,13 +731,15 @@ class StealRuntime:
                 context=context)
         sanitize.raise_pending(context)
 
-    def _record(self, host_stats, proportion: float) -> None:
-        """One RoundRecord from a round's host-side stats."""
+    def _record(self, host_stats, proportion: float, phases=None) -> None:
+        """One RoundRecord from a round's host-side stats (and the phase
+        probe's record, when probed)."""
         n_steals, n_transferred, bytes_moved = reduce_round_stats(
             host_stats, n_workers=self.n_workers, pod_size=self.pod_size)
         self.telemetry.record(sizes=host_stats.sizes_after, n_steals=n_steals,
                               n_transferred=n_transferred,
-                              proportion=proportion, bytes_moved=bytes_moved)
+                              proportion=proportion, bytes_moved=bytes_moved,
+                              phases=phases)
 
     def run_fused(self, k: int, worker_fn: Optional[WorkerFn] = None,
                   carry: Optional[Pytree] = None, *,
@@ -673,18 +763,24 @@ class StealRuntime:
         """
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
+        from repro_torch.obs.phase import trace_span
+
         carry = self._default_carry(carry)
         snap = self._pre_dispatch_snapshot(worker_fn)
         t0 = time.perf_counter()
-        with self._deferred():
-            carry, per_round, ran, p = self._fused_rounds(
-                k, worker_fn, carry, until_drained)
-
-        stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
-            *stack_stats(self.lanes, [stats for stats, _ in per_round],
-                         pod_size=self.pod_size))))
-        props = torch.stack([q for _, q in per_round])
-        host_ran, p_final, props, *host = _read_back(ran, p, props, *stacked)
+        clock = self._phase_clock()
+        with trace_span(f"run_fused_k{k}"):
+            with self._deferred():
+                carry, per_round, ran, p = self._fused_rounds(
+                    k, worker_fn, carry, until_drained,
+                    mark=None if clock is None else clock.mark)
+            stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
+                *stack_stats(self.lanes, [stats for stats, _ in per_round],
+                             pod_size=self.pod_size))))
+            props = torch.stack([q for _, q in per_round])
+            # ONE host read-back for the whole block.
+            host_ran, p_final, props, *host = _read_back(ran, p, props,
+                                                         *stacked)
         wall_s = time.perf_counter() - t0
         rounds = int(host_ran) if until_drained else k
         host_rounds = [master_ops.RebalanceStats(*(x[r] for x in host))
@@ -693,8 +789,9 @@ class StealRuntime:
             self._post_dispatch_checks(
                 host_rounds, snap,
                 context=f"StealRuntime.run_fused[{rounds} rounds]")
+        phases = self._phase_records(clock, wall_s, rounds)
         for r, host_r in enumerate(host_rounds):
-            self._record(host_r, float(props[r]))
+            self._record(host_r, float(props[r]), phases[r])
         if self.controller is not None and rounds > 0:
             self.controller.absorb(props[:rounds], float(p_final))
         r0 = self.rounds_run
@@ -706,10 +803,13 @@ class StealRuntime:
             return carry, stacked, rounds
         return carry, stacked
 
-    def _fused_rounds(self, k: int, worker_fn, carry, until_drained: bool):
+    def _fused_rounds(self, k: int, worker_fn, carry, until_drained: bool,
+                      mark=None):
         """The k rounds of :meth:`run_fused` on the device, no read-back:
         ``(carry, [(stats, proportion)] per round, rounds run, final
-        proportion)``."""
+        proportion)``.  ``mark``: the phase clock's boundary hook (the
+        splice ends once the round's carry is kept, the adaptive update
+        once the next proportion is), or None."""
         qs, p = self.queues, self._p()
         config = self.controller.config if self.controller else None
         ctx = self._ctx(k)
@@ -725,12 +825,15 @@ class StealRuntime:
                 active = active & (sizes.sum() > 0)
                 with self.ops.gated(active):
                     qs, new_carry, stats = self._step(worker_fn, qs, carry,
-                                                      p, faults)
+                                                      p, faults, mark)
                 carry = tree_map(lambda new, old: torch.where(active, new, old),
                                  new_carry, carry)
                 ran = ran + active.to(torch.int32)
             else:
-                qs, carry, stats = self._step(worker_fn, qs, carry, p, faults)
+                qs, carry, stats = self._step(worker_fn, qs, carry, p, faults,
+                                              mark)
+            if mark is not None:
+                mark("splice")
             per_round.append((stats, p))
             if self.controller is not None or until_drained:
                 sizes = self.lanes.all_gather(qs.size)
@@ -741,6 +844,8 @@ class StealRuntime:
                 p_new = adaptive_update(p, masked, policy=self.policy,
                                         config=config)
                 p = torch.where(active, p_new, p)
+            if mark is not None:
+                mark("adaptive_update")
         self.queues = qs
         return carry, per_round, ran, p
 

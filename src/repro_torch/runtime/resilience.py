@@ -351,6 +351,13 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
     lane-0 accounting (see :class:`~repro_torch.core.master.RebalanceStats`;
     on a mesh each lane holds its row's share, and
     :func:`~repro_torch.core.lanes.stack_stats` sums them).
+
+    The round takes an optional ``mark`` hook (the phase probe's
+    :meth:`~repro_torch.obs.phase.PhaseClock.mark`): ``"worker_body"``
+    after the masked worker body, ``"exchange"`` after the normal
+    superstep's exchange (intra-pod in pods); the recovery supersteps
+    and the cross-pod level fall in the splice's share, as in the JAX
+    package's probe.
     """
 
     def body(q, carry, faults: RoundFaults):
@@ -368,8 +375,10 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
                            q_new.size.index_copy(0, idx, old_q.size)),
                 _put_rows(carry_new, idx, old_carry, inplace=False))
 
-    def flat_round(q, carry, proportion, faults: RoundFaults):
+    def flat_round(q, carry, proportion, faults: RoundFaults, mark=None):
         q, carry = body(q, carry, faults)
+        if mark is not None:
+            mark("worker_body")
         pol = dataclasses.replace(policy, proportion=proportion)
         cap = _cap(q)
         lanes_ = lanes or StackedLanes(q.size.shape[0])
@@ -380,7 +389,7 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
                                faults.drop)
         q, stats = master_ops.superstep(q, pol, ops=ops, plan=plan,
                                         sizes=sizes, donate=True,
-                                        lanes=lanes_)
+                                        lanes=lanes_, mark=mark)
         # Recovery: dead rings stolen at proportion 1.0 by the least
         # loaded survivors, through the same exchange.
         sizes = lanes_.all_gather(q.size)
@@ -396,8 +405,10 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
             n_steals=stats.n_steals + rstats.n_steals,
             bytes_moved=stats.bytes_moved + rstats.bytes_moved)
 
-    def hier_round(q, carry, proportion, faults: RoundFaults):
+    def hier_round(q, carry, proportion, faults: RoundFaults, mark=None):
         q, carry = body(q, carry, faults)
+        if mark is not None:
+            mark("worker_body")
         pol = dataclasses.replace(policy, proportion=proportion)
         cap = _cap(q)
         lanes_ = lanes or StackedLanes(q.size.shape[0])
@@ -413,7 +424,7 @@ def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
         # dead abstaining across the pods (its work still flows within).
         q, normal = master_ops.hierarchical_superstep(
             q, pol, pod_size=pod_size, ops=ops, exchange=pol.exchange,
-            donate=True, dead=dead, drop=drop, lanes=lanes_)
+            donate=True, dead=dead, drop=drop, lanes=lanes_, mark=mark)
 
         # (3) Intra-pod recovery: a dead LANE's ring drains into its
         # pod-mates (a no-op in an entirely dead pod).

@@ -20,8 +20,13 @@ aggregates, with the JAX package's keys:
   logical rounds) — only when request records exist;
 * ``straggler_steps`` always, ``faults`` when any were recorded.
 
-The JAX package's phase-probe fields (``t_*`` on ``RoundRecord``,
-``phase_summary``) wait for the observability slice.
+With a phase probe attached (``StealRuntime.attach_phase_probe``,
+:mod:`repro_torch.obs.phase`) each round also carries its time split
+across ``worker_body`` / ``exchange`` / ``splice`` / ``adaptive_update``;
+:meth:`Telemetry.phase_summary` aggregates it, kept apart from
+``summary()`` because it exists only on probed runs.  One telemetry
+stream is what :mod:`repro_torch.obs.trace` renders and
+:mod:`repro_torch.obs.metrics` exposes.
 """
 
 from __future__ import annotations
@@ -62,7 +67,14 @@ def reduce_round_stats(stats, *, n_workers: Optional[int] = None,
 
 @dataclasses.dataclass(frozen=True)
 class RoundRecord:
-    """One rebalancing round, as observed by the master."""
+    """One rebalancing round, as observed by the master.
+
+    The ``t_*`` phase fields are zero unless the round ran under an armed
+    phase probe (``StealRuntime.attach_phase_probe``): then they
+    attribute the round's time in seconds, ``phase_timed`` is True, and
+    ``phase_estimated`` says the split was estimated rather than measured
+    at the phase boundaries (the port measures every round, so it is
+    False there; :mod:`repro_torch.obs.phase`)."""
 
     round: int
     proportion: float          # steal proportion used THIS round
@@ -74,6 +86,13 @@ class RoundRecord:
     sizes_max: int
     sizes_mean: float
     depth_hist: Sequence[int]  # queue-depth histogram over workers
+    t_worker: float = 0.0      # seconds: worker body
+    t_exchange: float = 0.0    # seconds: block exchange
+    t_splice: float = 0.0      # seconds: splice + bookkeeping tail
+    t_adaptive: float = 0.0    # seconds: adaptive proportion update
+    t_round: float = 0.0       # seconds attributed to this round
+    phase_timed: bool = False
+    phase_estimated: bool = False
 
     @property
     def imbalance(self) -> float:
@@ -160,11 +179,24 @@ class Telemetry:
         self.straggler_steps = 0
 
     def record(self, *, sizes, n_steals: int, n_transferred: int,
-               proportion: float, bytes_moved: int = 0) -> RoundRecord:
-        """Append one round."""
+               proportion: float, bytes_moved: int = 0,
+               phases: Optional[Dict[str, Any]] = None) -> RoundRecord:
+        """Append one round.  ``phases`` optionally carries the phase
+        probe's attribution, the dict :meth:`repro_torch.obs.phase.
+        PhaseSample.as_record` produces (``t_worker`` / ``t_exchange`` /
+        ``t_splice`` / ``t_adaptive`` / ``t_round`` /
+        ``phase_estimated``)."""
         sizes = np.asarray(sizes)
         hi = self.capacity if self.capacity else max(int(sizes.max()), 1)
         hist, _ = np.histogram(sizes, bins=self.n_bins, range=(0, hi))
+        extra: Dict[str, Any] = {}
+        if phases is not None:
+            extra = {k: phases.get(k, 0.0)
+                     for k in ("t_worker", "t_exchange", "t_splice",
+                               "t_adaptive", "t_round")}
+            extra["phase_estimated"] = bool(
+                phases.get("phase_estimated", False))
+            extra["phase_timed"] = True
         rec = RoundRecord(
             round=len(self.rounds),
             proportion=float(proportion),
@@ -176,6 +208,7 @@ class Telemetry:
             sizes_max=int(sizes.max()) if sizes.size else 0,
             sizes_mean=float(sizes.mean()) if sizes.size else 0.0,
             depth_hist=tuple(int(x) for x in hist),
+            **extra,
         )
         self.rounds.append(rec)
         return rec
@@ -246,6 +279,33 @@ class Telemetry:
     @property
     def total_tokens(self) -> int:
         return sum(w.tokens for w in self.waves)
+
+    def phase_summary(self) -> Dict[str, Any]:
+        """Aggregate the probed rounds' time attribution: per phase
+        (``worker_body`` / ``exchange`` / ``splice`` / ``adaptive_update``)
+        the total and mean seconds plus the fraction of attributed time,
+        and the timed / estimated round counts.  Rounds recorded without
+        a probe are excluded; with none probed the dict is just
+        ``{"timed_rounds": 0}``."""
+        timed = [r for r in self.rounds if r.phase_timed]
+        out: Dict[str, Any] = {"timed_rounds": len(timed)}
+        if not timed:
+            return out
+        out["estimated_rounds"] = sum(1 for r in timed if r.phase_estimated)
+        totals = {
+            "worker_body": sum(r.t_worker for r in timed),
+            "exchange": sum(r.t_exchange for r in timed),
+            "splice": sum(r.t_splice for r in timed),
+            "adaptive_update": sum(r.t_adaptive for r in timed),
+        }
+        out["wall_s"] = sum(r.t_round for r in timed)
+        denom = sum(totals.values()) or 1.0
+        out["phases"] = {
+            name: {"total_s": t, "mean_s": t / len(timed),
+                   "fraction": t / denom}
+            for name, t in totals.items()
+        }
+        return out
 
     def summary(self) -> Dict[str, Any]:
         props = [r.proportion for r in self.rounds]

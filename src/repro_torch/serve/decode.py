@@ -36,8 +36,7 @@ Per-request greedy tokens depend only on (params, prompt, budget) — slot
 assignment, stalls and steals change WHEN a token is produced, never its
 value.  Timestamps (admit / first token / finish) are stamped in LOGICAL
 rounds and flow into :class:`repro_torch.runtime.telemetry.Telemetry` as
-request records.  ``metrics()`` waits for the observability slice
-(ROADMAP A12).
+request records.
 """
 
 from __future__ import annotations
@@ -489,14 +488,6 @@ class DecodeCluster:
         self.telemetry.record_fault("straggler")
         if self.controller is not None:
             self.controller.flag_straggler(rounds=rounds, factor=factor)
-
-    def metrics(self, registry=None):
-        """The JAX package polls the cluster into a metrics registry
-        (``repro.obs.metrics``), which waits for the observability slice
-        (ROADMAP A12)."""
-        raise NotImplementedError(
-            "DecodeCluster.metrics() needs obs/metrics.py, which waits for "
-            "ROADMAP A12")
 
     def _row(self, lane: int) -> Optional[int]:
         """Lane ``lane``'s row in this process's carry, or None."""

@@ -15,7 +15,8 @@ process), every rebalance a real superstep.  Under ``"mesh"`` every rank
 builds the cluster with all the replicas and runs every wave (a wave is
 popped by its lane's owner and broadcast), and the wall-clock straggler
 flags are agreed over the lanes, so every rank serves alike.
-``ServeCluster.metrics()`` waits for the observability slice.
+``ServeCluster.metrics()`` polls the master (and, on a device master, its
+runtime) and the replicas' token counts into a Prometheus registry.
 """
 
 from __future__ import annotations
@@ -154,6 +155,25 @@ class ServeCluster:
         """The unified per-round + per-wave telemetry stream (the
         admission master's ``runtime.telemetry.Telemetry``)."""
         return self.master.telemetry
+
+    def metrics(self, registry=None):
+        """Poll the cluster into a :class:`repro_torch.obs.metrics.
+        MetricsRegistry`: the master's admission metrics (both master
+        kinds expose ``metrics``; a duck-typed custom master falls back
+        to the generic collector) plus per-replica tokens generated.
+        Pull-style — poll mid-run at any cadence."""
+        from repro_torch.obs.metrics import MetricsRegistry, master_metrics
+
+        poll = getattr(self.master, "metrics", None)
+        if poll is not None:
+            reg = poll(registry)
+        else:
+            reg = master_metrics(self.master, registry or MetricsRegistry())
+        tokens = reg.counter("repro_serve_replica_tokens_total",
+                             "tokens generated per replica")
+        for rid, rep in enumerate(self.replicas):
+            tokens.set_total(rep.tokens_generated, replica=rid)
+        return reg
 
     def submit(self, reqs: List[Request]):
         self.master.submit(reqs)

@@ -20,8 +20,8 @@ proportion with the SAME float32 feedback step (``adaptive_update``) the
 device executor runs, and logs per-round steal counts and depth
 histograms in the runtime's telemetry.  ``rebalance_many(k)`` mirrors the
 executor's fused supersteps at host level: k rounds per controller tick,
-stopping early once a round moves nothing.  ``metrics()`` (Prometheus
-exposition) waits for the observability slice.
+stopping early once a round moves nothing.  ``metrics()`` polls the
+master into a Prometheus registry (:mod:`repro_torch.obs.metrics`).
 """
 
 from __future__ import annotations
@@ -261,3 +261,11 @@ class AdmissionMaster:
             "proportion": self.proportion,
             "telemetry": self.telemetry.summary(),
         }
+
+    def metrics(self, registry=None):
+        """Poll this master into a :class:`repro_torch.obs.metrics.
+        MetricsRegistry` (per-replica loads, steal totals, SLO
+        percentiles, detector census) — pull-style, callable mid-run."""
+        from repro_torch.obs.metrics import master_metrics
+
+        return master_metrics(self, registry)

@@ -207,9 +207,11 @@ def test_run_supervised_restarts_from_the_latest_checkpoint():
     assert calls == [None]
 
 
-def _resilient_drive(snap_dir, crash_at=None, every=4, k=2):
+def _resilient_drive(snap_dir, crash_at=None, every=4, k=2,
+                     metrics_path=None):
     """Drive the flat fault replay under ``run_resilient`` in blocks of
-    ``k`` rounds, crashing once at ``crash_at``."""
+    ``k`` rounds, crashing once at ``crash_at`` (``metrics_path``: keep
+    the Prometheus textfile there)."""
     crashed = []
 
     def make_runtime():
@@ -234,12 +236,15 @@ def _resilient_drive(snap_dir, crash_at=None, every=4, k=2):
 
     rounds = resilient.run_resilient(make_runtime, drive,
                                      snapshot_dir=str(snap_dir),
-                                     snapshot_every=every)
+                                     snapshot_every=every,
+                                     metrics_path=metrics_path)
     return rounds, final["rt"], crashed
 
 
 def test_run_resilient_resumes_a_crash_to_the_uninterrupted_state(tmp_path):
-    rounds, rt, crashed = _resilient_drive(tmp_path / "crash", crash_at=6)
+    prom = tmp_path / "metrics" / "repro.prom"
+    rounds, rt, crashed = _resilient_drive(tmp_path / "crash", crash_at=6,
+                                           metrics_path=str(prom))
     assert crashed == [6]
     assert rt.telemetry.fault_events["restart"] == 1
     assert rt.telemetry.fault_events["restore"] == 1
@@ -249,10 +254,12 @@ def test_run_resilient_resumes_a_crash_to_the_uninterrupted_state(tmp_path):
         np.testing.assert_array_equal(x, y)
     # the last snapshot is the final state
     assert ckpt.latest_step(str(tmp_path / "crash")) == rounds
-    with pytest.raises(NotImplementedError, match="A12"):
-        resilient.run_resilient(lambda: None, lambda rt, s: 0,
-                                snapshot_dir=str(tmp_path),
-                                metrics_path=str(tmp_path / "m.prom"))
+    # the textfile's last write is the resumed runtime's final poll
+    text = prom.read_text()
+    assert text == rt.metrics().to_prometheus()
+    assert 'repro_fault_events_total{kind="restart"} 1' in text
+    assert f"repro_dead_lanes {int(rt.dead_lanes().sum())}" in text
+    assert list(prom.parent.iterdir()) == [prom]
 
 
 def test_resilient_cli_on_the_cpu(tmp_path, capsys):

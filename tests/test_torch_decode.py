@@ -289,8 +289,9 @@ def test_decode_straggler_wiring(models):
     c.submit([Request(prompt=p, max_new=mn) for p, mn in data])
     done = c.run_until_drained(max_steps=100)
     assert len(done) == 4                     # boost decays, serving fine
-    with pytest.raises(NotImplementedError, match="A12"):
-        c.metrics()
+    # the JAX DecodeCluster has no metrics(), and the port adds none
+    assert not hasattr(JaxCluster, "metrics")
+    assert not hasattr(c, "metrics")
 
 
 def test_decode_refuses_bad_arguments(models):
@@ -367,16 +368,23 @@ def _master_script(master, request_cls):
 
 
 def test_runtime_admission_master_matches_the_jax_package():
-    got = _master_script(RuntimeAdmissionMaster(4, capacity=32,
-                                                device="cpu"), Request)
-    want = _master_script(JaxMaster(4, capacity=32), JaxRequest)
+    tmaster = RuntimeAdmissionMaster(4, capacity=32, device="cpu")
+    jmaster = JaxMaster(4, capacity=32)
+    got = _master_script(tmaster, Request)
+    want = _master_script(jmaster, JaxRequest)
     assert got == want
+    # its metrics: the JAX text but the round jit-cache gauge, which the
+    # port does not export
+    text = tmaster.metrics().to_prometheus()
+    assert text == "".join(
+        line + "\n" for line in jmaster.metrics().to_prometheus().splitlines()
+        if "repro_compiled_programs" not in line)
+    assert "repro_compiled_programs" not in text
+    assert "repro_serve_stolen_total" in text and "repro_lanes 4" in text
     master = RuntimeAdmissionMaster(2, capacity=8, device="cpu")
     assert master.runtime.fault is not None
     with pytest.raises(RuntimeError, match="overflow"):
         master.submit([Request(prompt=[1]) for _ in range(9)])
-    with pytest.raises(NotImplementedError, match="A12"):
-        master.metrics()
     det = master.attach_detector()
     assert master.detector is det
     assert RuntimeAdmissionMaster(2, capacity=8, device="cpu",

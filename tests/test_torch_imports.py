@@ -58,7 +58,9 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.models.moe', 'repro_torch.train.optimizer',\n"
         "          'repro_torch.train.trainer', 'repro_torch.launch.train',\n"
         "          'repro_torch.kernels._backward',\n"
-        "          'repro_torch.models.encdec', 'repro_torch.models.zoo'):\n"
+        "          'repro_torch.models.encdec', 'repro_torch.models.zoo',\n"
+        "          'repro_torch.obs', 'repro_torch.obs.metrics',\n"
+        "          'repro_torch.obs.phase', 'repro_torch.obs.trace'):\n"
         "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr

@@ -11,6 +11,7 @@ import importlib.util
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from repro.core.dd.knapsack import random_instance as jax_random_instance
@@ -180,6 +181,28 @@ def test_resilience_phase_matches_the_pins_script_at_a_cpu_size():
     # the card's pins come from the same script at PHASE8's size
     assert set(smoke.PHASE8_EXPECT) == {"flat", "hier"}
     assert set(smoke.PHASE8_EXPECT["flat"]) == set(expect["flat"])
+
+
+def test_obs_phase_holds_every_check_at_a_cpu_size():
+    """Phase 14 at ``PHASE8_SMALL``: the probed replays against the
+    unprobed ones (the card holds them to ``PHASE8_EXPECT``), the phase
+    summaries, the Prometheus totals, the trace, ``run_resilient``'s
+    textfile, and the serving metrics' served total."""
+    smoke = _chip_smoke()
+    _, counters = smoke._port()
+    cfg = smoke.PHASE8_SMALL
+    snap = {"repro_serve_served_total": {"values": 10}}
+    out = smoke.phase_obs(CPU, counters, cfg, served=(10, snap), turns=2)
+    for name in ("flat", "hier"):
+        assert sum(out[name]["phase_fractions"].values()) == \
+            pytest.approx(1.0, abs=1e-9)
+        assert len(out["ms_per_round"][name]["probed"]) == 2
+        assert out[name]["overhead_ratio"] > 0
+    assert out["trace_counts"]["phase"] == 4 * out["flat"]["rounds"]
+    assert out["textfile"]["rounds"] == out["flat"]["rounds"]
+    assert out["serve_served_total"] == 10
+    with pytest.raises(AssertionError, match="served"):
+        smoke.phase_obs(CPU, counters, cfg, served=(11, snap), turns=1)
 
 
 def test_mesh_phase_matches_the_pins_script_at_a_cpu_size(monkeypatch):

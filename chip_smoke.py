@@ -240,6 +240,24 @@ check that does not hold:
    each replay, not gated (the phases are device-timeline times from
    CUDA events; the drain's wall is host time).
 
+15. The sharded step (``{"phase": "sharded_step"}``, after phase 14;
+   ``with mesh.spmd():``, ``PHASE15``).  Each case's unsharded reference
+   on the card, then one spawn of 8 gloo ranks of the card: (a)
+   llama3.2-1b at full width and depth, float32, 8 x 256 on (data 2,
+   model 4), two AdamW steps: every rank's losses within 1e-5 (1 +
+   |loss|) of the unsharded steps', its first step's gradient blocks
+   within 1e-4 of each leaf's largest |g|, a prefill's logits within
+   1e-4, K6 32 launches a step and 16 a prefill on every rank; (b)
+   qwen3-moe-30b-a3b (2 layers) and mamba2-2.7b (4 layers), one step
+   each, the same gates, K6 4 / K7 8 a step, the MoE's routing plans the
+   unsharded dispatch's of the same router probabilities bit for bit;
+   (c) llama3.2-1b (4 layers) on (pod 2, data 2, model 2); (d)
+   ``launch.dryrun.trace_cell`` of (a)'s step on a recording mesh: its
+   collective log equal to rank 0's, call for call (gated), its
+   arguments plus temporaries beside rank 0's ``max_memory_allocated``;
+   (e) ``run_cell("llama3.2-1b", "train_4k")`` printed whole, with the
+   card's ``total_memory``.  ms a step sharded and unsharded, not gated.
+
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -254,6 +272,7 @@ import gc
 import hashlib
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -540,6 +559,51 @@ PHASE13_SMALL = dict(
     flash_f32=dict(PHASE13["flash_f32"], prompt=24, cache=40, steps=3,
                    layers=None),
     moe=dict(PHASE13["moe"], prompt=12, layers=None))
+
+# Phase 15: the sharded step (``with mesh.spmd():``) on 8 gloo ranks of
+# the one card.  (a) llama3.2-1b at its widths and depth, float32, 8 rows
+# of 256 tokens on a (data 2, model 4) mesh: two AdamW steps, each rank's
+# loss within SHARDED_LOSS_TOL x (1 + |loss|) of the unsharded step's on
+# the same card and parameters (made from the seed on the card), its
+# first step's gradient blocks within SHARDED_GRAD_TOL of each leaf's
+# largest |g|, and a prefill's logits within SHARDED_LOGITS_TOL; K6
+# launching on every rank's 8 query heads, twice a layer a step (the
+# forward and the remat's recompute).  (b) qwen3-moe-30b-a3b (2 of 48
+# layers; 128 experts, 32 a model rank) and mamba2-2.7b (4 of 64 layers)
+# at their widths, one step each, the same gates, the MoE's routing
+# plans bit-equal to the unsharded dispatch's.  (c) llama3.2-1b on a
+# (pod 2, data 2, model 2) mesh, one step, its depth cut to 4 of 16
+# layers (at 16 a rank's quarter of the parameters and of AdamW's old and
+# new state is ~9 GB, and 8 ranks do not fit beside the reference).  (d)
+# the dry run's trace of (a)'s step on a recording mesh: its collective
+# log equal to rank 0's (gated), its arguments plus temporaries beside
+# rank 0's max_memory_allocated.  (e) launch.dryrun.run_cell of
+# llama3.2-1b x train_4k on the 16 x 16 mesh, printed whole.
+_STEP15 = dict(batch=8, seq=256, steps=1, seed=0, param_dtype="float32",
+               compute_dtype="float32",
+               opt=dict(lr=1e-3, warmup_steps=2, total_steps=10, eps=1e-6))
+PHASE15 = dict(
+    mesh=((2, 4), ("data", "model")),
+    pod_mesh=((2, 2, 2), ("pod", "data", "model")), timeout=900,
+    dense=dict(_STEP15, arch="llama3.2-1b", steps=2, prefill=True),
+    pods=dict(_STEP15, arch="llama3.2-1b", layers=4),
+    moe=dict(_STEP15, arch="qwen3-moe-30b-a3b", layers=2),
+    ssm=dict(_STEP15, arch="mamba2-2.7b", layers=4),
+    run_cell=("llama3.2-1b", "train_4k"))
+# The CPU rehearsal: reduced widths, 32 tokens a row.
+PHASE15_SMALL = dict(
+    PHASE15, reduced=True, timeout=300,
+    dense=dict(PHASE15["dense"], seq=32),
+    pods=dict(PHASE15["pods"], seq=32, layers=None),
+    moe=dict(PHASE15["moe"], seq=32, layers=None),
+    ssm=dict(PHASE15["ssm"], seq=32, layers=None), run_cell=None)
+SHARDED_LOSS_TOL = 1e-5
+SHARDED_GRAD_TOL = 1e-4
+SHARDED_LOGITS_TOL = 1e-4
+# Where the sharded and the unsharded forwards route a token to other
+# experts, the unsharded top-k boundary must be a near-tie: float32
+# router inputs that round apart by ~1e-6 flip no wider gap.
+PLAN_TIE_GAP = 1e-4
 
 # Float32 loss and gradients through the kernels (their SIMT routes)
 # against the plain versions': the loss to 1e-4 (+ relative), as
@@ -1233,7 +1297,8 @@ def flash_timing(device, rng, timer, shape):
     import torch.nn.functional as F
     from repro_torch.kernels import cases as C
     from repro_torch.kernels.flash_attention.ops import mha, mha_simt
-    from repro_torch.kernels.flash_attention.ref import attention_ref, visible
+    from repro_torch.kernels.bounds import flash_counts
+    from repro_torch.kernels.flash_attention.ref import attention_ref
 
     B, S, T, H, K, hd, causal, window, cap, dtype = shape
     check((S == T or not causal) and window is None and cap is None,
@@ -1251,9 +1316,8 @@ def flash_timing(device, rng, timer, shape):
     err = _close(mha(q, k, v, **kw), plain, tol, f"flash_attention {shape}")
     _close(mha_simt(q, k, v, **kw), plain, tol, f"SIMT kernel {shape}")
     _close(library(), plain, tol, f"SDPA yardstick {shape}")
-    pairs = int(visible(S, T, causal=causal, window=window).sum())
-    flops = 4 * B * H * hd * pairs
-    nbytes = (2 * q.numel() + k.numel() + v.numel()) * q.element_size()
+    flops, nbytes = flash_counts(B, S, T, H, K, hd, causal=causal,
+                                 window=window, itemsize=q.element_size())
     flop_ms = flops / PEAK_BF16_FLOPS * 1e3
     byte_ms = nbytes / MEM_BYTES_PER_S * 1e3
     ms, clean = timer.ms(lambda: mha(q, k, v, **kw))
@@ -1447,24 +1511,12 @@ def ssd_checks(device, rng, shapes):
 
 
 def ssd_bound(case):
-    """(flops, bytes) the SSD scan of ``case`` needs: per batch and chunk
-    of length L, C B^T over the L (L + 1) / 2 causal pairs once (B and C
-    are per batch); per head the causal half of (G L) x, C state^T for
-    every chunk after the first (the first one's carried state is zero)
-    and the state update; and the bytes of x, dt, A, Bm, Cm, D, y and the
-    final state, each once."""
+    """(flops, bytes) the SSD scan of ``case`` needs
+    (``repro_torch.kernels.bounds.ssd_counts``: the count the dry run's
+    trace charges too)."""
+    from repro_torch.kernels.bounds import ssd_counts
     B, S, nh, hd, ns, Q, dtype = case
-    size = 2 if dtype == "bfloat16" else 4
-    flops = 0
-    for c0 in range(0, S, Q):
-        L = min(Q, S - c0)
-        pairs = L * (L + 1) // 2
-        flops += B * 2 * pairs * ns
-        flops += B * nh * (2 * pairs * hd + 2 * L * hd * ns * (c0 > 0)
-                           + 2 * L * hd * ns)
-    nbytes = (2 * B * S * nh * hd + 2 * B * S * ns) * size \
-        + (B * S * nh + 2 * nh + B * nh * hd * ns) * 4
-    return flops, nbytes
+    return ssd_counts(B, S, nh, hd, ns, Q, 2 if dtype == "bfloat16" else 4)
 
 
 def _device_launches(device, fn) -> int:
@@ -3927,6 +3979,452 @@ def phase_sharded(device, cfg) -> dict:
     return out
 
 
+# ------------------------------------------- phase 15: the sharded step
+
+
+def _step15_model(c, *, reduced: bool, pods: bool = False):
+    """The case's model (the batch over the pod axis too on a mesh with
+    pods, as the JAX package's multi-pod plan has it)."""
+    from repro_torch.configs.base import ParallelConfig
+    from repro_torch.models.zoo import build_model
+    kw = dict(param_dtype=c["param_dtype"], compute_dtype=c["compute_dtype"])
+    if c.get("layers"):
+        kw["n_layers"] = c["layers"]
+    cfg = _arch_cfg(c["arch"], reduced=reduced, **kw)
+    return build_model(cfg, ParallelConfig(pod_axis="pod" if pods
+                                           else None))
+
+
+def _step15_batches(cfg, c) -> list:
+    """``c["steps"]`` seeded numpy batches of tokens and labels."""
+    rng = np.random.default_rng(c["seed"] + 1)
+    out = []
+    for _ in range(c["steps"]):
+        t = rng.integers(1, cfg.vocab_size, (c["batch"], c["seq"] + 1)
+                         ).astype(np.int64)
+        out.append({"tokens": t[:, :-1], "labels": t[:, 1:]})
+    return out
+
+
+def _tensors15(batch, device, rows=slice(None)):
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v[rows])).to(device)
+            for k, v in batch.items()}
+
+
+class _PlanTap15:
+    """Every routing plan (expert, slot, valid) computed, as numpy, with
+    the router probabilities and capacity it was computed from."""
+
+    def __init__(self):
+        from repro_torch.models import moe as moe_mod
+        self.mod, self.real, self.plans = moe_mod, \
+            moe_mod.route_with_bulk_steal, []
+        moe_mod.route_with_bulk_steal = self
+
+    def __call__(self, probs, top_k, capacity, bulk_steal=True):
+        out = self.real(probs, top_k, capacity, bulk_steal=bulk_steal)
+        self.plans.append({"plan": [out[i].cpu().numpy() for i in (0, 1, 3)],
+                           "probs": probs.float().cpu().numpy(),
+                           "top_k": top_k, "capacity": capacity,
+                           "bulk_steal": bulk_steal})
+        return out
+
+    def close(self):
+        self.mod.route_with_bulk_steal = self.real
+
+
+class _GradTap15:
+    """The gradients the next train step hands AdamW (the trainer's
+    ``adamw_update``, wrapped once)."""
+
+    def __init__(self):
+        from repro_torch.train import trainer
+        self.mod, self.real, self.grads = trainer, trainer.adamw_update, None
+        trainer.adamw_update = self
+
+    def __call__(self, cfg, grads, *a, **kw):
+        self.grads = grads
+        self.mod.adamw_update = self.real
+        return self.real(cfg, grads, *a, **kw)
+
+
+def plan_check(ranks_plans, ref_plans) -> dict:
+    """The sharded routing against the unsharded dispatch's.  Gated:
+    every plan a rank made is the unsharded dispatch's plan of the same
+    router probabilities (``route_with_bulk_steal`` over the whole global
+    chunk at its capacity).  Reported: how far the unsharded forward's
+    own plans agree, and the largest gap at a token's top-k boundary (in
+    the unsharded probabilities) among the tokens whose experts differ:
+    a gap near float32 rounding means the two forwards' router inputs
+    rounded apart at a near-tie, not that the dispatch differs."""
+    import torch
+    from repro_torch.models.moe import route_with_bulk_steal
+    same = True
+    for plans in ranks_plans:
+        same &= len(plans) == len(ref_plans)
+        for got in plans:
+            want = route_with_bulk_steal(
+                torch.from_numpy(got["probs"]), got["top_k"],
+                got["capacity"], bulk_steal=got["bulk_steal"])
+            same &= all(np.array_equal(a, want[i].numpy())
+                        for a, i in zip(got["plan"], (0, 1, 3)))
+    equal = total = 0
+    gap = 0.0
+    for got, want in zip(ranks_plans[0], ref_plans):
+        k = want["top_k"]
+        for a, b in zip(got["plan"], want["plan"]):
+            equal += int((a == b).sum())
+            total += a.size
+        srt = -np.sort(-want["probs"], axis=1)
+        ours = np.sort(np.argsort(-got["probs"], axis=1, kind="stable")
+                       [:, :k], axis=1)
+        theirs = np.sort(np.argsort(-want["probs"], axis=1, kind="stable")
+                         [:, :k], axis=1)
+        flipped = np.any(ours != theirs, axis=1)
+        if flipped.any():
+            gap = max(gap, float((srt[flipped, k - 1]
+                                  - srt[flipped, k]).max()))
+    return {"plans_bit_equal": bool(same),
+            "forward_plan_agreement": equal / max(total, 1),
+            "flipped_tokens_max_topk_gap": gap}
+
+
+def step15_reference(device, c, *, reduced: bool) -> dict:
+    """The unsharded reference of one case on ``device``: the first
+    batch's loss and gradient, the losses and ms of ``c["steps"]`` AdamW
+    steps, a prefill's logits and the MoE's routing plans; the gradient
+    stays on the device for the ranks (the parameters they make from the
+    seed themselves)."""
+    import torch
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step, value_and_grad
+    model = _step15_model(c, reduced=reduced)
+    params = model.init(torch.Generator(device=device).manual_seed(
+        c["seed"]))
+    batches = _step15_batches(model.cfg, c)
+    first = _tensors15(batches[0], device)
+    loss, grads = value_and_grad(model.loss_fn, params, first)
+    out = {"loss0": float(loss), "grads": grads, "batches": batches}
+    step = make_train_step(model, AdamWConfig(**c["opt"]))
+    state, p = adamw_init(params), params
+    out.update(losses=[], grad_norms=[], ms=[])
+    for b in batches:
+        b = _tensors15(b, device)
+        sync(device)
+        t = time.perf_counter()
+        p, state, met = step(p, state, b)
+        sync(device)
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+    del p, state
+    with torch.no_grad():
+        if c.get("prefill"):
+            logits, _ = model.prefill(params, first["tokens"])
+            out["logits"] = logits.float().cpu().numpy()
+        if model.cfg.n_experts:
+            tap = _PlanTap15()
+            try:
+                model.loss_fn(params, first)
+            finally:
+                tap.close()
+            out["plans"] = tap.plans
+    return out
+
+
+def _step15_case(mesh, device, c, ref, *, reduced: bool,
+                 record: bool = False) -> dict:
+    """One case on this rank: its parameter blocks made from the seed
+    (the ranks take turns, one whole tree on the card at a time); the
+    prefill and the routing plans; then the sharded steps, the first
+    one's gradient blocks (handed to AdamW) against the reference's."""
+    import torch
+    from repro_torch._tree import tree_leaves_with_path
+    from repro_torch.kernels.flash_attention import ops as flash
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import make_train_step
+    model = _step15_model(c, reduced=reduced, pods="pod" in mesh.shape)
+    specs = model.param_specs()
+    local = None
+    t0 = time.perf_counter()
+    for turn in range(int(np.prod(list(mesh.shape.values())))):
+        if turn == mesh.rank:
+            full = model.init(torch.Generator(device=device).manual_seed(
+                c["seed"]))
+            local = mesh.shard(full, specs)
+            del full
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        mesh.barrier()
+    entry = tuple(a for a in model.sh.dp if a in mesh.shape)
+    n, i = mesh.size(entry), mesh.index(entry)
+    rows = slice(i * c["batch"] // n, (i + 1) * c["batch"] // n)
+    out = {"init_s": time.perf_counter() - t0}
+    first = _tensors15(ref["batches"][0], device, rows)
+    with torch.no_grad():
+        if "logits" in ref:
+            counts = flash.mha.launches
+            with mesh.spmd():
+                logits, _ = model.prefill(local, first["tokens"])
+            out["prefill_launches"] = flash.mha.launches - counts
+            out["logits_max_abs_err"] = float(np.abs(
+                logits.float().cpu().numpy() - ref["logits"][rows]).max())
+            del logits
+        if "plans" in ref:
+            tap = _PlanTap15()
+            try:
+                with mesh.spmd():
+                    model.loss_fn(local, first)
+            finally:
+                tap.close()
+            out["plans"] = tap.plans
+    step = make_train_step(model, AdamWConfig(**c["opt"]))
+    state, p = adamw_init(local), local
+    del local
+    out.update(losses=[], grad_norms=[], ms=[], launches=[])
+    for k, b in enumerate(ref["batches"]):
+        b = _tensors15(b, device, rows)
+        counts = (flash.mha.launches, ssd_ops.ssd.launches)
+        if k == 0:
+            gc.collect()
+            _reset_peak(device)
+            log = mesh.record() if record else None
+            tap = _GradTap15()
+        sync(device)
+        t = time.perf_counter()
+        with mesh.spmd():
+            p, state, met = step(p, state, b)
+        sync(device)
+        out["ms"].append((time.perf_counter() - t) * 1e3)
+        out["losses"].append(float(met["loss"]))
+        out["grad_norms"].append(float(met["grad_norm"]))
+        out["launches"].append({
+            "flash_attention": flash.mha.launches - counts[0],
+            "ssd_scan": ssd_ops.ssd.launches - counts[1]})
+        if k == 0:
+            out["peak_bytes"] = (torch.cuda.max_memory_allocated()
+                                 if device.type == "cuda" else None)
+            if record:
+                out["log"] = list(log)
+                mesh.log = None
+                for lanes in mesh.lanes.values():
+                    lanes.log = None
+            worst = {}
+            for key, g in tree_leaves_with_path(tap.grads):
+                path, shape = ref["grads"][key]
+                full = torch.from_file(path, shared=True,
+                                       size=int(np.prod(shape)),
+                                       dtype=torch.float32).view(shape)
+                want = mesh.shard(full, None if g.shape == full.shape
+                                  else _leaf_spec(specs, key))
+                worst[key] = float((g.float() - want.to(g.device).float())
+                                   .abs().max()) / max(ref["grad_max"][key],
+                                                       1e-30)
+                del want, full
+            out["max_grad_err_over_leaf_max"] = max(worst.values())
+            out["worst_leaf"] = max(worst, key=worst.get)
+            del tap
+    del p, state
+    gc.collect()
+    if device.type == "cuda":
+        torch.cuda.empty_cache()
+    return out
+
+
+def _leaf_spec(specs, key: str):
+    for part in key.split("/"):
+        specs = specs[part]
+    return specs
+
+
+def _step15_rank(rank: int, cfg: dict, names: tuple, device_type: str,
+                 refs_path: str, reduced: bool, started: float) -> dict:
+    """One rank of phase 15's cases ``names``, each on its mesh (the pod
+    mesh for ``pods``), in turn, against the references pickled at
+    ``refs_path`` (a spawned rank's arguments travel through a pipe that
+    the parent fills one rank at a time: past the pipe's buffer the ranks
+    would start one after another); rank 0 reports on stderr the seconds
+    since the spawn (``started``, the parent's wall clock) at each
+    stage."""
+    import pickle
+    with open(refs_path, "rb") as f:
+        refs = pickle.load(f)
+
+    def mark(what):
+        if rank == 0:
+            print(f"phase 15: rank 0 {what} at {time.time() - started:.1f}"
+                  f" s", file=sys.stderr, flush=True)
+
+    mark("started")
+    _port()
+    from repro_torch.launch.mesh import make_model_mesh
+    device = _rank_device(rank, device_type)
+    meshes = {"mesh": make_model_mesh(*cfg["mesh"], device=device)}
+    if "pods" in names:
+        meshes["pod_mesh"] = make_model_mesh(*cfg["pod_mesh"], device=device)
+    mark("meshes made")
+    out = {"coords": meshes["mesh"].coords}
+    for name in names:
+        mesh = meshes["pod_mesh" if name == "pods" else "mesh"]
+        out[name] = _step15_case(mesh, device, cfg[name], refs[name],
+                                 reduced=reduced, record=name == "dense")
+        out[name]["coords"] = mesh.coords
+        mark(f"{name} done, steps {[round(m) for m in out[name]['ms']]} ms")
+    return out
+
+
+def phase_sharded_step(device, cfg) -> dict:
+    """Phase 15: each case's unsharded reference on the card (its gradient
+    written to raw temporary files, one a leaf, which the ranks map and
+    cut their blocks from), one spawn of 8 gloo ranks running every case, the gates over
+    every rank's results, then the dry run's trace of (a)'s step against
+    rank 0's and ``run_cell``."""
+    import torch
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import make_recording_mesh, run_workers
+    reduced = cfg.get("reduced", False)
+    t_phase = time.perf_counter()
+    import tempfile
+    from repro_torch._tree import tree_leaves_with_path
+    # the ranks' allocators: segments that grow, not a cached block each
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
+    names = ("dense", "pods", "moe", "ssm")
+    refs, results = {}, {}
+    ref_dir = Path(tempfile.mkdtemp(prefix="chip_smoke_step15_"))
+    try:
+        # each reference's gradient to a file the ranks map and cut
+        # their blocks from (nothing of it stays on the card)
+        t0 = time.perf_counter()
+        for name in names:
+            refs[name] = step15_reference(device, cfg[name],
+                                          reduced=reduced)
+            grads = refs[name].pop("grads")
+            refs[name]["grad_max"], refs[name]["grads"] = {}, {}
+            for i, (key, g) in enumerate(tree_leaves_with_path(grads)):
+                refs[name]["grad_max"][key] = float(g.abs().max())
+                path = str(ref_dir / f"{name}_{i}.f32")
+                g.float().cpu().numpy().tofile(path)  # raw, mapped back
+                refs[name]["grads"][key] = (path, tuple(g.shape))
+            del grads
+            gc.collect()
+            if device.type == "cuda":
+                torch.cuda.empty_cache()
+        import pickle
+        with open(ref_dir / "refs.pkl", "wb") as f:
+            pickle.dump(refs, f)
+        refs_s = time.perf_counter() - t0
+        print(f"phase 15: references in {refs_s:.1f} s", file=sys.stderr,
+              flush=True)
+        t0 = time.perf_counter()
+        ranks = run_workers(functools.partial(
+            _step15_rank, cfg=cfg, names=names, device_type=device.type,
+            refs_path=str(ref_dir / "refs.pkl"), reduced=reduced,
+            started=time.time()),
+            int(np.prod(cfg["mesh"][0])), backend="gloo",
+            timeout=cfg["timeout"])
+        spawn_s = time.perf_counter() - t0
+        print(f"phase 15: the cases on {len(ranks)} ranks in "
+              f"{spawn_s:.1f} s", file=sys.stderr, flush=True)
+    finally:
+        import shutil
+        shutil.rmtree(ref_dir, ignore_errors=True)
+    out = {}
+    for name in names:
+        results[name] = (refs[name], ranks)
+    for name in ("dense", "moe", "ssm", "pods"):
+        ref, ranks = results[name]
+        c = cfg[name]
+        rows = [r[name] for r in ranks]
+        model = _step15_model(c, reduced=reduced)
+        L = model.cfg.n_layers
+        want = ref["losses"]
+        kernel = "ssd_scan" if model.cfg.family == "ssm" else \
+            "flash_attention"
+        per_step = 2 * L if model.cfg.remat else L
+        for k, r in enumerate(rows):
+            for got, w in zip(r["losses"], want):
+                check(abs(got - w) <= SHARDED_LOSS_TOL * (1 + abs(w)),
+                      f"{name} rank {k}: sharded loss {got}, unsharded {w}")
+            check(r["max_grad_err_over_leaf_max"] <= SHARDED_GRAD_TOL,
+                  f"{name} rank {k}: gradient {r['worst_leaf']} "
+                  f"{r['max_grad_err_over_leaf_max']} of its largest |g|")
+            if device.type == "cuda":
+                check(all(n[kernel] == per_step for n in r["launches"]),
+                      f"{name} rank {k}: {kernel} launched "
+                      f"{r['launches']}, not {per_step} a step")
+            if "logits_max_abs_err" in r:
+                check(r["logits_max_abs_err"] <= SHARDED_LOGITS_TOL,
+                      f"{name} rank {k}: prefill logits "
+                      f"{r['logits_max_abs_err']} from the unsharded")
+
+        out[name] = {
+            "arch": c["arch"], "layers": L, "batch": c["batch"],
+            "seq": c["seq"], "steps": len(want),
+            "unsharded_losses": want,
+            "unsharded_ms_per_step": ref["ms"][:len(want)],
+            "losses": [r["losses"] for r in rows],
+            "ms_per_step": [r["ms"] for r in rows],
+            "max_grad_err_over_leaf_max": [
+                r["max_grad_err_over_leaf_max"] for r in rows],
+            "launches_per_step": rows[0]["launches"],
+            "kernel_launches_expected_per_step": per_step}
+        for key in ("logits_max_abs_err", "prefill_launches", "init_s"):
+            if key in rows[0]:
+                out[name][key] = [r[key] for r in rows]
+        if "plans" in ref:
+            plans = plan_check([r["plans"] for r in rows], ref["plans"])
+            check(plans["plans_bit_equal"], f"{name}: a rank's routing "
+                  f"plan is not the unsharded dispatch's of its router "
+                  f"probabilities")
+            check(plans["flipped_tokens_max_topk_gap"] <= PLAN_TIE_GAP,
+                  f"{name}: a token routed to other experts than the "
+                  f"unsharded forward's, {plans} (not a near-tie)")
+            out[name].update(plans)
+        if c.get("layers"):
+            out[name]["reduced"] = (f"depth {L} of "
+                                    f"{_arch_cfg(c['arch']).n_layers}")
+    out["mesh"] = dict(zip(cfg["mesh"][1], cfg["mesh"][0]))
+    out["pod_mesh"] = dict(zip(cfg["pod_mesh"][1], cfg["pod_mesh"][0]))
+    out["spawn_wall_s"] = spawn_s
+    out["references_s"] = refs_s
+    out["transport"] = "gloo, staged through the host"
+    out["coords"] = [r["dense"]["coords"] for r in results["dense"][1]]
+    out["pod_coords"] = [r["pods"]["coords"] for r in results["dense"][1]]
+    ranks = results["dense"][1]
+    # (d) the dry run's trace of (a)'s first step against rank 0's
+    c = cfg["dense"]
+    model = _step15_model(c, reduced=reduced)
+    rec = make_recording_mesh(*cfg["mesh"])
+    from repro_torch.configs.base import ParallelConfig
+    tr = dryrun.trace_cell(model.cfg, ShapeConfig("phase15", c["seq"],
+                                                  c["batch"], "train"),
+                           rec, ParallelConfig())
+    real = [tuple(x) for x in ranks[0]["dense"]["log"]]
+    check([tuple(x) for x in tr["records"]] == real,
+          f"the dry run's collective log ({len(tr['records'])} calls) is "
+          f"not rank 0's ({len(real)})")
+    peak = ranks[0]["dense"]["peak_bytes"]
+    traced = tr["argument_bytes"] + tr["temp_bytes"]
+    out["dry_run_check"] = {
+        "collectives": len(real), "log_equal": True,
+        "traced_args_plus_temp_bytes": traced,
+        "rank0_max_memory_allocated": peak,
+        "traced_over_allocated": traced / peak if peak else None,
+        "traced_flops": tr["flops"]}
+    if cfg.get("run_cell"):
+        arch, shape = cfg["run_cell"]
+        out["run_cell"] = dryrun.run_cell(arch, shape, multi_pod=False,
+                                          verbose=False)
+        out["total_memory"] = (torch.cuda.get_device_properties(0)
+                               .total_memory if device.type == "cuda"
+                               else None)
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # --------------------------------------------- phase 14: observability
 
 
@@ -4157,6 +4655,11 @@ def main() -> int:
                             serve_metrics[0].snapshot()))
     print(json.dumps({"phase": "obs", "card": card, "result": obs}),
           flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    sharded_step = phase_sharded_step(device, PHASE15)
+    print(json.dumps({"phase": "sharded_step", "card": card,
+                      "result": sharded_step}), flush=True)
 
     launches = {**solver["launches"],
                 "flash_attention": serving["serve"]["launches"][

@@ -23,6 +23,21 @@ Either way a value a collective returns is identical on every lane, so
 the plan, the counters and the proportion computed from it are too.
 ``n`` is the lane count the operations span, ``n_local`` the lanes this
 process holds, ``index`` their positions among the ``n``.
+
+The model mesh (``launch.mesh.ModelMesh``) takes its collectives from
+the same seam, one lanes object per mesh axis, and differentiates
+through them: ``all_gather``, ``reduce_scatter``, ``sum`` and ``copy``
+are ``torch.autograd.Function``s paired as Megatron pairs them (a
+gather's backward is the reduce-scatter of the gradient and the
+reverse; ``sum``, a row-parallel output's all-reduce, passes its
+gradient through; ``copy``, a column-parallel input, is the identity
+forward and all-reduces its gradient).  ``max`` carries no gradient.
+Each lanes object may keep a log: every collective appends
+``(kind, operand shape, result shape, dtype, group size, axis)``, the
+kinds named as XLA's HLO names them.  :class:`RecordedLanes` has the
+same surface and no process group: each operation returns a tensor of
+the right shape and dtype on its input's device (``meta`` in the dry
+run) and only appends to the log.
 """
 
 from __future__ import annotations
@@ -35,7 +50,7 @@ import torch.distributed as dist
 
 from repro_torch._tree import tree_leaves, tree_unflatten
 
-__all__ = ["StackedLanes", "MeshLanes", "stack_stats"]
+__all__ = ["StackedLanes", "MeshLanes", "RecordedLanes", "stack_stats"]
 
 I32 = torch.int32
 
@@ -92,22 +107,121 @@ class StackedLanes:
         pass
 
 
-class MeshLanes:
-    """One lane on this process, the others on the ranks of ``group``:
-    lane ``i`` of the ``n`` is the group's rank ``i`` (a level's group
-    lists its ranks in ascending order, so a pod's group holds its lanes
-    in lane order and a row's its pods in pod order)."""
+class _AxisCollectives:
+    """The differentiable collectives of one lane among ``n``, over the
+    raw operations a subclass supplies (``_gather``, ``_reduce``,
+    ``_reduce_scatter``), each logged by :meth:`_record`."""
 
     stacked = False
     n_local = 1
+    axis: Optional[str] = None
+    log: Optional[list] = None
+
+    def _record(self, kind: str, x: torch.Tensor, out: torch.Tensor
+                ) -> None:
+        if self.log is not None:
+            self.log.append((kind, tuple(x.shape), tuple(out.shape),
+                             str(x.dtype).replace("torch.", ""), self.n,
+                             self.axis))
+
+    @staticmethod
+    def _tracked(x: torch.Tensor) -> bool:
+        return torch.is_grad_enabled() and x.requires_grad
+
+    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` (``(r, ...)``; a lane's is ``(1, ...)``) of every lane,
+        concatenated ``(n * r, ...)`` in lane order; the gradient is
+        reduce-scattered back."""
+        if self._tracked(x):
+            return _AllGather.apply(self, x)
+        return self._gather(x)
+
+    def reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the lanes of ``x`` (``(n * r, ...)``), this lane's
+        ``r`` rows of it; the gradient is all-gathered back."""
+        if self._tracked(x):
+            return _ReduceScatter.apply(self, x)
+        return self._reduce_scatter(x)
+
+    def sum(self, x: torch.Tensor) -> torch.Tensor:
+        """The sum over the lanes, on every lane; the gradient passes
+        through (every lane uses the sum alike)."""
+        if self._tracked(x):
+            return _Sum.apply(self, x)
+        return self._reduce(x, dist.ReduceOp.SUM)
+
+    def copy(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` itself; its gradient is summed over the lanes (each lane
+        uses ``x`` for its own part)."""
+        if self._tracked(x):
+            return _Copy.apply(self, x)
+        return x
+
+    def max(self, x: torch.Tensor) -> torch.Tensor:
+        """The max over the lanes, on every lane (no gradient)."""
+        return self._reduce(x.detach(), dist.ReduceOp.MAX)
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lanes, x):
+        ctx.lanes = lanes
+        return lanes._gather(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.lanes._reduce_scatter(g.contiguous())
+
+
+class _ReduceScatter(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lanes, x):
+        ctx.lanes = lanes
+        return lanes._reduce_scatter(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.lanes._gather(g.contiguous())
+
+
+class _Sum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lanes, x):
+        return lanes._reduce(x, dist.ReduceOp.SUM)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, g
+
+
+class _Copy(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, lanes, x):
+        ctx.lanes = lanes
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return None, ctx.lanes._reduce(g.contiguous(), dist.ReduceOp.SUM)
+
+
+class MeshLanes(_AxisCollectives):
+    """One lane on this process, the others on the ranks of ``group``:
+    lane ``i`` of the ``n`` is the group's rank ``i`` (a level's group
+    lists its ranks in ascending order, so a pod's group holds its lanes
+    in lane order and a row's its pods in pod order).  ``axis`` names
+    the mesh axis the lanes span and ``log`` (a list, or None) records
+    every collective."""
 
     def __init__(self, group, n: int, position: int, *, writer: bool,
-                 levels=None):
+                 levels=None, axis: Optional[str] = None,
+                 log: Optional[list] = None):
         self.group = group
         self.n = int(n)
         self.offset = int(position)
         self.writer = writer
         self._levels = levels
+        self.axis, self.log = axis, log
         # gloo takes host tensors: a CUDA tensor travels through the host
         self.staged = dist.get_backend(group) == "gloo"
 
@@ -128,14 +242,26 @@ class MeshLanes:
         t = t.contiguous()
         return t.cpu() if self.staged else t
 
-    def all_gather(self, x: torch.Tensor) -> torch.Tensor:
-        """``x`` (``(r, ...)``; a lane's is ``(1, ...)``) of every lane,
-        concatenated ``(n * r, ...)`` in lane order."""
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
         wire = self._to_wire(x)
         out = torch.empty((self.n * wire.shape[0],) + tuple(wire.shape[1:]),
                           dtype=wire.dtype, device=wire.device)
         _all_gather(out, wire, self.group)
-        return out.to(x.device)
+        out = out.to(x.device)
+        self._record("all-gather", x, out)
+        return out
+
+    def _reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % self.n:
+            raise ValueError(f"{x.shape[0]} rows do not split over "
+                             f"{self.n} lanes")
+        wire = self._to_wire(x)
+        out = torch.empty((wire.shape[0] // self.n,) + tuple(wire.shape[1:]),
+                          dtype=wire.dtype, device=wire.device)
+        _reduce_scatter(out, wire, self.group, self.n, self.offset)
+        out = out.to(x.device)
+        self._record("reduce-scatter", x, out)
+        return out
 
     def all_gather_tree(self, tree: Any) -> Any:
         """Every leaf (``(1, ...)``) of every lane, stacked ``(n, ...)``:
@@ -145,16 +271,12 @@ class MeshLanes:
         out = self.all_gather(packed)
         return tree_unflatten(tree, _unpack(out, leaves))
 
-    def max(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.MAX)
-
-    def sum(self, x: torch.Tensor) -> torch.Tensor:
-        return self._reduce(x, dist.ReduceOp.SUM)
-
     def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
         wire = self._to_wire(x).clone()
         dist.all_reduce(wire, op=op, group=self.group)
-        return wire.to(x.device)
+        out = wire.to(x.device)
+        self._record("all-reduce", x, out)
+        return out
 
     def route(self, block: Any, dest: torch.Tensor) -> Any:
         """An all-to-all of ``n`` chunks, only the chunk of lane ``dest``
@@ -202,11 +324,70 @@ class MeshLanes:
         dist.barrier(group=self.group)
 
 
+class RecordedLanes(_AxisCollectives):
+    """Lane ``position`` of ``n`` along ``axis`` with no process group:
+    each collective returns a tensor of its result's shape and dtype on
+    its input's device (the gather repeats ``x``, a reduction returns a
+    copy, a reduce-scatter this lane's rows) and appends its record to
+    ``log``.  The dry run traces one rank's step on ``meta`` tensors
+    through it."""
+
+    def __init__(self, n: int, position: int, *, axis: Optional[str] = None,
+                 log: Optional[list] = None):
+        self.n, self.offset = int(n), int(position)
+        self.writer = self.offset == 0
+        self.axis, self.log = axis, log
+
+    def index(self, device) -> torch.Tensor:
+        return torch.full((1,), self.offset, dtype=I32, device=device)
+
+    def _gather(self, x: torch.Tensor) -> torch.Tensor:
+        out = torch.cat([x] * self.n) if self.n > 1 else x.clone()
+        self._record("all-gather", x, out)
+        return out
+
+    def _reduce_scatter(self, x: torch.Tensor) -> torch.Tensor:
+        if x.shape[0] % self.n:
+            raise ValueError(f"{x.shape[0]} rows do not split over "
+                             f"{self.n} lanes")
+        r = x.shape[0] // self.n
+        out = x[self.offset * r:(self.offset + 1) * r].clone()
+        self._record("reduce-scatter", x, out)
+        return out
+
+    def _reduce(self, x: torch.Tensor, op) -> torch.Tensor:
+        out = x.clone()
+        self._record("all-reduce", x, out)
+        return out
+
+    def barrier(self) -> None:
+        pass
+
+
 def _all_gather(out: torch.Tensor, x: torch.Tensor, group) -> None:
     # torch 2.13 renames all_gather_into_tensor to all_gather_single
     fn = getattr(dist, "all_gather_single", None) or \
         dist.all_gather_into_tensor
     fn(out, x, group=group)
+
+
+def _reduce_scatter(out: torch.Tensor, x: torch.Tensor, group, n: int,
+                    position: int) -> None:
+    """``out`` = this rank's block of the sum of ``x`` over the group: one
+    reduce-scatter, or where the backend refuses one (before it sends
+    anything), an all-reduce and this rank's block of it."""
+    # torch 2.13 renames reduce_scatter_tensor to reduce_scatter_single
+    fn = getattr(dist, "reduce_scatter_single", None) or \
+        dist.reduce_scatter_tensor
+    try:
+        fn(out, x, group=group)
+        return
+    except (RuntimeError, NotImplementedError):
+        pass
+    full = x.clone()
+    dist.all_reduce(full, group=group)
+    r = out.shape[0]
+    out.copy_(full[position * r:(position + 1) * r])
 
 
 def _pack(leaves: List[torch.Tensor]) -> torch.Tensor:

@@ -14,9 +14,13 @@ by indexing the KV head:
 
 There is no other route: a CUDA tensor that neither kernel takes raises.
 ``mha.launches`` counts every launch, ``mha.launches_tc`` those of the
-tensor-core kernel.
+tensor-core kernel.  On ``meta`` tensors (the dry run's trace) nothing
+runs: the output is an empty tensor of its shape.  Every forward call,
+on any device, reports the kernel's operations and bytes
+(``kernels.bounds.flash_counts``) to a trace that follows it.
 
-On CUDA tensors the launch is a ``torch.autograd.Function``: its backward
+On every device the call is a ``torch.autograd.Function`` (the CPU's
+forward runs the plain version): its backward
 recomputes the plain version from the saved q, k and v and returns that
 function's gradients (``kernels/_backward.plain_grads``; GQA's KV-head
 gradients are summed over the group by the plain version's index).  The
@@ -31,11 +35,12 @@ design of the bf16 route, for timing beside it; no model calls it.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional
 
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, bounds
 from repro_torch.kernels._backward import plain_grads
 from repro_torch.kernels.flash_attention.ref import attention_ref
 
@@ -151,13 +156,19 @@ def _launch(q, k, v, causal, window, softcap) -> torch.Tensor:
 
 
 class _Attention(torch.autograd.Function):
-    """Forward: K6.  Backward: the plain version's gradients."""
+    """Forward: K6 (the plain version on the CPU, nothing on meta).
+    Backward: the plain version's gradients."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, window, softcap):
         ctx.save_for_backward(q, k, v)
         ctx.opts = dict(causal=causal, window=window, softcap=softcap)
-        return _launch(q, k, v, causal, window, softcap)
+        with _traced(q, k, causal, window):
+            if q.device.type == "cpu":
+                return attention_ref(q, k, v, **ctx.opts)
+            if q.device.type == "meta":
+                return torch.empty_like(q)
+            return _launch(q, k, v, causal, window, softcap)
 
     @staticmethod
     def backward(ctx, dout):
@@ -166,16 +177,23 @@ class _Attention(torch.autograd.Function):
                                None, None, None)
 
 
+def _traced(q, k, causal, window):
+    """The kernel's work reported to a trace, when one follows."""
+    if not bounds.SINKS:
+        return contextlib.nullcontext()
+    B, S, T, H, K, hd = _dims(q, k)
+    return bounds.kernel("flash_attention", *bounds.flash_counts(
+        B, S, T, H, K, hd, causal=causal, window=window,
+        itemsize=q.element_size()))
+
+
 def mha(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         causal: bool = True, window: Optional[int] = None,
         softcap: Optional[float] = None) -> torch.Tensor:
     """Online-softmax attention; ``mha.launches`` counts the CUDA launches,
     ``mha.launches_tc`` the tensor-core kernel's among them."""
-    if q.device.type == "cpu":
-        return attention_ref(q, k, v, causal=causal, window=window,
-                             softcap=softcap)
     out = _Attention.apply(q, k, v, causal, window, softcap)
-    if out.numel():
+    if out.numel() and q.device.type == "cuda":
         mha.launches += 1
         mha.launches_tc += route(q.dtype) == TENSOR_CORE
     return out

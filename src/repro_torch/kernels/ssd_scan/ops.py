@@ -35,13 +35,21 @@ time (at chunk 256, 80 heads of 64 and batch 2, ~0.25 GB a chunk with the
 float64 differences), where ``ssd_chunk_parallel`` forms every chunk's
 ``(B, nc, Q, Q, nh)`` float64 differences and products at once.  There is
 no backward kernel: the JAX package has none either.
+
+On every device the call is that ``autograd.Function`` (the CPU's forward
+runs ``ssd_chunked``).  On ``meta`` tensors (the dry run's trace) nothing
+runs: the outputs are empty tensors of their shapes.  Every forward
+call, on any device, reports the scan's operations and bytes
+(``kernels.bounds.ssd_counts``) to a trace that follows it.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
-from repro_torch.kernels import _lib
+from repro_torch.kernels import _lib, bounds
 from repro_torch.kernels._backward import plain_grads
 from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 
@@ -138,13 +146,22 @@ class _Scan(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, dt, A, Bm, Cm, D, chunk):
-        dev = _check(x, dt, A, Bm, Cm, D, chunk)
-        tc = route(x.dtype, x.shape[3], Bm.shape[-1], chunk) == TENSOR_CORE
         ctx.save_for_backward(x, dt, A, Bm, Cm, D)
         ctx.chunk = chunk
         ctx.set_materialize_grads(False)
-        return (_launch_tc if tc else _launch_simt)(x, dt, A, Bm, Cm, D,
-                                                    chunk, dev)
+        with _traced(x, Bm, chunk):
+            if x.device.type == "cpu":
+                return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
+            if x.device.type == "meta":
+                B, S, nh, hd = x.shape
+                return (torch.empty_like(x),
+                        torch.empty((B, nh, hd, Bm.shape[-1]),
+                                    dtype=torch.float32, device=x.device))
+            dev = _check(x, dt, A, Bm, Cm, D, chunk)
+            tc = route(x.dtype, x.shape[3], Bm.shape[-1],
+                       chunk) == TENSOR_CORE
+            return (_launch_tc if tc else _launch_simt)(x, dt, A, Bm, Cm,
+                                                        D, chunk, dev)
 
     @staticmethod
     def backward(ctx, dy, dfinal):
@@ -152,15 +169,22 @@ class _Scan(torch.autograd.Function):
                            ctx.needs_input_grad[:6], ctx.chunk) + (None,)
 
 
+def _traced(x, Bm, chunk):
+    """The scan's work reported to a trace, when one follows."""
+    if not bounds.SINKS:
+        return contextlib.nullcontext()
+    B, S, nh, hd = x.shape
+    return bounds.kernel("ssd_scan", *bounds.ssd_counts(
+        B, S, nh, hd, Bm.shape[-1], chunk, x.element_size()))
+
+
 def ssd(x: torch.Tensor, dt: torch.Tensor, A: torch.Tensor,
         Bm: torch.Tensor, Cm: torch.Tensor, D: torch.Tensor, *,
         chunk: int):
     """Chunked SSD scan; ``ssd.launches`` counts the calls that ran a CUDA
     kernel, ``ssd.launches_tc`` those on the tensor-core route."""
-    if x.device.type == "cpu":
-        return ssd_chunked(x, dt, A, Bm, Cm, D, chunk)
     out = _Scan.apply(x, dt, A, Bm, Cm, D, chunk)
-    if x.shape[0] and x.shape[2]:
+    if x.shape[0] and x.shape[2] and x.device.type == "cuda":
         ssd.launches += 1
         ssd.launches_tc += route(x.dtype, x.shape[3], Bm.shape[-1],
                                  chunk) == TENSOR_CORE

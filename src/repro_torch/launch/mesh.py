@@ -25,10 +25,18 @@ a tree of specs, and back: what ``shard_map``'s ``in_specs`` and
 ``out_specs`` do in JAX.  :func:`make_model_mesh` builds one
 (``jax.make_mesh``'s counterpart); :func:`make_production_mesh` the JAX
 package's ``(16, 16)`` and ``(2, 16, 16)`` meshes.
+
+The collectives are differentiable (``core.lanes``): the sharded train
+step takes its gradients through them.  ``record()`` starts a log of
+every collective the mesh's lanes run.  :func:`make_recording_mesh` is a
+mesh of one rank's coordinates on ``core.lanes.RecordedLanes``, with no
+process group: the dry run traces rank 0's step through it on ``meta``
+tensors, and its log is what that rank's ``MeshLanes`` would record.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import multiprocessing
@@ -45,11 +53,11 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._tree import resolve_device, tree_map
-from repro_torch.core.lanes import MeshLanes
+from repro_torch.core.lanes import MeshLanes, RecordedLanes
 from repro_torch.models import layers
 
 __all__ = ["WorkerMesh", "make_worker_mesh", "ModelMesh", "make_model_mesh",
-           "make_production_mesh", "run_workers"]
+           "make_recording_mesh", "make_production_mesh", "run_workers"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -179,7 +187,7 @@ class ModelMesh:
     creation may be called."""
 
     def __init__(self, shape: Tuple[int, ...], axis_names: Tuple[str, ...],
-                 rank: int, groups: dict, device, group=None):
+                 rank: int, groups: Optional[dict], device, group=None):
         self.axis_names = tuple(axis_names)
         self.shape = dict(zip(self.axis_names, shape))
         self.rank = rank
@@ -187,11 +195,34 @@ class ModelMesh:
         self.coords = ({a: int(c) for a, c in zip(
             self.axis_names, np.unravel_index(rank, shape))}
             if self.member else {})
-        self.lanes = ({a: MeshLanes(groups[a], self.shape[a], self.coords[a],
-                                    writer=self.coords[a] == 0)
-                       for a in self.axis_names} if self.member else {})
+        if not self.member:
+            self.lanes = {}
+        elif groups is None:        # a recording mesh: no process group
+            self.lanes = {a: RecordedLanes(self.shape[a], self.coords[a],
+                                           axis=a)
+                          for a in self.axis_names}
+        else:
+            self.lanes = {a: MeshLanes(groups[a], self.shape[a],
+                                       self.coords[a],
+                                       writer=self.coords[a] == 0, axis=a)
+                          for a in self.axis_names}
+        self.recording = groups is None
         self.group = group          # every rank of the mesh
         self.device = device
+        self.log: Optional[list] = None
+        # whether a batch's leading dim is split over the plan's batch
+        # axes (the dry run clears it for a batch under 16, which
+        # ``models.zoo.input_specs`` replicates)
+        self.batch_sharded = True
+        self.spmd_active = False
+
+    def record(self) -> list:
+        """Start a fresh log of every collective on every axis (the
+        lanes' records, in the order they ran); returns it."""
+        self.log = []
+        for lanes in self.lanes.values():
+            lanes.log = self.log
+        return self.log
 
     # -- the active mesh
 
@@ -201,6 +232,23 @@ class ModelMesh:
 
     def __exit__(self, *exc) -> None:
         layers._MESHES.remove(self)
+
+    @contextlib.contextmanager
+    def spmd(self):
+        """This mesh active, and the models explicitly SPMD under it:
+        every parameter, cache and batch tensor a model function is given
+        is this rank's block by its spec (``param_specs``,
+        ``cache_specs``, ``zoo.input_specs``), and the functions insert
+        the collectives GSPMD would (``models.layers``).  Under a plain
+        ``with mesh:`` only the explicit-collective bodies take their
+        branches, on whole parameters."""
+        prev = self.spmd_active
+        self.spmd_active = True
+        try:
+            with self:
+                yield self
+        finally:
+            self.spmd_active = prev
 
     # -- axes
 
@@ -231,7 +279,9 @@ class ModelMesh:
                    ) -> torch.Tensor:
         """``x`` reduced (``"sum"`` or ``"max"``) over the ranks of this
         rank's line along ``axis`` (``lax.psum`` / ``lax.pmax``); a
-        half-precision tensor is reduced in float32 and cast back."""
+        half-precision tensor is reduced in float32 and cast back.  The
+        sum's gradient passes through (the ranks use the sum alike: a
+        row-parallel output); the max has none."""
         if self.shape.get(axis, 1) == 1:
             return x
         lanes = self.lanes[axis]
@@ -240,14 +290,57 @@ class ModelMesh:
                                         torch.float16) else x
         return reduce(wide).to(x.dtype)
 
+    def copy(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x``, whose gradient is summed over ``axis`` (the ranks use a
+        value they all hold for different parts: a column-parallel
+        input)."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        return self.lanes[axis].copy(x)
+
     def all_gather(self, x: torch.Tensor, axis: str, dim: int
                    ) -> torch.Tensor:
         """The blocks ``x`` of the ranks along ``axis``, concatenated on
-        ``dim`` in coordinate order."""
+        ``dim`` in coordinate order; the gradient is reduce-scattered
+        back (summed over the ranks, each keeping its block)."""
         if self.shape.get(axis, 1) == 1:
             return x
         out = self.lanes[axis].all_gather(x.movedim(dim, 0))
         return out.movedim(0, dim)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str, dim: int
+                       ) -> torch.Tensor:
+        """The sum of ``x`` over the ranks along ``axis``, this rank's
+        block of it on ``dim``; the gradient is all-gathered back."""
+        if self.shape.get(axis, 1) == 1:
+            return x
+        out = self.lanes[axis].reduce_scatter(x.movedim(dim, 0))
+        return out.movedim(0, dim)
+
+    def gather_entry(self, x: torch.Tensor, entry, dim: int
+                     ) -> torch.Tensor:
+        """:meth:`all_gather` over every axis of a spec entry, the minor
+        first (the block index is mixed radix, the first axis major)."""
+        for a in reversed(self._axes(entry)):
+            x = self.all_gather(x, a, dim)
+        return x
+
+    def sum_entry(self, x: torch.Tensor, entry) -> torch.Tensor:
+        """:meth:`all_reduce` sums over every axis of a spec entry."""
+        for a in self._axes(entry):
+            x = self.all_reduce(x, a, "sum")
+        return x
+
+    def block_shape(self, shape, spec) -> Tuple[int, ...]:
+        """This rank's block of a ``shape`` laid out by ``spec``: each
+        named dimension cut into ``size(entry)`` blocks of
+        ``ceil(n / size)`` (a dimension that does not split is padded,
+        as GSPMD pads it)."""
+        out = list(shape)
+        for d, entry in enumerate(spec or ()):
+            k = self.size(entry)
+            out[d] = -(-out[d] // k)
+        return tuple(out)
 
     # -- full trees <-> this rank's blocks
 
@@ -259,6 +352,8 @@ class ModelMesh:
         def one(x, spec):
             if spec is None or not isinstance(x, torch.Tensor):
                 return x
+            if x.device.type == "meta":   # shapes only: GSPMD's padding
+                return x.new_empty(self.block_shape(x.shape, spec))
             for d, entry in enumerate(spec):
                 n = self.size(entry)
                 if n == 1:
@@ -286,8 +381,10 @@ class ModelMesh:
         return tree_map(one, tree, specs)
 
     def barrier(self) -> None:
-        """Wait for every rank of the mesh."""
-        dist.barrier(group=self.group)
+        """Wait for every rank of the mesh (a recording mesh has no other
+        rank)."""
+        if not self.recording:
+            dist.barrier(group=self.group)
 
 
 def make_model_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *,
@@ -327,6 +424,24 @@ def make_model_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...], *,
         torch.cuda.set_device(dev)
     return ModelMesh(shape, axis_names, rank, groups, dev,
                      group if member else None)
+
+
+def make_recording_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
+                        rank: int = 0) -> ModelMesh:
+    """The model mesh of ``shape`` as rank ``rank`` sees it (coordinates
+    and ``index`` exactly :func:`make_model_mesh`'s) on
+    ``core.lanes.RecordedLanes``: no process group, no
+    ``torch.distributed``; its collectives only log (``record()`` is
+    started) and return tensors of the right shape."""
+    shape, axis_names = tuple(int(s) for s in shape), tuple(axis_names)
+    if len(shape) != len(axis_names):
+        raise ValueError(f"shape {shape} and axes {axis_names} differ in "
+                         f"length")
+    if not 0 <= rank < int(np.prod(shape)):
+        raise ValueError(f"rank {rank} is outside a {shape} mesh")
+    mesh = ModelMesh(shape, axis_names, rank, None, torch.device("meta"))
+    mesh.record()
+    return mesh
 
 
 def make_production_mesh(*, multi_pod: bool = False,

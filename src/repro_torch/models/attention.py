@@ -27,6 +27,17 @@ sequence is sharded over the model mesh's ``model`` axis (the JAX
 package's ``shard_map`` body): each rank attends over its own slice and
 the ranks merge their partial softmaxes with one MAX and two SUM
 all-reduces (``launch.mesh.ModelMesh``'s collectives).
+
+In the sharded step (``with mesh.spmd():``) the heads go over ``tp``:
+``wq`` / ``wo`` hold this rank's query heads and K6 launches on them.
+``wk`` / ``wv``'s ``tp`` block is ``K * hd / tp`` columns, which is part
+of a head where there are fewer KV heads than ``tp`` ranks (the JAX
+package expands KV to ``H`` heads before it splits them): the rank then
+gathers ``wk`` / ``wv`` over ``tp`` and keeps the KV heads its query
+heads read (:func:`_kv_heads`).  :func:`decode_attention_sharded`
+decodes against a cache laid out by ``cache_specs``: KV heads whole,
+rows this rank's, and a long cache's sequence split, then merged across
+the ranks that hold it as flash-decoding does.
 """
 
 from __future__ import annotations
@@ -38,8 +49,9 @@ import torch
 
 from repro_torch._tree import resolve_device
 from repro_torch.kernels.flash_attention import ops as flash
-from repro_torch.models.layers import (_active_mesh, dense_init, rms_norm,
-                                       softcap)
+from repro_torch.models.layers import (_active_mesh, _spmd_mesh, dense_init,
+                                       rms_norm, softcap, tp_copy, tp_gather,
+                                       tp_info, tp_sum)
 
 Pytree = Any
 
@@ -50,6 +62,7 @@ __all__ = [
     "attention",
     "decode_attention",
     "decode_attention_shardmap",
+    "decode_attention_sharded",
     "flash_decode_takes",
     "KVCache",
     "make_cache",
@@ -144,19 +157,81 @@ def _project(p: Pytree, x: torch.Tensor, cfg: AttnConfig, compute_dtype,
     return q, k, v
 
 
+def _kv_heads(cfg: AttnConfig, n: int, r: int):
+    """(first query head, query heads, first KV head, KV heads) of ``tp``
+    rank ``r`` of ``n``: the KV heads its query heads read."""
+    H, K = cfg.n_heads, cfg.n_kv_heads
+    if H % n:
+        raise ValueError(f"{H} heads do not split over {n} tp ranks")
+    Hl, group = H // n, H // K
+    h0 = r * Hl
+    k0, k1 = h0 // group, (h0 + Hl - 1) // group + 1
+    if Hl % (k1 - k0) or any((h0 + j) // group - k0 != j // (Hl // (k1 - k0))
+                             for j in range(Hl)):
+        raise ValueError(f"{Hl} query heads a rank do not group over KV "
+                         f"heads {k0}..{k1 - 1}")
+    return h0, Hl, k0, k1 - k0
+
+
+def _project_tp(p: Pytree, x: torch.Tensor, cfg: AttnConfig, compute_dtype,
+                positions, kv_x, sh, all_kv: bool):
+    """:func:`_project` on this ``tp`` rank: q of its query heads; k and
+    v of the KV heads they read, or of every KV head with ``all_kv``
+    (what a cache holds), then the ones they read beside them."""
+    n, r = tp_info(sh)
+    B, S, _ = x.shape
+    K, hd, cd = cfg.n_kv_heads, cfg.head_dim, compute_dtype
+    h0, Hl, k0, Kl = _kv_heads(cfg, n, r)
+    xc = tp_copy(x.to(cd), sh)
+    sc = xc if kv_x is None else tp_copy(kv_x.to(cd), sh)
+    T = sc.shape[1]
+    q = (xc @ p["wq"].to(cd)).view(B, S, Hl, hd)
+    if K % n == 0 and not all_kv:     # the local block is the heads read
+        wk, wv, kv = p["wk"], p["wv"], (0, Kl)
+    else:                             # part of a head: gather, keep
+        wk, wv = tp_gather(p["wk"], sh, 1), tp_gather(p["wv"], sh, 1)
+        if not all_kv:
+            wk = wk[:, k0 * hd:(k0 + Kl) * hd]
+            wv = wv[:, k0 * hd:(k0 + Kl) * hd]
+        kv = (0, Kl) if not all_kv else (k0, k0 + Kl)
+    k = (sc @ wk.to(cd)).view(B, T, -1, hd)
+    v = (sc @ wv.to(cd)).view(B, T, -1, hd)
+    if cfg.qk_norm:
+        q = rms_norm(q, tp_copy(p["q_norm"], sh))
+        k = rms_norm(k, tp_copy(p["k_norm"], sh))
+    if cfg.rope_fraction > 0 and kv_x is None:
+        q = rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+        k = rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+    return q, k, v, kv
+
+
 def attention(p: Pytree, x: torch.Tensor, cfg: AttnConfig, compute_dtype,
               positions: Optional[torch.Tensor] = None,
               kv_x: Optional[torch.Tensor] = None,
-              return_kv: bool = False):
+              return_kv: bool = False, sh=None):
     """Full attention over a (B, S, D) block, through K6: self-attention,
     or cross-attention over the (B, T, D) ``kv_x`` (unmasked, unrotated).
 
     Returns the (B, S, D) output and, with ``return_kv``, the unexpanded
-    ``(k, v)`` tensors (B, T, K, hd) a KV cache stores.
+    ``(k, v)`` tensors (B, T, K, hd) a KV cache stores.  In the sharded
+    step (``sh`` given) K6 runs on this ``tp`` rank's query heads, the
+    output is summed over ``tp`` and the returned ``(k, v)`` hold every KV
+    head.
     """
     B, S, _ = x.shape
     if positions is None:
         positions = torch.arange(S, dtype=torch.int32, device=x.device)
+    if sh is not None and tp_info(sh)[0] > 1:
+        q, k_all, v_all, (k0, k1) = _project_tp(
+            p, x, cfg, compute_dtype, positions, kv_x, sh, return_kv)
+        o = flash.mha(q.contiguous(), k_all[:, :, k0:k1].contiguous(),
+                      v_all[:, :, k0:k1].contiguous(),
+                      causal=cfg.causal and kv_x is None, window=cfg.window,
+                      softcap=cfg.softcap)
+        out = tp_sum(o.reshape(B, S, -1) @ p["wo"].to(compute_dtype), sh)
+        if return_kv:
+            return out, (k_all, v_all)
+        return out
     q, k, v = _project(p, x, cfg, compute_dtype, positions, kv_x)
     o = flash.mha(q.contiguous(), k.contiguous(), v.contiguous(),
                   causal=cfg.causal and kv_x is None, window=cfg.window,
@@ -282,6 +357,90 @@ def decode_attention_shardmap(p: Pytree, x: torch.Tensor,
     o = o_glob / torch.clamp(l_glob, min=1e-30)[..., None]
     o = o.reshape(B, 1, H * hd).to(compute_dtype)
     return o @ p["wo"].to(compute_dtype), cache_k, cache_v
+
+
+def decode_attention_sharded(p: Pytree, x: torch.Tensor,
+                             cache_k: torch.Tensor, cache_v: torch.Tensor,
+                             pos: int, cfg: AttnConfig, sh, compute_dtype, *,
+                             length: int, seq_entry=None,
+                             cross: bool = False):
+    """One-token decode for a single layer in the sharded step, against
+    a cache laid out by ``cache_specs``: ``cache_k`` / ``cache_v`` (B,
+    C_loc, K, hd) hold every KV head, this rank's rows, and of the
+    ``length`` cache positions this rank's block along ``seq_entry``
+    (None: all of them).  ``p`` is the layer's projections, FSDP-gathered
+    (``wq`` / ``wo`` this ``tp`` rank's heads).
+
+    The new token's K / V (every KV head: the ``tp`` ranks' columns
+    gathered) are written in place where this rank holds the slot (ring
+    slot ``pos % length`` on windowed layers, else ``min(pos, length -
+    1)``).  Without a split sequence the rank attends its query heads
+    over the whole cache; with one it attends every head (the query
+    gathered over ``tp``) over its block and merges with the other
+    blocks as :func:`decode_attention_shardmap` does (one MAX and two SUM
+    all-reduces per axis of ``seq_entry``).  Either way the output is
+    this rank's heads through ``wo``, summed over ``tp``.  ``cross``:
+    the cache is the fixed cross-attention K / V (nothing written, no
+    rotation, every position valid).  Returns (B, 1, D)."""
+    m = _spmd_mesh()
+    n, r = tp_info(sh)
+    B = x.shape[0]
+    H, K, hd, cd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, compute_dtype
+    h0, Hl, k0, Kl = _kv_heads(cfg, n, r)
+    C_loc = cache_k.shape[1]
+    split = seq_entry is not None and m.size(seq_entry) > 1
+    xc = x.to(cd)
+    q = (xc @ p["wq"].to(cd)).view(B, 1, Hl, hd)
+    pvec = torch.full((1,), pos, dtype=torch.int32, device=x.device)
+    if cfg.qk_norm:
+        q = rms_norm(q, p["q_norm"])
+    if not cross:
+        k = tp_gather(xc @ p["wk"].to(cd), sh, -1).view(B, 1, K, hd)
+        v = tp_gather(xc @ p["wv"].to(cd), sh, -1).view(B, 1, K, hd)
+        if cfg.qk_norm:
+            k = rms_norm(k, p["k_norm"])
+        if cfg.rope_fraction > 0:
+            q = rope(q, pvec, cfg.rope_theta, cfg.rope_fraction)
+            k = rope(k, pvec, cfg.rope_theta, cfg.rope_fraction)
+    base = m.index(seq_entry) * C_loc if split else 0
+    idx = base + torch.arange(C_loc, device=x.device)
+    if cross:
+        valid = torch.ones_like(idx, dtype=torch.bool)
+    else:
+        ring = cfg.window is not None
+        slot = pos % length if ring else min(pos, length - 1)
+        if base <= slot < base + C_loc:
+            cache_k[:, slot - base] = k[:, 0].to(cache_k.dtype)
+            cache_v[:, slot - base] = v[:, 0].to(cache_v.dtype)
+        valid = (((slot - idx) % length <= min(pos, length - 1)) if ring
+                 else idx <= pos)
+    if split:   # every head over this block
+        q = tp_gather(q, sh, 2)
+        ks, kv = slice(None), K
+    else:
+        ks, kv = slice(k0, k0 + Kl), Kl
+    Hq = q.shape[2]
+    qg = q.reshape(B, kv, Hq // kv, hd)
+    logits = torch.einsum("bkgh,btkh->bkgt", qg,
+                          cache_k[:, :, ks].to(cd)).float()
+    logits = softcap(logits / math.sqrt(hd), cfg.softcap)
+    logits = logits.masked_fill(~valid, float("-inf"))
+    vc = cache_v[:, :, ks].to(cd)
+    if not split:
+        w = torch.softmax(logits, dim=-1).to(cd)
+        o = torch.einsum("bkgt,btkh->bkgh", w, vc).reshape(B, 1, Hl * hd)
+    else:
+        top = logits.amax(dim=-1)
+        for a in m._axes(seq_entry):
+            top = m.all_reduce(top, a, "max")
+        safe = torch.where(torch.isfinite(top), top, torch.zeros_like(top))
+        p_ = torch.exp(logits - safe[..., None]).masked_fill(~valid, 0.0)
+        o_loc = torch.einsum("bkgt,btkh->bkgh", p_.to(cd), vc).float()
+        l_glob = m.sum_entry(p_.sum(dim=-1), seq_entry)
+        o_glob = m.sum_entry(o_loc, seq_entry)
+        o = (o_glob / torch.clamp(l_glob, min=1e-30)[..., None])
+        o = o.reshape(B, 1, H * hd)[..., h0 * hd:(h0 + Hl) * hd].to(cd)
+    return tp_sum(o @ p["wo"].to(cd), sh)
 
 
 def decode_attention(p: Pytree, x: torch.Tensor, cache_k: torch.Tensor,

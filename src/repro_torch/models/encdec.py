@@ -18,6 +18,14 @@ in place (``decode_attention``); the cross-attention K / V are computed
 once by the prefill from the encoder output and stay fixed, and a decode
 step reads them with the JAX package's plain einsum and softmax (no
 Pallas kernel there either).
+
+In the sharded step (``with mesh.spmd():``) every function takes this
+rank's blocks by ``param_specs`` / ``cache_specs`` (``cache_block``; a
+sharded prefill returns its caches so): each layer's FSDP entries are
+gathered inside its rematerialised layer, the three attentions split
+their heads over ``tp`` and decode through
+``attention.decode_attention_sharded`` (the cross-attention cache read,
+never written).
 """
 
 from __future__ import annotations
@@ -30,9 +38,14 @@ import torch
 from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
-                                          decode_attention)
-from repro_torch.models.layers import (P, ShardPlan, chunked_ce_loss,
-                                       dense_init, embed_init, mlp_apply,
+                                          decode_attention,
+                                          decode_attention_sharded)
+from repro_torch.models.layers import (P, ShardPlan, _spmd_mesh,
+                                       batch_entry, cache_group_block,
+                                       chunked_ce_loss, dense_init,
+                                       embed_init, embed_lookup,
+                                       fsdp_gather, gather_logits,
+                                       kv_to_layout, layer_specs, mlp_apply,
                                        mlp_init, remat_call, rms_norm)
 
 Pytree = Any
@@ -114,57 +127,72 @@ class EncDecLM:
             "lm_head": P(fs, tp),
         }
 
-    @staticmethod
-    def _layer(stack: Pytree, i: int) -> Pytree:
-        return tree_map(lambda a: a[i], stack)
+    def _pspecs(self) -> Pytree:
+        if not hasattr(self, "_spec_cache"):
+            self._spec_cache = self.param_specs()
+        return self._spec_cache
+
+    def _layer(self, params, stack: str, i: int) -> Pytree:
+        """Layer ``i`` of ``params[stack]`` (FSDP-gathered in the sharded
+        step)."""
+        return fsdp_gather(tree_map(lambda a: a[i], params[stack]),
+                           layer_specs(self._pspecs()[stack]), self.sh)
+
+    def _whole(self, params, name: str):
+        return fsdp_gather(params[name], self._pspecs()[name], self.sh)
 
     # --------------------------------------------------------------- encoder
 
-    def _enc_layer(self, x, pl):
+    def _enc_layer(self, x, params, i):
+        pl = self._layer(params, "encoder", i)
         eps, acfg = self.cfg.norm_eps, self._acfg(False)
         x = x + attention(pl["attn"], rms_norm(x, pl["ln1"], eps), acfg,
-                          self.cdtype)
+                          self.cdtype, sh=self.sh)
         return x + mlp_apply(pl["mlp"], rms_norm(x, pl["ln2"], eps),
-                             self.cdtype)
+                             self.cdtype, self.sh)
 
     def encode(self, params, frames: torch.Tensor) -> torch.Tensor:
         """(B, S_enc, frontend_dim) frames -> (B, S_enc, D), after the
         encoder's final norm; bidirectional attention through K6."""
-        x = frames.to(self.cdtype) @ params["frontend_proj"].to(self.cdtype)
+        x = frames.to(self.cdtype) @ self._whole(
+            params, "frontend_proj").to(self.cdtype)
         for i in range(self.cfg.n_encoder_layers):
-            x = remat_call(self._enc_layer, x,
-                           self._layer(params["encoder"], i),
+            x = remat_call(self._enc_layer, x, params, i,
                            enabled=self.cfg.remat)
         return rms_norm(x, params["enc_norm"], self.cfg.norm_eps)
 
     # --------------------------------------------------------------- decoder
 
-    def _dec_layer(self, x, pl, enc_out, kvs=None):
-        """One decoder layer: causal self-attention, cross-attention over
+    def _dec_layer(self, x, params, i, enc_out, kvs=None):
+        """Decoder layer ``i``: causal self-attention, cross-attention over
         ``enc_out``, MLP; with ``kvs`` (a list) the self and cross K / V
         are appended to it."""
-        eps, cd = self.cfg.norm_eps, self.cdtype
+        pl = self._layer(params, "decoder", i)
+        eps, cd, sh = self.cfg.norm_eps, self.cdtype, self.sh
         self_cfg, x_cfg = self._acfg(True), self._acfg(False, rope=False)
         want = kvs is not None
         a = attention(pl["attn"], rms_norm(x, pl["ln1"], eps), self_cfg, cd,
-                      return_kv=want)
+                      return_kv=want, sh=sh)
         if want:
             a, self_kv = a
         x = x + a
         a = attention(pl["xattn"], rms_norm(x, pl["ln_x"], eps), x_cfg, cd,
-                      kv_x=enc_out, return_kv=want)
+                      kv_x=enc_out, return_kv=want, sh=sh)
         if want:
             a, cross_kv = a
             kvs.append((self_kv, cross_kv))
         x = x + a
-        return x + mlp_apply(pl["mlp"], rms_norm(x, pl["ln2"], eps), cd)
+        return x + mlp_apply(pl["mlp"], rms_norm(x, pl["ln2"], eps), cd, sh)
+
+    def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
+        return embed_lookup(self._whole(params, "embed"), tokens,
+                            self.sh).to(self.cdtype)
 
     def _decoder_forward(self, params, tokens: torch.Tensor,
                          enc_out: torch.Tensor) -> torch.Tensor:
-        x = params["embed"][tokens.long()].to(self.cdtype)
+        x = self._embed(params, tokens)
         for i in range(self.cfg.n_layers):
-            x = remat_call(self._dec_layer, x,
-                           self._layer(params["decoder"], i), enc_out,
+            x = remat_call(self._dec_layer, x, params, i, enc_out,
                            enabled=self.cfg.remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
@@ -176,9 +204,10 @@ class EncDecLM:
         sequence chunks."""
         enc_out = self.encode(params, batch["frames"])
         hidden = self._decoder_forward(params, batch["tokens"], enc_out)
-        return chunked_ce_loss(hidden, params["lm_head"].to(self.cdtype),
-                               batch["labels"], batch.get("loss_mask"),
-                               chunk=_LOSS_CHUNK, remat=self.cfg.remat)
+        return chunked_ce_loss(hidden, self._whole(params, "lm_head").to(
+            self.cdtype), batch["labels"], batch.get("loss_mask"),
+            chunk=_LOSS_CHUNK, remat=self.cfg.remat, sh=self.sh,
+            vocab=self.cfg.padded_vocab)
 
     # --------------------------------------------------------------- serving
 
@@ -209,6 +238,17 @@ class EncDecLM:
         return {"pos": P(), "self": {"k": kv, "v": kv},
                 "cross": {"k": kv, "v": kv}}
 
+    def cache_block(self, cache, mesh) -> Pytree:
+        """This rank's block of a whole cache by ``cache_specs`` (the
+        self-attention length and the batch read from the cache), each
+        part's global length recorded as ``seq_len``."""
+        sc = cache["self"]
+        spec = self.cache_specs(sc["k"].shape[2], sc["k"].shape[1])
+        return {"pos": cache["pos"],
+                "self": cache_group_block(sc, spec["self"]["k"], mesh),
+                "cross": cache_group_block(cache["cross"],
+                                           spec["cross"]["k"], mesh)}
+
     def grow_cache(self, cache: Pytree, target_len: int) -> Pytree:
         """The self-attention cache zero-padded to ``target_len``
         positions; the cross-attention cache is fixed."""
@@ -233,21 +273,30 @@ class EncDecLM:
         float32, cache)."""
         enc_out = self.encode(params, frames)
         S = tokens.shape[1]
-        x = params["embed"][tokens.long()].to(self.cdtype)
+        x = self._embed(params, tokens)
         kvs: list = []
         for i in range(self.cfg.n_layers):
-            x = self._dec_layer(x, self._layer(params["decoder"], i),
-                                enc_out, kvs)
+            x = self._dec_layer(x, params, i, enc_out, kvs)
         cache = {"pos": S}
+        spec = None
+        if _spmd_mesh() is not None:    # the blocks by cache_specs
+            B = x.shape[0] * _spmd_mesh().size(batch_entry(self.sh))
+            spec = self.cache_specs(S, B)["self"]["k"]
         for j, part in enumerate(("self", "cross")):
             cache[part] = {
                 "k": torch.stack([kv[j][0] for kv in kvs]).to(self.cdtype),
                 "v": torch.stack([kv[j][1] for kv in kvs]).to(self.cdtype)}
+            if spec is not None:
+                length = cache[part]["k"].shape[2]
+                cache[part] = {kv: kv_to_layout(t, spec, self.sh)
+                               for kv, t in cache[part].items()}
+                cache[part]["seq_len"] = length
         return self._logits(params, x[:, -1:]), cache
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ params["lm_head"].to(self.cdtype)).float()
+        return gather_logits((x @ self._whole(params, "lm_head").to(
+            self.cdtype)).float(), self.sh, self.cfg.padded_vocab)
 
     def _cross_decode(self, p, h: torch.Tensor, ck: torch.Tensor,
                       cv: torch.Tensor) -> torch.Tensor:
@@ -269,20 +318,33 @@ class EncDecLM:
         """One-token decode. tokens: (B, 1). Returns (logits (B, 1, V)
         float32, cache); the self-attention K / V are written into the
         cache in place."""
-        eps, cd = self.cfg.norm_eps, self.cdtype
-        x = params["embed"][tokens.long()].to(cd)
+        eps, cd, sh = self.cfg.norm_eps, self.cdtype, self.sh
+        x = self._embed(params, tokens)
         pos = int(cache["pos"])
         self_cfg = self._acfg(True)
         sc, xc = cache["self"], cache["cross"]
+        spmd = _spmd_mesh()
+        if spmd is not None:
+            B = x.shape[0] * spmd.size(batch_entry(sh))
+            entry = self.cache_specs(sc["seq_len"], B)["self"]["k"][2]
         for i in range(self.cfg.n_layers):
-            pl = self._layer(params["decoder"], i)
-            x = x + decode_attention(pl["attn"], rms_norm(x, pl["ln1"], eps),
-                                     sc["k"][i], sc["v"][i], pos, self_cfg,
-                                     cd)[0]
-            x = x + self._cross_decode(pl["xattn"],
-                                       rms_norm(x, pl["ln_x"], eps),
-                                       xc["k"][i], xc["v"][i])
-            x = x + mlp_apply(pl["mlp"], rms_norm(x, pl["ln2"], eps), cd)
+            pl = self._layer(params, "decoder", i)
+            h = rms_norm(x, pl["ln1"], eps)
+            if spmd is not None:
+                x = x + decode_attention_sharded(
+                    pl["attn"], h, sc["k"][i], sc["v"][i], pos, self_cfg,
+                    sh, cd, length=sc["seq_len"], seq_entry=entry)
+                x = x + decode_attention_sharded(
+                    pl["xattn"], rms_norm(x, pl["ln_x"], eps), xc["k"][i],
+                    xc["v"][i], pos, self._acfg(False, rope=False), sh, cd,
+                    length=xc["seq_len"], seq_entry=entry, cross=True)
+            else:
+                x = x + decode_attention(pl["attn"], h, sc["k"][i],
+                                         sc["v"][i], pos, self_cfg, cd)[0]
+                x = x + self._cross_decode(pl["xattn"],
+                                           rms_norm(x, pl["ln_x"], eps),
+                                           xc["k"][i], xc["v"][i])
+            x = x + mlp_apply(pl["mlp"], rms_norm(x, pl["ln2"], eps), cd, sh)
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         return self._logits(params, x), new_cache

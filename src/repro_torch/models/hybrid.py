@@ -22,11 +22,17 @@ Parameters keep the JAX package's layout (stacked ``(L, ...)`` leaves,
 ``(NG, AE, ...)`` for the hybrid's groups), so its weights carry over
 unchanged.  The JAX package scans the layers; the port loops over them in
 Python.  ``param_specs`` and ``cache_specs`` are the JAX package's GSPMD
-layouts (trees of ``layers.P``, equal leaf for leaf).
+layouts (trees of ``layers.P``, equal leaf for leaf).  In the sharded step
+(``with mesh.spmd():``) every function takes this rank's blocks by them
+(``cache_block`` cuts a whole cache; a sharded prefill returns its cache
+so): each layer's FSDP entries are gathered inside its rematerialised
+unit, the mixer splits its heads over ``tp`` (``models.ssm``) and the
+shared block its attention heads and MLP columns.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Iterator, Optional, Tuple
 
 import torch
@@ -35,9 +41,14 @@ import torch.nn.functional as F
 from repro_torch._tree import resolve_device, tree_map
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
-                                          decode_attention)
-from repro_torch.models.layers import (P, ShardPlan, chunked_ce_loss,
-                                       dense_init, embed_init, mlp_apply,
+                                          decode_attention,
+                                          decode_attention_sharded)
+from repro_torch.models.layers import (P, ShardPlan, _spmd_mesh,
+                                       batch_entry, cache_group_block,
+                                       chunked_ce_loss, dense_init,
+                                       embed_init, embed_lookup,
+                                       fsdp_gather, gather_logits,
+                                       kv_to_layout, layer_specs, mlp_apply,
                                        mlp_init, remat_call, rms_norm)
 from repro_torch.models.ssm import (SSMCache, SSMConfig, mamba_block,
                                     mamba_decode_step, ssm_init)
@@ -87,18 +98,33 @@ class _MambaLM:
     def _ones(self, gen: torch.Generator, *shape) -> torch.Tensor:
         return torch.ones(shape, dtype=self.dtype, device=gen.device)
 
+    def _pspecs(self) -> Pytree:
+        if not hasattr(self, "_spec_cache"):
+            self._spec_cache = self.param_specs()
+        return self._spec_cache
+
+    def _gathered(self, tree, name: str, lead: int) -> Pytree:
+        """One layer's ``tree`` of stack ``name`` (``lead`` stacked dims),
+        FSDP-gathered in the sharded step."""
+        return fsdp_gather(tree, layer_specs(self._pspecs()[name], lead),
+                           self.sh)
+
     def _embed(self, params, tokens: torch.Tensor) -> torch.Tensor:
-        return params["embed"][tokens.long()].to(self.cdtype)
+        table = fsdp_gather(params["embed"], self._pspecs()["embed"],
+                            self.sh)
+        return embed_lookup(table, tokens, self.sh).to(self.cdtype)
 
     def _head(self, params) -> torch.Tensor:
+        sp = self._pspecs()
         if self.cfg.tie_embeddings:
-            return params["embed"].T
-        return params["lm_head"]
+            return fsdp_gather(params["embed"], sp["embed"], self.sh).T
+        return fsdp_gather(params["lm_head"], sp["lm_head"], self.sh)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm -> head -> float32."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
-        return (x @ self._head(params).to(self.cdtype)).float()
+        return gather_logits((x @ self._head(params).to(self.cdtype))
+                             .float(), self.sh, self.cfg.padded_vocab)
 
     def loss_fn(self, params, batch) -> torch.Tensor:
         """Mean token cross-entropy of ``batch`` (tokens, labels, optional
@@ -106,17 +132,28 @@ class _MambaLM:
         hidden = self.forward(params, batch["tokens"])
         return chunked_ce_loss(hidden, self._head(params).to(self.cdtype),
                                batch["labels"], batch.get("loss_mask"),
-                               remat=self.cfg.remat)
+                               remat=self.cfg.remat, sh=self.sh,
+                               vocab=self.cfg.padded_vocab)
 
     def _mamba(self, pl, x: torch.Tensor, capture: bool = False):
         """One residual block, ``pl`` holding ``ln`` and ``ssm``; with
         ``capture`` also its (conv tail, final state)."""
         h = rms_norm(x, pl["ln"], self.cfg.norm_eps)
         if not capture:
-            return x + mamba_block(pl["ssm"], h, self.scfg, self.cdtype)
+            return x + mamba_block(pl["ssm"], h, self.scfg, self.cdtype,
+                                   sh=self.sh)
         out, caught = mamba_block(pl["ssm"], h, self.scfg, self.cdtype,
-                                  capture=True)
+                                  capture=True, sh=self.sh)
         return x + out, caught
+
+    def _mamba_at(self, params, name: str, index, x: torch.Tensor):
+        """:meth:`_mamba` of layer ``index`` of stack ``name``, its
+        parameters taken (and gathered) here: inside a rematerialised
+        call they are gathered again in the backward."""
+        lead = 1 if isinstance(index, int) else len(index)
+        pl = self._gathered(tree_map(lambda a: a[index], params[name]),
+                            name, lead)
+        return self._mamba(pl, x)
 
     @staticmethod
     def _stack_caught(caught, lead) -> Pytree:
@@ -131,7 +168,7 @@ class _MambaLM:
         layer's cache) are updated in place."""
         h = rms_norm(x, pl["ln"], self.cfg.norm_eps)
         out, new = mamba_decode_step(pl["ssm"], h, SSMCache(conv_buf, state),
-                                     self.scfg, self.cdtype)
+                                     self.scfg, self.cdtype, self.sh)
         conv_buf.copy_(new.conv_buf)
         state.copy_(new.state)
         return x + out
@@ -187,14 +224,21 @@ class SSMLM(_MambaLM):
 
     def _layers(self, params) -> Iterator[Tuple[int, Pytree]]:
         for l in range(self.cfg.n_layers):
-            yield l, tree_map(lambda a: a[l], params["layers"])
+            yield l, self._gathered(tree_map(lambda a: a[l],
+                                             params["layers"]), "layers", 1)
+
+    def cache_block(self, cache, mesh) -> Pytree:
+        """This rank's block of a whole cache by ``cache_specs``."""
+        B = cache["ssm"]["state"].shape[1]
+        return mesh.shard(cache, self.cache_specs(0, B))
 
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens -> (B, S, D) hidden (after final norm);
         differentiable, each layer rematerialized under ``cfg.remat``."""
         x = self._embed(params, tokens)
-        for _, pl in self._layers(params):
-            x = remat_call(self._mamba, pl, x, enabled=self.cfg.remat)
+        for l in range(self.cfg.n_layers):
+            x = remat_call(self._mamba_at, params, "layers", l, x,
+                           enabled=self.cfg.remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def make_cache(self, batch: int, seq_len: int, device=None) -> Pytree:
@@ -283,19 +327,23 @@ class HybridLM(_MambaLM):
 
     def _group(self, params, g: int) -> Iterator[Tuple[int, Pytree]]:
         for l in range(self.cfg.attn_every):
-            yield l, tree_map(lambda a: a[g, l], params["grouped"])
+            yield l, self._gathered(tree_map(lambda a: a[g, l],
+                                             params["grouped"]),
+                                    "grouped", 2)
 
     def _tail(self, params) -> Iterator[Tuple[int, Pytree]]:
         for l in range(self.tail):
-            yield l, tree_map(lambda a: a[l], params["tail"])
+            yield l, self._gathered(tree_map(lambda a: a[l],
+                                             params["tail"]), "tail", 1)
 
     def _shared_block(self, params, x: torch.Tensor, attn_fn) -> torch.Tensor:
         """The shared attention (``attn_fn(params, normed x)``) and MLP,
         each pre-normed on the residual."""
-        s, eps = params["shared"], self.cfg.norm_eps
+        s = fsdp_gather(params["shared"], self._pspecs()["shared"], self.sh)
+        eps = self.cfg.norm_eps
         x = x + attn_fn(s["attn"], rms_norm(x, s["ln1"], eps))
         return x + mlp_apply(s["mlp"], rms_norm(x, s["ln2"], eps),
-                             self.cdtype)
+                             self.cdtype, self.sh)
 
     def _group_fn(self, params, g: int, x: torch.Tensor,
                   positions: torch.Tensor) -> torch.Tensor:
@@ -303,7 +351,7 @@ class HybridLM(_MambaLM):
         for _, pl in self._group(params, g):
             x = self._mamba(pl, x)
         return self._shared_block(params, x, lambda p, h: attention(
-            p, h, self.acfg, self.cdtype, positions=positions))
+            p, h, self.acfg, self.cdtype, positions=positions, sh=self.sh))
 
     def forward(self, params, tokens: torch.Tensor) -> torch.Tensor:
         """(B, S) tokens -> (B, S, D) hidden (after final norm);
@@ -316,8 +364,9 @@ class HybridLM(_MambaLM):
         for g in range(self.n_groups):
             x = remat_call(self._group_fn, params, g, x, positions,
                            enabled=remat)
-        for _, pl in self._tail(params):
-            x = remat_call(self._mamba, pl, x, enabled=remat)
+        for l in range(self.tail):
+            x = remat_call(self._mamba_at, params, "tail", l, x,
+                           enabled=remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     def param_specs(self) -> Pytree:
@@ -356,6 +405,25 @@ class HybridLM(_MambaLM):
         if self.tail:
             specs["tail_ssm"] = self._ssm_cache_specs(1, batch)
         return specs
+
+    def cache_block(self, cache, mesh) -> Pytree:
+        """This rank's block of a whole cache by ``cache_specs`` (its
+        length and batch read from the cache), the shared attention's
+        global length recorded as ``seq_len``."""
+        sa = cache["shared_attn"]
+        specs = self.cache_specs(sa["k"].shape[2], sa["k"].shape[1])
+        out = mesh.shard({k: v for k, v in cache.items()
+                          if k != "shared_attn"},
+                         {k: v for k, v in specs.items()
+                          if k != "shared_attn"})
+        out["shared_attn"] = cache_group_block(
+            sa, specs["shared_attn"]["k"], mesh)
+        return out
+
+    def _kv_spec(self, length: int, rows: int) -> P:
+        m = _spmd_mesh()
+        B = rows * m.size(batch_entry(self.sh))
+        return self.cache_specs(length, B)["shared_attn"]["k"]
 
     def make_cache(self, batch: int, seq_len: int, device=None) -> Pytree:
         """Zeroed SSM caches, per-application shared-attention KV caches
@@ -400,7 +468,8 @@ class HybridLM(_MambaLM):
 
         def attn_fn(p, h):
             a, (k, v) = attention(p, h, self.acfg, self.cdtype,
-                                  positions=positions, return_kv=True)
+                                  positions=positions, return_kv=True,
+                                  sh=self.sh)
             ks.append(k.to(self.cdtype))
             vs.append(v.to(self.cdtype))
             return a
@@ -416,6 +485,12 @@ class HybridLM(_MambaLM):
                 caught, (self.n_groups, self.cfg.attn_every)),
             "shared_attn": {"k": torch.stack(ks), "v": torch.stack(vs)},
         }
+        if _spmd_mesh() is not None:    # this rank's block by cache_specs
+            spec = self._kv_spec(S, x.shape[0])
+            cache["shared_attn"] = {
+                kv: kv_to_layout(t, spec, self.sh)
+                for kv, t in cache["shared_attn"].items()}
+            cache["shared_attn"]["seq_len"] = S
         if self.tail:
             caught = []
             for _, pl in self._tail(params):
@@ -436,9 +511,8 @@ class HybridLM(_MambaLM):
             for l, pl in self._group(params, g):
                 x = self._mamba_step(pl, x, gs["conv_buf"][g, l],
                                      gs["state"][g, l])
-            x = self._shared_block(params, x, lambda p, h: decode_attention(
-                p, h, sa["k"][g], sa["v"][g], pos, self.acfg,
-                self.cdtype)[0])
+            x = self._shared_block(params, x, functools.partial(
+                self._decode_attn, sa=sa, g=g, pos=pos))
         if self.tail:
             ts = cache["tail_ssm"]
             for l, pl in self._tail(params):
@@ -447,3 +521,14 @@ class HybridLM(_MambaLM):
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         return self._logits(params, x), new_cache
+
+    def _decode_attn(self, p, h, *, sa, g, pos):
+        """The shared block's decode attention of application ``g``: in
+        the sharded step against the cache's ``cache_specs`` layout."""
+        if _spmd_mesh() is not None:
+            spec = self._kv_spec(sa["seq_len"], h.shape[0])
+            return decode_attention_sharded(
+                p, h, sa["k"][g], sa["v"][g], pos, self.acfg, self.sh,
+                self.cdtype, length=sa["seq_len"], seq_entry=spec[2])
+        return decode_attention(p, h, sa["k"][g], sa["v"][g], pos,
+                                self.acfg, self.cdtype)[0]

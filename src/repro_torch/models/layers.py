@@ -19,6 +19,28 @@ reads it; the explicit-collective bodies (flash-decoding, expert-parallel
 MoE) take their branch only under one.  The JAX package's ``shard`` (a
 ``with_sharding_constraint``) has no counterpart: without GSPMD there is
 no partitioner for it to constrain.
+
+The sharded step (``with mesh.spmd():``, :func:`_spmd_mesh`) is the
+port's counterpart of GSPMD's partitioning: the models run explicitly
+SPMD, each leaf of a parameter tree this rank's block by its spec, and
+the functions below insert the collectives:
+
+* an FSDP entry (``sh.fsdp``) is all-gathered before use
+  (:func:`fsdp_gather`), its gradient reduce-scattered back;
+* ``P(.., fs, tp)`` weights are column-parallel (their input passes
+  :func:`tp_copy`, whose gradient is summed over ``tp``), ``P(.., tp,
+  fs)`` weights row-parallel (:func:`tp_sum` adds the partial products);
+  the residual stream stays whole on every ``tp`` rank;
+* ``embed`` ``P(tp, fs)`` is a vocab-parallel lookup
+  (:func:`embed_lookup`) and the LM head ``P(fs, tp)`` a vocab-parallel
+  cross-entropy (:func:`chunked_ce_loss`) or logits gather
+  (:func:`gather_logits`);
+* an RMSNorm over a ``tp``-split width sums its squares over ``tp``
+  (:func:`rms_norm_tp`);
+* the loss's sums run over the batch axes (the batch's rows are split
+  over them).
+
+With no active mesh every function is the unsharded one, bit for bit.
 """
 
 from __future__ import annotations
@@ -42,6 +64,18 @@ __all__ = [
     "mlp_apply",
     "chunked_ce_loss",
     "remat_call",
+    "layer_specs",
+    "fsdp_gather",
+    "tp_info",
+    "tp_copy",
+    "tp_sum",
+    "tp_gather",
+    "batch_entry",
+    "embed_lookup",
+    "gather_logits",
+    "rms_norm_tp",
+    "cache_group_block",
+    "kv_to_layout",
 ]
 
 
@@ -110,6 +144,149 @@ def _active_mesh():
     return _MESHES[-1] if _MESHES else None
 
 
+def _spmd_mesh():
+    """The active model mesh when it runs the sharded step
+    (``with mesh.spmd():``), else None."""
+    m = _active_mesh()
+    return m if m is not None and getattr(m, "spmd_active", False) else None
+
+
+def layer_specs(specs: Pytree, lead: int = 1) -> Pytree:
+    """A spec tree with its ``lead`` stacked dims dropped (one layer's)."""
+    if isinstance(specs, dict):
+        return {k: layer_specs(v, lead) for k, v in specs.items()}
+    return P(*specs.entries[lead:])
+
+
+def _fsdp_leaf(x, spec, mesh, fs):
+    for d, entry in enumerate(spec):
+        names = entry if isinstance(entry, tuple) else (entry,)
+        if fs in names:
+            x = mesh.gather_entry(x, fs, d)
+    return x
+
+
+def fsdp_gather(tree: Pytree, specs: Pytree, sh: "ShardPlan") -> Pytree:
+    """Every leaf of ``tree`` all-gathered over the FSDP axis where its
+    spec names it (the JAX package's layout leaves ``tp`` blocks local);
+    outside the sharded step, ``tree`` itself."""
+    m = _spmd_mesh()
+    if m is None or sh.fsdp is None or m.size(sh.fsdp) == 1:
+        return tree
+    if isinstance(tree, dict):
+        return {k: fsdp_gather(v, specs[k], sh) for k, v in tree.items()}
+    return _fsdp_leaf(tree, specs, m, sh.fsdp)
+
+
+def tp_info(sh: Optional["ShardPlan"]) -> Tuple[int, int]:
+    """(size, rank) of the tensor-parallel axis in the sharded step, or
+    (1, 0)."""
+    m = _spmd_mesh()
+    if m is None or sh is None or sh.tp not in m.shape:
+        return 1, 0
+    return m.shape[sh.tp], m.coords[sh.tp]
+
+
+def tp_copy(x: torch.Tensor, sh) -> torch.Tensor:
+    """A value every ``tp`` rank holds, entering a ``tp``-partial path:
+    its gradient is summed over ``tp`` (Megatron's f)."""
+    m = _spmd_mesh()
+    return x if m is None else m.copy(x, sh.tp)
+
+
+def tp_sum(x: torch.Tensor, sh) -> torch.Tensor:
+    """The sum of ``tp``-partial values (a row-parallel product), whole
+    on every ``tp`` rank; its gradient passes through (Megatron's g)."""
+    m = _spmd_mesh()
+    return x if m is None else m.all_reduce(x, sh.tp, "sum")
+
+
+def tp_gather(x: torch.Tensor, sh, dim: int) -> torch.Tensor:
+    """The ``tp`` ranks' blocks of ``x`` concatenated on ``dim``."""
+    m = _spmd_mesh()
+    return x if m is None else m.all_gather(x, sh.tp, dim)
+
+
+def batch_entry(sh) -> Tuple[str, ...]:
+    """The axes the batch's rows are split over in the sharded step (the
+    plan's batch axes the mesh has; none when the mesh replicates the
+    batch, or outside the sharded step)."""
+    m = _spmd_mesh()
+    if m is None or sh is None or not m.batch_sharded:
+        return ()
+    return tuple(a for a in sh.dp if a in m.shape)
+
+
+def embed_lookup(table: torch.Tensor, tokens: torch.Tensor, sh
+                 ) -> torch.Tensor:
+    """``table[tokens]``; in the sharded step ``table`` is this ``tp``
+    rank's rows of the vocabulary (``P(tp, ...)``, FSDP-gathered): each
+    rank looks up the tokens it holds, zero elsewhere, and the ranks sum."""
+    n, r = tp_info(sh)
+    if n == 1:
+        return table[tokens.long()]
+    Vl = table.shape[0]
+    local = tokens.long() - r * Vl
+    inside = (local >= 0) & (local < Vl)
+    x = table[local.clamp(0, Vl - 1)] * inside[..., None].to(table.dtype)
+    return tp_sum(x, sh)
+
+
+def gather_logits(logits: torch.Tensor, sh, vocab: int) -> torch.Tensor:
+    """Whole-vocabulary logits from this ``tp`` rank's columns (the
+    ranks' blocks gathered, padding past ``vocab`` cut)."""
+    n, _ = tp_info(sh)
+    if n == 1:
+        return logits
+    return tp_gather(logits, sh, -1)[..., :vocab]
+
+
+def rms_norm_tp(x: torch.Tensor, w: torch.Tensor, sh,
+                eps: float = 1e-5) -> torch.Tensor:
+    """:func:`rms_norm` over a width split over ``tp`` (``x`` and ``w``
+    this rank's columns): the sum of squares is summed over the ranks,
+    and so is its gradient (each rank scales its own columns)."""
+    n, _ = tp_info(sh)
+    if n == 1:
+        return rms_norm(x, w, eps)
+    m = _spmd_mesh()
+    dt = x.dtype
+    x = x.float()
+    ss = m.all_reduce(m.copy((x * x).sum(dim=-1, keepdim=True), sh.tp),
+                      sh.tp, "sum")
+    x = x * torch.rsqrt(ss / (x.shape[-1] * n) + eps)
+    return (x * w.float()).to(dt)
+
+
+def cache_group_block(group: dict, spec: "P", mesh) -> dict:
+    """A whole cache group's ``k`` / ``v`` (``(L, B, C, K, hd)``) cut to
+    this rank's block by ``spec``, its global length kept as ``seq_len``
+    (the sharded decode reads the layout from it)."""
+    out = mesh.shard({"k": group["k"], "v": group["v"]},
+                     {"k": spec, "v": spec})
+    out["seq_len"] = group["k"].shape[2]
+    return out
+
+
+def kv_to_layout(x: torch.Tensor, spec: "P", sh) -> torch.Tensor:
+    """A prefill's ``(L, B_loc, C, K, hd)`` K or V (this rank's rows,
+    every position) in the cache layout ``spec``: the rows gathered over
+    the batch axes where ``spec`` does not split them, the sequence cut
+    to this rank's block where it does."""
+    m = _spmd_mesh()
+    rows = batch_entry(sh)
+    if rows and m._axes(spec[1]) != rows:
+        if m._axes(spec[1]):
+            raise ValueError(f"cannot lay rows split over {rows} out "
+                             f"as {spec}")
+        x = m.gather_entry(x, rows, 1)
+    k = m.size(spec[2])
+    if k > 1:
+        w = x.shape[2] // k
+        x = x.narrow(2, m.index(spec[2]) * w, w)
+    return x
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
     """RMSNorm computed in float32 and cast back to ``x``'s dtype."""
     dt = x.dtype
@@ -147,13 +324,18 @@ def mlp_init(gen: torch.Generator, L: int, d_model: int, d_ff: int,
     }
 
 
-def mlp_apply(p: Pytree, x: torch.Tensor, compute_dtype) -> torch.Tensor:
+def mlp_apply(p: Pytree, x: torch.Tensor, compute_dtype,
+              sh: Optional[ShardPlan] = None) -> torch.Tensor:
     """SwiGLU: down(silu(gate(x)) * up(x)); ``p`` leaves are one layer's (no
-    L dim)."""
+    L dim).  In the sharded step gate and up are column-parallel and down
+    row-parallel over ``tp`` (``p`` FSDP-gathered)."""
     x = x.to(compute_dtype)
+    if sh is not None:
+        x = tp_copy(x, sh)
     h = x @ p["w_gate"].to(compute_dtype)
     u = x @ p["w_up"].to(compute_dtype)
-    return (F.silu(h) * u) @ p["w_down"].to(compute_dtype)
+    out = (F.silu(h) * u) @ p["w_down"].to(compute_dtype)
+    return out if sh is None else tp_sum(out, sh)
 
 
 def remat_call(fn, *args, enabled: bool = True):
@@ -175,10 +357,35 @@ def _chunk_nll(h, head, labels, mask, final_softcap):
     return ((logz - gold) * mask).sum(), mask.sum()
 
 
+def _chunk_nll_tp(h, head, labels, mask, final_softcap, sh, vocab):
+    """:func:`_chunk_nll` with ``head`` this ``tp`` rank's vocabulary
+    columns: the logsumexp's max and sum of exponentials, and the gold
+    logit (on the rank that holds its column), summed over ``tp``."""
+    m = _spmd_mesh()
+    n, r = tp_info(sh)
+    logits = softcap(tp_copy(h, sh) @ head, final_softcap).float()
+    Vl = logits.shape[-1]
+    if (r + 1) * Vl > vocab:    # GSPMD's padding past the vocabulary
+        col = r * Vl + torch.arange(Vl, device=logits.device)
+        logits = logits.masked_fill(col >= vocab, float("-inf"))
+    top = m.all_reduce(logits.detach().amax(dim=-1), sh.tp, "max")
+    se = m.all_reduce(torch.exp(logits - top[..., None]).sum(dim=-1),
+                      sh.tp, "sum")
+    logz = top + torch.log(se)
+    local = labels.long() - r * Vl
+    inside = (local >= 0) & (local < Vl)
+    gold = torch.gather(logits, -1, local.clamp(0, Vl - 1)[..., None]
+                        )[..., 0]
+    gold = m.all_reduce(torch.where(inside, gold, torch.zeros_like(gold)),
+                        sh.tp, "sum")
+    return ((logz - gold) * mask).sum(), mask.sum()
+
+
 def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
                     labels: torch.Tensor, mask: Optional[torch.Tensor], *,
                     final_softcap: Optional[float] = None, chunk: int = 512,
-                    remat: bool = True) -> torch.Tensor:
+                    remat: bool = True, sh: Optional[ShardPlan] = None,
+                    vocab: Optional[int] = None) -> torch.Tensor:
     """Mean token cross-entropy of the LM head over ``hidden``, in sequence
     chunks so that the ``(B, S, V)`` logits never exist at once.
 
@@ -187,7 +394,10 @@ def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
     length need not be a multiple).  With ``remat`` each chunk runs
     under ``torch.utils.checkpoint``: its float32 logits are recomputed in
     the backward (at a 128,256-entry vocab and a 4 x 512 chunk they are
-    1.05 GB)."""
+    1.05 GB).  In the sharded step (``sh`` given) ``head`` is this ``tp``
+    rank's columns of a ``vocab``-entry head, ``hidden`` and ``labels``
+    this rank's rows, and the NLL and token sums run over the batch axes:
+    the loss is the global batch's on every rank."""
     B, S, _ = hidden.shape
     nchunk = max(S // chunk, 1)
     while S % nchunk:
@@ -197,10 +407,17 @@ def chunked_ce_loss(hidden: torch.Tensor, head: torch.Tensor,
         mask = torch.ones((B, S), dtype=torch.float32, device=hidden.device)
     mask = mask.float()
     tot = cnt = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    split = sh is not None and tp_info(sh)[0] > 1
+    fn, extra = ((_chunk_nll_tp, (sh, vocab or head.shape[-1])) if split
+                 else (_chunk_nll, ()))
     for c in range(nchunk):
         part = slice(c * csz, (c + 1) * csz)
-        nll, m = remat_call(_chunk_nll, hidden[:, part], head,
+        nll, m = remat_call(fn, hidden[:, part], head,
                             labels[:, part], mask[:, part], final_softcap,
-                            enabled=remat)
+                            *extra, enabled=remat)
         tot, cnt = tot + nll, cnt + m
+    if sh is not None:
+        mesh, rows = _spmd_mesh(), batch_entry(sh)
+        if mesh is not None and rows:
+            tot, cnt = mesh.sum_entry(tot, rows), mesh.sum_entry(cnt, rows)
     return tot / torch.clamp(cnt, min=1.0)

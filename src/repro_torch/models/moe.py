@@ -29,6 +29,16 @@ the same routing plan, computes its own experts' tokens and adds its
 share into one SUM all-reduce per chunk over the model axis.  Without a
 mesh, or where ``E % tp != 0``, it is the dispatch below, as in the JAX
 package.
+
+In the sharded step (``with mesh.spmd():``) the ``gspmd`` dispatch is
+:func:`moe_apply_sharded`: the expert weights are this rank's blocks by
+``param_specs`` (experts over ``tp`` when 16 divides them, else ``d_ff``
+over ``tp``), and the routing keeps the JAX package's semantics, which
+GSPMD keeps with the batch split over the data axes: capacity and the
+bulk-steal plan are those of each chunk of the GLOBAL flattened tokens.
+Each rank gathers the router probabilities over the batch axes, plans
+every global chunk that holds its tokens exactly as the unsharded
+dispatch does, and computes its own tokens' share.
 """
 
 from __future__ import annotations
@@ -38,12 +48,14 @@ from typing import Any, Optional, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.layers import ShardPlan, _active_mesh, dense_init
+from repro_torch.models.layers import (ShardPlan, _active_mesh, _spmd_mesh,
+                                       batch_entry, dense_init, tp_copy,
+                                       tp_info, tp_sum)
 
 Pytree = Any
 
 __all__ = ["moe_init", "moe_apply", "moe_apply_ep_shardmap",
-           "route_with_bulk_steal", "MOE_CHUNK_TOKENS"]
+           "moe_apply_sharded", "route_with_bulk_steal", "MOE_CHUNK_TOKENS"]
 
 IMPLS = ("gspmd", "ep_shardmap")
 
@@ -140,20 +152,38 @@ def capacity_of(tokens: int, top_k: int, n_experts: int,
 
 def _moe_chunk(p: Pytree, xt: torch.Tensor, *, top_k: int, n_experts: int,
                capacity_factor: float, compute_dtype, bulk_steal: bool,
-               experts: Optional[range] = None) -> torch.Tensor:
+               experts: Optional[range] = None, copy=None) -> torch.Tensor:
     """MoE of one ``(Tc, D)`` token chunk; with ``experts`` (a range of
-    expert ids whose weights ``p`` holds, in order) only their share."""
+    expert ids whose weights ``p`` holds, in order) only their share.
+    ``copy`` (Megatron's f over the model axis) marks the values each
+    model rank uses for its own experts: the dispatched tokens and the
+    routing weights."""
     Tc, D = xt.shape
-    E, cd = n_experts, compute_dtype
+    cd = compute_dtype
     probs = torch.softmax((xt @ p["router"].to(cd)).float(), dim=-1)
-    capacity = capacity_of(Tc, top_k, E, capacity_factor)
+    capacity = capacity_of(Tc, top_k, n_experts, capacity_factor)
     expert, slot, weight, valid = route_with_bulk_steal(
         probs, top_k, capacity, bulk_steal=bulk_steal)
+    if copy is not None:
+        xt, weight = copy(xt), copy(weight)
+    return _expert_share(p, xt, expert, slot, weight, valid, top_k=top_k,
+                         capacity=capacity, experts=experts, cd=cd)
+
+
+def _expert_share(p: Pytree, xt: torch.Tensor, expert, slot, weight, valid,
+                  *, top_k: int, capacity: int, experts: Optional[range],
+                  cd) -> torch.Tensor:
+    """The experts ``p`` holds applied to the ``(Tc, D)`` tokens ``xt`` by
+    their ``Tc * top_k`` assignments (expert, slot, weight, valid), and
+    each token's weighted sum: the dispatch into ``(E, C, D)`` buffers,
+    the grouped SwiGLU products and the combine.  ``experts`` (a range of
+    ids) keeps only the assignments of the experts ``p`` holds."""
+    Tc, D = xt.shape
+    E = p["w_gate"].shape[0]
     tok = torch.arange(Tc, device=xt.device).repeat_interleave(top_k)
     if experts is not None:  # keep the assignments of this rank's experts
         expert = expert.long() - experts.start
         valid = valid & (expert >= 0) & (expert < len(experts))
-        E = len(experts)
 
     # dispatch into the (E, C, D) buffers; assignments without a slot go
     # to a spare last row, which is cut off (JAX's mode="drop")
@@ -176,16 +206,85 @@ def _moe_chunk(p: Pytree, xt: torch.Tensor, *, top_k: int, n_experts: int,
     return gathered.view(Tc, top_k, D).sum(1)
 
 
+def _n_chunks(T: int) -> int:
+    """The fewest equal chunks of at most ``MOE_CHUNK_TOKENS`` tokens
+    that divide ``T``."""
+    if T <= MOE_CHUNK_TOKENS:
+        return 1
+    nc = -(-T // MOE_CHUNK_TOKENS)
+    while T % nc:
+        nc += 1
+    return nc
+
+
 def _chunks(xt: torch.Tensor, fn) -> torch.Tensor:
     """``fn`` over the fewest equal chunks of at most ``MOE_CHUNK_TOKENS``
     rows that divide ``xt``'s, concatenated."""
     T, D = xt.shape
-    if T <= MOE_CHUNK_TOKENS:
+    nc = _n_chunks(T)
+    if nc == 1:
         return fn(xt)
-    nc = -(-T // MOE_CHUNK_TOKENS)
-    while T % nc:
-        nc += 1
     return torch.cat([fn(c) for c in xt.view(nc, T // nc, D)])
+
+
+def _top_k_weights(probs: torch.Tensor, top_k: int) -> torch.Tensor:
+    """Each assignment's weight, flat, as :func:`route_with_bulk_steal`
+    computes it (a row's top k, renormalised)."""
+    w = torch.sort(probs, dim=-1, descending=True, stable=True)[0][:, :top_k]
+    return (w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)).reshape(-1)
+
+
+def moe_apply_sharded(p: Pytree, x: torch.Tensor, *, top_k: int,
+                      n_experts: int, capacity_factor: float, sh,
+                      compute_dtype, bulk_steal: bool = True
+                      ) -> torch.Tensor:
+    """The ``gspmd`` dispatch in the sharded step: ``x`` (B, S, D) this
+    rank's rows, ``p`` this rank's FSDP-gathered blocks (the router whole;
+    ``w_*`` this ``tp`` rank's ``E / tp`` experts, or every expert's ``d_ff
+    / tp`` columns).
+
+    The routing is the unsharded dispatch's: the router probabilities of
+    every rank's tokens are gathered over the batch axes (no gradient:
+    the plan is integer), and each global chunk of ``T = B * S`` tokens
+    that holds a token of this rank is planned whole by
+    :func:`route_with_bulk_steal` (its capacity from the chunk).  The rank
+    dispatches its own tokens by its slice of the plan, weighted by their
+    own probabilities (the weights' gradient then reaches the router
+    here), computes its experts' share and sums it over ``tp``."""
+    mesh = _spmd_mesh()
+    n, r = tp_info(sh)
+    cd = compute_dtype
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D).to(cd)
+    T_loc = xt.shape[0]
+    probs = torch.softmax((xt @ p["router"].to(cd)).float(), dim=-1)
+    rows = batch_entry(sh)
+    glob = mesh.gather_entry(probs.detach(), rows, 0) if rows else \
+        probs.detach()
+    T = glob.shape[0]
+    first = mesh.index(rows) * T_loc if rows else 0
+    nc = _n_chunks(T)
+    Tc = T // nc
+    capacity = capacity_of(Tc, top_k, n_experts, capacity_factor)
+    ep = p["w_gate"].shape[0] != n_experts
+    El = p["w_gate"].shape[0]
+    experts = range(r * El, (r + 1) * El) if ep else None
+    weight = tp_copy(_top_k_weights(probs, top_k), sh)
+    xd = tp_copy(xt, sh)
+    out = []
+    for c in range(first // Tc, (first + T_loc - 1) // Tc + 1):
+        expert, slot, _, valid = route_with_bulk_steal(
+            glob[c * Tc:(c + 1) * Tc], top_k, capacity,
+            bulk_steal=bulk_steal)
+        a, b = max(first, c * Tc), min(first + T_loc, (c + 1) * Tc)
+        own = slice((a - c * Tc) * top_k, (b - c * Tc) * top_k)
+        mine = slice((a - first) * top_k, (b - first) * top_k)
+        out.append(_expert_share(
+            p, xd[a - first:b - first], expert[own], slot[own],
+            weight[mine], valid[own], top_k=top_k, capacity=capacity,
+            experts=experts, cd=cd))
+    y = out[0] if len(out) == 1 else torch.cat(out)
+    return tp_sum(y, sh).view(B, S, D)
 
 
 def moe_apply_ep_shardmap(p: Pytree, x: torch.Tensor, *, top_k: int,
@@ -217,7 +316,8 @@ def moe_apply_ep_shardmap(p: Pytree, x: torch.Tensor, *, top_k: int,
     B, S, D = x.shape
     kw = dict(top_k=top_k, n_experts=n_experts,
               capacity_factor=capacity_factor, compute_dtype=compute_dtype,
-              bulk_steal=bulk_steal, experts=range(first, first + Eo))
+              bulk_steal=bulk_steal, experts=range(first, first + Eo),
+              copy=lambda t: mesh.copy(t, sh.tp))
 
     def chunk(xt):
         return mesh.all_reduce(_moe_chunk(p, xt, **kw), sh.tp, "sum")
@@ -246,6 +346,8 @@ def moe_apply(p: Pytree, x: torch.Tensor, *, top_k: int, n_experts: int,
         out = moe_apply_ep_shardmap(p, x, sh=sh or ShardPlan(), **kw)
         if out is not None:
             return out
+    if _spmd_mesh() is not None:
+        return moe_apply_sharded(p, x, sh=sh or ShardPlan(), **kw)
     B, S, D = x.shape
     return _chunks(x.reshape(B * S, D).to(compute_dtype),
                    lambda xt: _moe_chunk(p, xt, **kw)).view(B, S, D)

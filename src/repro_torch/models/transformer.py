@@ -22,13 +22,19 @@ decode attention is plain PyTorch.  ``decode_step`` writes the new
 token's K / V into the cache in place.
 
 Sharding.  ``param_specs`` and ``cache_specs`` are the JAX package's
-GSPMD layouts (trees of ``layers.P``, equal leaf for leaf).  What runs
-sharded is the two explicit-collective bodies, under an active model mesh
-(``launch.mesh.ModelMesh``): ``shard_params`` keeps this rank's experts
-(``moe_impl="ep_shardmap"``) and ``shard_cache`` this rank's slice of the
-global layers' cache sequence (``decode_impl="flash_shardmap"``, caches of
-at least ``_SEQ_SHARD_MIN`` positions); ``decode_step`` then takes
-flash-decoding on those layers, as the JAX package's does.
+GSPMD layouts (trees of ``layers.P``, equal leaf for leaf).  Under a plain
+active model mesh (``with mesh:``, ``launch.mesh.ModelMesh``) the two
+explicit-collective bodies run on whole parameters: ``shard_params``
+keeps this rank's experts (``moe_impl="ep_shardmap"``) and ``shard_cache``
+this rank's slice of the global layers' cache sequence
+(``decode_impl="flash_shardmap"``, caches of at least ``_SEQ_SHARD_MIN``
+positions); ``decode_step`` then takes flash-decoding on those layers,
+as the JAX package's does.  In the sharded step (``with mesh.spmd():``)
+every function takes this rank's blocks: the parameters by
+``param_specs`` (``mesh.shard``), the batch's rows over the batch axes,
+the caches by ``cache_specs`` (``cache_block``; a sharded prefill returns
+them so); each layer's FSDP entries are gathered inside its
+rematerialised group, and ``models.layers`` inserts the rest.
 """
 
 from __future__ import annotations
@@ -45,8 +51,12 @@ from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models.attention import (AttnConfig, attention, attn_init,
                                           decode_attention)
-from repro_torch.models.layers import (P, ShardPlan, chunked_ce_loss,
-                                       dense_init, embed_init, mlp_apply,
+from repro_torch.models.layers import (P, ShardPlan, _spmd_mesh,
+                                       batch_entry, cache_group_block,
+                                       chunked_ce_loss, dense_init,
+                                       embed_init, embed_lookup,
+                                       fsdp_gather, gather_logits,
+                                       kv_to_layout, layer_specs, mlp_apply,
                                        mlp_init, remat_call, rms_norm,
                                        softcap)
 
@@ -186,6 +196,34 @@ class DecoderLM:
             specs[f"g{gi}"] = {"k": kv, "v": kv}
         return specs
 
+    def _pspecs(self) -> Pytree:
+        if not hasattr(self, "_spec_cache"):
+            self._spec_cache = self.param_specs()
+        return self._spec_cache
+
+    def _block_specs(self) -> Pytree:
+        """One layer group's parameter specs (the ``NG`` dim dropped)."""
+        return layer_specs(self._pspecs()["blocks"])
+
+    def _kv_spec(self, gi: int, length: int, rows: int) -> P:
+        """``cache_specs``' layout of group ``gi``'s K / V at a global
+        length ``length`` and this rank's ``rows``."""
+        m = _spmd_mesh()
+        B = rows * m.size(batch_entry(self.sh))
+        return self.cache_specs(length, B)[f"g{gi}"]["k"]
+
+    def cache_block(self, cache, mesh) -> Pytree:
+        """This rank's block of a whole cache by ``cache_specs`` (its
+        length and batch read from the cache), for the sharded decode:
+        each group's global length recorded as ``seq_len``."""
+        out = {"pos": cache["pos"]}
+        B = cache["g0"]["k"].shape[1]
+        for gi in range(len(self.layer_kinds)):
+            cg = cache[f"g{gi}"]
+            spec = self.cache_specs(cg["k"].shape[2], B)[f"g{gi}"]["k"]
+            out[f"g{gi}"] = cache_group_block(cg, spec, mesh)
+        return out
+
     def shard_params(self, params, mesh) -> Pytree:
         """This rank's block of ``params`` for the collective bodies: with
         ``moe_impl="ep_shardmap"`` and experts that divide the model axis,
@@ -226,32 +264,41 @@ class DecoderLM:
                patches: Optional[torch.Tensor] = None) -> torch.Tensor:
         """(B, S_text) tokens [+ (B, P, frontend_dim) patches] -> (B, P +
         S_text, D) in the compute dtype, the projected patches first."""
-        x = params["embed"][tokens.long()]               # (B, S, D)
+        sp, sh = self._pspecs(), self.sh
+        table = fsdp_gather(params["embed"], sp["embed"], sh)
+        x = embed_lookup(table, tokens, sh)              # (B, S, D)
         if self.cfg.scale_embed:
             x = x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=x.dtype,
                                  device=x.device)
         if patches is not None:
-            pp = patches.to(self.cdtype) @ params["patch_proj"].to(
-                self.cdtype)
+            proj = fsdp_gather(params["patch_proj"], sp["patch_proj"], sh)
+            pp = patches.to(self.cdtype) @ proj.to(self.cdtype)
             x = torch.cat([pp.to(x.dtype), x], dim=1)
         return x.to(self.cdtype)
 
     def _head(self, params) -> torch.Tensor:
+        """The (D, V) head (in the sharded step, FSDP-gathered: this
+        ``tp`` rank's vocabulary columns)."""
+        sp = self._pspecs()
         if self.cfg.tie_embeddings:
-            return params["embed"].T
-        return params["lm_head"]
+            return fsdp_gather(params["embed"], sp["embed"], self.sh).T
+        return fsdp_gather(params["lm_head"], sp["lm_head"], self.sh)
 
     def _logits(self, params, x: torch.Tensor) -> torch.Tensor:
         """Final norm -> head -> final softcap -> float32."""
         x = rms_norm(x, params["final_norm"], self.cfg.norm_eps)
         logits = x @ self._head(params).to(self.cdtype)
-        return softcap(logits, self.cfg.final_logit_softcap).float()
+        return gather_logits(
+            softcap(logits, self.cfg.final_logit_softcap).float(), self.sh,
+            self.cfg.padded_vocab)
 
     # ------------------------------------------------------------- layers
 
     def _group_params(self, params, g: int) -> Pytree:
-        """Group ``g``'s parameters, ``{"g<gi>": that layer's}``."""
-        return tree_map(lambda a: a[g], params["blocks"])
+        """Group ``g``'s parameters, ``{"g<gi>": that layer's}``
+        (FSDP-gathered in the sharded step)."""
+        return fsdp_gather(tree_map(lambda a: a[g], params["blocks"]),
+                           self._block_specs(), self.sh)
 
     def _layers(self, params):
         """Yield ``(group index, kind index, kind, that layer's params)`` in
@@ -270,7 +317,7 @@ class DecoderLM:
                 capacity_factor=capacity_factor, compute_dtype=self.cdtype,
                 bulk_steal=cfg.moe_bulk_steal, impl=cfg.moe_impl,
                 sh=self.sh)
-        return mlp_apply(pg["mlp"], h, self.cdtype)
+        return mlp_apply(pg["mlp"], h, self.cdtype, self.sh)
 
     def _block(self, pg, x, attn_fn, capacity_factor: float = _CAPACITY):
         """One layer: attention (``attn_fn(params, normed x)``) and MLP or
@@ -289,12 +336,15 @@ class DecoderLM:
 
     # ------------------------------------------------------------- forward
 
-    def _group_fn(self, x, pgroup, positions):
-        """One group's layers, full-sequence attention through K6."""
+    def _group_fn(self, x, params, g, positions):
+        """Group ``g``'s layers, full-sequence attention through K6 (its
+        parameters taken, and FSDP-gathered, inside: a rematerialised
+        group gathers them again in the backward)."""
+        pgroup = self._group_params(params, g)
         for gi, kind in enumerate(self.layer_kinds):
             acfg = _attn_cfg(self.cfg, local=(kind == "local"))
             x = self._block(pgroup[f"g{gi}"], x, lambda p, h: attention(
-                p, h, acfg, self.cdtype, positions=positions))
+                p, h, acfg, self.cdtype, positions=positions, sh=self.sh))
         return x
 
     def forward(self, params, tokens: torch.Tensor,
@@ -308,8 +358,8 @@ class DecoderLM:
         if positions is None:
             positions = torch.arange(S, dtype=torch.int32, device=x.device)
         for g in range(self.n_groups):
-            x = remat_call(self._group_fn, x, self._group_params(params, g),
-                           positions, enabled=self.cfg.remat)
+            x = remat_call(self._group_fn, x, params, g, positions,
+                           enabled=self.cfg.remat)
         return rms_norm(x, params["final_norm"], self.cfg.norm_eps)
 
     # --------------------------------------------------------------- loss
@@ -327,7 +377,8 @@ class DecoderLM:
         return chunked_ce_loss(hidden, head, batch["labels"],
                                batch.get("loss_mask"),
                                final_softcap=self.cfg.final_logit_softcap,
-                               chunk=_LOSS_CHUNK, remat=self.cfg.remat)
+                               chunk=_LOSS_CHUNK, remat=self.cfg.remat,
+                               sh=self.sh, vocab=self.cfg.padded_vocab)
 
     # ------------------------------------------------------------- serving
 
@@ -395,7 +446,8 @@ class DecoderLM:
 
             def attn_fn(p, h):
                 a, (k, v) = attention(p, h, acfg, self.cdtype,
-                                      positions=positions, return_kv=True)
+                                      positions=positions, return_kv=True,
+                                      sh=self.sh)
                 if C < S:  # ring layout: slot = pos % C over the last C steps
                     ridx = torch.arange(S - C, S, device=x.device) % C
                     k = k.new_zeros((B, C) + k.shape[2:]).index_copy_(
@@ -408,8 +460,15 @@ class DecoderLM:
 
             x = self._block(pg, x, attn_fn)
         cache = {"pos": S}
-        for name, (ks, vs) in kvs.items():
+        spmd = _spmd_mesh() is not None
+        for gi, (name, (ks, vs)) in enumerate(kvs.items()):
             cache[name] = {"k": torch.stack(ks), "v": torch.stack(vs)}
+            if spmd:    # this rank's block by cache_specs
+                C = cache[name]["k"].shape[2]
+                spec = self._kv_spec(gi, C, B)
+                cache[name] = {kv: kv_to_layout(t, spec, self.sh)
+                               for kv, t in cache[name].items()}
+                cache[name]["seq_len"] = C
         return self._logits(params, x[:, -1:]), cache
 
     @torch.no_grad()
@@ -430,17 +489,23 @@ class DecoderLM:
         for g, gi, kind, pg in self._layers(params):
             acfg = _attn_cfg(self.cfg, local=(kind == "local"))
             attn_fn = functools.partial(self._decode_attn,
-                                        cg=cache[f"g{gi}"], g=g, pos=pos,
-                                        acfg=acfg)
+                                        cg=cache[f"g{gi}"], g=g, gi=gi,
+                                        pos=pos, acfg=acfg)
             x = self._block(pg, x, attn_fn, _DECODE_CAPACITY)
         new_cache = dict(cache)
         new_cache["pos"] = pos + 1
         return self._logits(params, x), new_cache
 
-    def _decode_attn(self, p, h, *, cg, g, pos, acfg):
-        """One layer's decode attention: flash-decoding on a cache that
-        ``shard_cache`` sequence-sharded (its ``seq_len`` recorded), else
-        the unsharded ``decode_attention``."""
+    def _decode_attn(self, p, h, *, cg, g, gi, pos, acfg):
+        """One layer's decode attention: in the sharded step against the
+        cache's ``cache_specs`` layout; under a plain mesh flash-decoding
+        on a cache that ``shard_cache`` sequence-sharded (its ``seq_len``
+        recorded); else the unsharded ``decode_attention``."""
+        if _spmd_mesh() is not None:
+            spec = self._kv_spec(gi, cg["seq_len"], h.shape[0])
+            return attn_mod.decode_attention_sharded(
+                p, h, cg["k"][g], cg["v"][g], pos, acfg, self.sh,
+                self.cdtype, length=cg["seq_len"], seq_entry=spec[2])
         if "seq_len" in cg:
             out = attn_mod.decode_attention_shardmap(
                 p, h, cg["k"][g], cg["v"][g], pos, acfg, self.sh,

@@ -86,14 +86,40 @@ def _global_norm(leaves) -> torch.Tensor:
                           for g in leaves))
 
 
+def _sharded_norm(leaves, specs, mesh) -> torch.Tensor:
+    """The global gradient norm from this rank's blocks: each leaf's sum of
+    squares summed over the axes its spec splits it over (one all-reduce
+    per set of axes), so every element counts once over the mesh."""
+    groups: dict = {}
+    for g, spec in zip(leaves, specs):
+        axes = tuple(a for e in spec for a in mesh._axes(e))
+        part = torch.sum(torch.square(g.float()))
+        groups[axes] = groups[axes] + part if axes in groups else part
+    total = None
+    for axes, part in sorted(groups.items()):
+        for a in axes:
+            part = mesh.all_reduce(part, a, "sum")
+        total = part if total is None else total + part
+    return torch.sqrt(total)
+
+
 def adamw_update(cfg: AdamWConfig, grads: Pytree, state: OptState,
-                 params: Pytree) -> Tuple[Pytree, OptState, dict]:
+                 params: Pytree, specs: Pytree = None
+                 ) -> Tuple[Pytree, OptState, dict]:
     """Returns ``(new_params, new_state, {"grad_norm", "lr"})``; nothing is
     updated in place.  With ``master_weights`` the float32 update applies
-    to ``state.master`` and the parameters are its cast."""
+    to ``state.master`` and the parameters are its cast.  In the sharded
+    step (``specs``, the parameters' spec tree, under ``with
+    mesh.spmd():``) every leaf is this rank's block: the clip's global
+    norm is summed over the mesh and the update is local."""
+    from repro_torch.models.layers import _spmd_mesh
     step = state.step + 1
     flat_g = tree_leaves(grads)
-    gnorm = _global_norm(flat_g)
+    mesh = _spmd_mesh()
+    if specs is not None and mesh is not None:
+        gnorm = _sharded_norm(flat_g, tree_leaves(specs), mesh)
+    else:
+        gnorm = _global_norm(flat_g)
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9),
                         max=1.0)
     lr = cosine_lr(cfg, step)

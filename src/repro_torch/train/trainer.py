@@ -7,6 +7,14 @@ loss's gradient with respect to detached copies of them
 the caller's tree is never touched and the step is a function, as in the
 JAX package.  On the card the model's forward reaches K6 and K7, whose
 CUDA launches carry their plain versions' gradients.
+
+Under ``with mesh.spmd():`` the step is the sharded one (the JAX
+package's jitted step with ``param_specs`` / ``opt_state_specs``
+shardings): parameters, optimizer state and batch are this rank's
+blocks, each gradient leaf comes out as this rank's block of the
+unsharded gradient (an FSDP leaf's gather is reduce-scattered in the
+backward; a leaf replicated over a batch axis is summed over it here),
+the clip's norm is the global one and AdamW updates the local blocks.
 """
 
 from __future__ import annotations
@@ -16,11 +24,12 @@ from typing import Any, Callable, Tuple
 import torch
 
 from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch.models.layers import _spmd_mesh, batch_entry
 from repro_torch.train.optimizer import AdamWConfig, OptState, adamw_update
 
 Pytree = Any
 
-__all__ = ["make_train_step", "value_and_grad"]
+__all__ = ["make_train_step", "value_and_grad", "sync_grads"]
 
 
 def value_and_grad(loss_fn: Callable, params: Pytree, batch
@@ -35,6 +44,25 @@ def value_and_grad(loss_fn: Callable, params: Pytree, batch
     grads = [torch.zeros_like(p) if g is None else g
              for p, g in zip(leaves, grads)]
     return loss.detach(), tree_unflatten(params, grads)
+
+
+def sync_grads(grads: Pytree, specs: Pytree, sh) -> Pytree:
+    """In the sharded step: each leaf summed over the batch axes its spec
+    does not split it over (its rows' gradients came from this rank's
+    rows only); outside it, ``grads`` itself."""
+    mesh = _spmd_mesh()
+    rows = batch_entry(sh)
+    if mesh is None or not rows:
+        return grads
+
+    def one(g, spec):
+        held = {a for e in spec for a in mesh._axes(e)}
+        for a in rows:
+            if a not in held:
+                g = mesh.all_reduce(g, a, "sum")
+        return g
+
+    return tree_map(one, grads, specs)
 
 
 def make_train_step(model, opt_cfg: AdamWConfig,
@@ -62,9 +90,14 @@ def make_train_step(model, opt_cfg: AdamWConfig,
             loss = torch.stack(losses).mean()
         else:
             loss, grads = value_and_grad(model.loss_fn, params, batch)
+        specs = None
+        if _spmd_mesh() is not None:
+            specs = model.param_specs()
+            grads = sync_grads(grads, specs, model.sh)
         with torch.no_grad():
             params, opt_state, metrics = adamw_update(opt_cfg, grads,
-                                                      opt_state, params)
+                                                      opt_state, params,
+                                                      specs)
         return params, opt_state, dict(metrics, loss=loss)
 
     return train_step

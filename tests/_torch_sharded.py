@@ -1,6 +1,9 @@
 """Rank program of ``tests/test_torch_sharding.py``: the sharded-model path
-(``launch.mesh.ModelMesh``, flash-decoding, expert-parallel MoE) on a
-``(data 2, model 4)`` mesh of 8 ``gloo`` CPU ranks.
+(``launch.mesh.ModelMesh``, flash-decoding, expert-parallel MoE) and the
+sharded step (``with mesh.spmd():``: train, prefill and decode, and the
+dry run's trace of the same step) on a ``(data 2, model 4)`` mesh of 8
+``gloo`` CPU ranks, and one train step on a ``(pod 2, data 2, model 2)``
+mesh of the same ranks.
 
 Imports neither JAX nor the JAX package, so that spawned ranks load only
 torch and the port: the JAX package's parameters and inputs arrive as
@@ -16,14 +19,22 @@ import functools
 
 import torch
 
+import numpy as np
+
 from repro_torch import configs
-from repro_torch.configs.base import ParallelConfig
-from repro_torch.launch.mesh import make_model_mesh, make_production_mesh
+from repro_torch._tree import tree_map
+from repro_torch.configs.base import ParallelConfig, ShapeConfig
+from repro_torch.launch import dryrun
+from repro_torch.launch.mesh import (make_model_mesh, make_production_mesh,
+                                     make_recording_mesh)
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import transformer
 from repro_torch.models.layers import P, ShardPlan
 from repro_torch.models.zoo import build_model, params_from_numpy
+from repro_torch.train.optimizer import AdamWConfig, adamw_init
+from repro_torch.train.trainer import (make_train_step, sync_grads,
+                                       value_and_grad)
 
 CPU = torch.device("cpu")
 MESH = ((2, 4), ("data", "model"))
@@ -35,8 +46,52 @@ FLASH = dict(batch=16, prompt=32, grow=40, seq_shard_min=16)
 MOE = dict(E=8, D=64, F=128, k=2, capacity_factor=2.0)
 
 
-def program(data: dict):
-    return functools.partial(rank_main, data)
+# The sharded step: reduced archs (float32), 16 rows of 32 tokens, one
+# AdamW step (eps 1e-6: at 1e-8 a gradient element near 1e-9, which two
+# computations round apart, moves its weight by a different share of lr).
+# "qwen3-moe-ep" is qwen3-moe with 16 experts, which param_specs lays out
+# over the model axis (experts % 16 == 0); the reduced 8 split d_ff.
+STEP = dict(batch=16, seq=32)
+STEP_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=10, eps=1e-6)
+STEP_ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "qwen3-moe-ep",
+              "mamba2-2.7b", "zamba2-7b", "seamless-m4t-medium")
+PREFILL_ARCHS = ("llama3.2-1b", "qwen3-moe-30b-a3b", "mamba2-2.7b",
+                 "zamba2-7b", "seamless-m4t-medium")
+POD_MESH = ((2, 2, 2), ("pod", "data", "model"))
+
+
+def step_arch(name: str):
+    """(registry arch, config changes) of a sharded-step case."""
+    if name == "qwen3-moe-ep":
+        return "qwen3-moe-30b-a3b", {"n_experts": 16}
+    return name, {}
+
+
+def step_batch(cfg, seed: int = 3) -> dict:
+    """The case's numpy batch: tokens and labels (16, 32) int32, and the
+    family's frames."""
+    rng = np.random.default_rng(seed)
+    B, S = STEP["batch"], STEP["seq"]
+    toks = rng.integers(1, cfg.vocab_size, (B, S + 1)).astype(np.int32)
+    out = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    if cfg.family == "encdec":
+        out["frames"] = rng.standard_normal(
+            (B, S, cfg.frontend_dim)).astype(np.float32)
+    return out
+
+
+def program(path: str):
+    """The rank function over the inputs pickled at ``path``: a spawned
+    rank's arguments travel through a pipe the parent fills one rank at
+    a time, so inputs past the pipe's buffer would start the ranks one
+    after another."""
+    return functools.partial(_load_and_run, path)
+
+
+def _load_and_run(path: str, rank: int) -> dict:
+    import pickle
+    with open(path, "rb") as f:
+        return rank_main(pickle.load(f), rank)
 
 
 class _Counted:
@@ -191,8 +246,140 @@ def _refusals(mesh, data) -> dict:
     return out
 
 
+def _rows(mesh, batch: dict, sh) -> dict:
+    """This rank's rows of a batch split over the plan's batch axes."""
+    entry = tuple(a for a in sh.dp if a in mesh.shape)
+    n, i = mesh.size(entry), mesh.index(entry)
+    return {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)]
+            for k, v in batch.items()}
+
+
+def _tensors(batch: dict) -> dict:
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in batch.items()}
+
+
+class _Plans:
+    """Records every routing plan (expert, slot, valid) computed."""
+
+    def __init__(self):
+        self.real, self.plans = moe_mod.route_with_bulk_steal, []
+        moe_mod.route_with_bulk_steal = self
+
+    def __call__(self, *a, **kw):
+        out = self.real(*a, **kw)
+        self.plans.append([_np(out[i]).astype(np.int64) if i != 3
+                           else out[i].numpy() for i in (0, 1, 3)])
+        return out
+
+    def close(self):
+        moe_mod.route_with_bulk_steal = self.real
+
+
+def _sharded_step(mesh, name: str, data: dict, *, trace: bool) -> dict:
+    """One sharded train step of case ``name`` on this rank's blocks: the
+    loss and metrics on every rank, and on rank 0 the gathered gradient
+    (``value_and_grad`` and ``sync_grads`` under the mesh) and the
+    gathered parameters after the step; with ``trace`` its
+    ``dryrun.StepTrace`` FLOPs and collective log beside ``trace_cell``'s
+    on a recording mesh at rank 0's coordinates; for an MoE case the
+    routing plans of a forward, sharded and unsharded."""
+    arch, changes = step_arch(name)
+    cfg = _cfg(arch, **changes)
+    pod = "pod" in mesh.shape
+    model = build_model(cfg, ParallelConfig(pod_axis="pod" if pod else None))
+    specs = model.param_specs()
+    full = params_from_numpy(data[f"step/{name}/params"], CPU)
+    local = mesh.shard(full, specs)
+    whole = _tensors(data[f"step/{name}/batch"])
+    batch = _rows(mesh, whole, model.sh)
+    step = make_train_step(model, AdamWConfig(**STEP_OPT))
+    log = mesh.record()
+    with mesh.spmd(), dryrun.StepTrace() as tr:
+        new, _, met = step(local, adamw_init(local), batch)
+    out = {"loss": float(met["loss"]), "grad_norm": float(met["grad_norm"]),
+           "flops": tr.flops, "kernels": tr.kernels}
+    if trace:
+        out["log"] = list(log)
+        shape = ShapeConfig("step", STEP["seq"], STEP["batch"], "train")
+        rec = make_recording_mesh(tuple(mesh.shape.values()),
+                                  tuple(mesh.shape), rank=0)
+        t = dryrun.trace_cell(cfg, shape, rec, ParallelConfig(
+            pod_axis="pod" if pod else None))
+        out["trace"] = {"flops": t["flops"], "log": t["records"]}
+    with mesh.spmd():
+        _, grads = value_and_grad(model.loss_fn, local, batch)
+        grads = sync_grads(grads, specs, model.sh)
+    grads, new = mesh.gather(grads, specs), mesh.gather(new, specs)
+    if mesh.rank == 0:
+        out["grads"] = tree_map(_np, grads)
+        out["params"] = tree_map(_np, new)
+    if cfg.n_experts:
+        taps = _Plans()
+        try:
+            with torch.no_grad():
+                model.loss_fn(full, whole)
+                n = len(taps.plans)
+                with mesh.spmd():
+                    model.loss_fn(local, batch)
+        finally:
+            taps.close()
+        out["plans_equal"] = len(taps.plans) == 2 * n and all(
+            all(np.array_equal(a, b) for a, b in zip(u, s_))
+            for u, s_ in zip(taps.plans[:n], taps.plans[n:]))
+        out["plans"] = n
+    return out
+
+
+def _strip(cache) -> dict:
+    """A cache's tensors as numpy (the recorded lengths dropped)."""
+    if isinstance(cache, dict):
+        return {k: _strip(v) for k, v in cache.items() if k != "seq_len"}
+    return _np(cache) if isinstance(cache, torch.Tensor) else cache
+
+
+def _sharded_prefill(mesh, name: str, data: dict) -> dict:
+    """The sharded prefill of this rank's rows: its logits and its cache
+    blocks (``cache_specs``' layout)."""
+    arch, changes = step_arch(name)
+    cfg = _cfg(arch, **changes)
+    model = build_model(cfg, ParallelConfig())
+    local = mesh.shard(params_from_numpy(data[f"step/{name}/params"], CPU),
+                       model.param_specs())
+    batch = _tensors(_rows(mesh, data[f"step/{name}/batch"], model.sh))
+    with mesh.spmd():
+        if cfg.family == "encdec":
+            logits, cache = model.prefill(local, batch["frames"],
+                                          batch["tokens"])
+        else:
+            logits, cache = model.prefill(local, batch["tokens"])
+    return {"logits": _np(logits), "cache": _strip(cache)}
+
+
+def _sharded_decode(mesh, data: dict) -> dict:
+    """A llama decode step in the sharded step: the whole cache of the
+    unsharded prefill of all 16 prompts, grown to 40 positions, cut to
+    this rank's block by ``cache_block`` (the sequence split over the
+    model axis, ``_SEQ_SHARD_MIN`` lowered to 16), then one step of this
+    rank's rows against it."""
+    cfg = _cfg("llama3.2-1b")
+    model = build_model(cfg, ParallelConfig())
+    params = params_from_numpy(data["llama3.2-1b/params"], CPU)
+    toks = torch.from_numpy(data["llama3.2-1b/tokens"])
+    S = FLASH["prompt"]
+    _, cache = model.prefill(params, toks[:, :S])
+    cache = model.cache_block(model.grow_cache(cache, FLASH["grow"]), mesh)
+    rows = _rows(mesh, {"t": toks[:, S:S + 1]}, model.sh)["t"]
+    with mesh.spmd():
+        logits, cache = model.decode_step(
+            mesh.shard(params, model.param_specs()), cache, rows)
+    return {"logits": _np(logits), "seq_len": cache["g0"]["seq_len"],
+            "cache_positions": int(cache["g0"]["k"].shape[2])}
+
+
 def rank_main(data: dict, rank: int) -> dict:
     mesh = make_model_mesh(*MESH, device="cpu")
+    pods = make_model_mesh(*POD_MESH, device="cpu")
     d = mesh.coords["data"]
     B = FLASH["batch"] // mesh.shape["data"]
     rows = slice(d * B, (d + 1) * B)
@@ -206,4 +393,13 @@ def rank_main(data: dict, rank: int) -> dict:
     out["moe6"] = _moe(mesh, data, 6, xrows)
     out["qwen3"] = _moe_prefill(mesh, data, slice(d * 2, (d + 1) * 2))
     out["refusals"] = _refusals(mesh, data)
+    out["step"] = {name: _sharded_step(mesh, name, data,
+                                       trace=name in ("llama3.2-1b",
+                                                      "mamba2-2.7b"))
+                   for name in STEP_ARCHS}
+    out["prefill"] = {name: _sharded_prefill(mesh, name, data)
+                      for name in PREFILL_ARCHS}
+    out["decode"] = _sharded_decode(mesh, data)
+    out["pod_step"] = _sharded_step(pods, "llama3.2-1b", data, trace=True)
+    out["pod_coords"] = dict(pods.coords)
     return out

@@ -60,10 +60,26 @@ def test_importing_every_port_module_loads_no_jax_and_no_repro():
         "          'repro_torch.kernels._backward',\n"
         "          'repro_torch.models.encdec', 'repro_torch.models.zoo',\n"
         "          'repro_torch.obs', 'repro_torch.obs.metrics',\n"
-        "          'repro_torch.obs.phase', 'repro_torch.obs.trace'):\n"
+        "          'repro_torch.obs.phase', 'repro_torch.obs.trace',\n"
+        "          'repro_torch.launch.dryrun', 'repro_torch.launch.roofline',\n"
+        "          'repro_torch.launch.perf', 'repro_torch.launch.report',\n"
+        "          'repro_torch.kernels.bounds'):\n"
         "    assert m in mods or m in sys.modules, m\n")
     res = _run(["-c", code], cwd=ROOT)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+def test_every_jax_module_has_a_counterpart_in_the_port():
+    """The two packages' file lists: every module of ``src/repro`` has a
+    file of the same path under ``src/repro_torch`` (Pallas kernel
+    modules have their CUDA sources and wrappers there instead)."""
+    jax_pkg = ROOT / "src" / "repro"
+    missing = sorted(
+        str(p.relative_to(jax_pkg)) for p in jax_pkg.rglob("*.py")
+        if not (PORT / p.relative_to(jax_pkg)).exists()
+        and not (p.parent.parent.name == "kernels"
+                 and p.name == "kernel.py"))
+    assert not missing, missing
 
 
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))

@@ -390,9 +390,10 @@ def test_ring_trees_split_and_refuse():
         list(_lib.ring_trees([pair], 2 ** 31 // 12 + 1))
 
 
-def test_wrappers_refuse_non_cpu_tensors_without_cuda():
+def test_wrappers_refuse_non_cpu_tensors_without_cuda(monkeypatch):
     """A tensor that is not on the CPU never takes the plain version: it
-    goes to the CUDA kernel or raises."""
+    goes to the CUDA kernel or raises; K6 and K7 on ``meta`` tensors (the
+    dry run's trace) return empty outputs of their shapes."""
     buf = torch.empty((2, 16, 1), dtype=I32, device="meta")
     cursor = torch.zeros((2,), dtype=I32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
@@ -412,11 +413,21 @@ def test_wrappers_refuse_non_cpu_tensors_without_cuda():
     with pytest.raises(ValueError, match="CUDA"):
         expand_layer_bulk(nodes[0], nodes[0], torch.zeros((), dtype=I32), 4)
     f32 = dict(dtype=torch.float32, device="meta")
-    with pytest.raises(ValueError, match="CUDA"):
-        ssd(torch.empty((1, 8, 2, 16), **f32), torch.empty((1, 8, 2), **f32),
-            torch.empty((2,), **f32), torch.empty((1, 8, 16), **f32),
-            torch.empty((1, 8, 16), **f32), torch.empty((2,), **f32),
-            chunk=4)
+    from repro_torch.kernels.ssd_scan import ops as ssd_ops
+
+    def plain(*a, **kw):
+        raise AssertionError("the plain version ran on meta tensors")
+
+    monkeypatch.setattr(ssd_ops, "ssd_chunked", plain)
+    before = ssd.launches
+    y, final = ssd(torch.empty((1, 8, 2, 16), **f32),
+                   torch.empty((1, 8, 2), **f32), torch.empty((2,), **f32),
+                   torch.empty((1, 8, 16), **f32),
+                   torch.empty((1, 8, 16), **f32), torch.empty((2,), **f32),
+                   chunk=4)
+    assert y.device.type == final.device.type == "meta"
+    assert y.shape == (1, 8, 2, 16) and final.shape == (1, 2, 16, 16)
+    assert ssd.launches == before
 
 
 @pytest.mark.parametrize("extent", [-1, 2 ** 31])

@@ -15,9 +15,26 @@
   ``atol 2e-5``, ``rtol 2e-4``).  Where the JAX package's bodies return
   None (a window, ``C % tp``, ``E % tp``) the port's land on the
   unsharded path.
+* The sharded step (``with mesh.spmd():``, every tensor this rank's block
+  by its spec) in the same spawn: one AdamW step of each reduced arch
+  (llama3.2-1b, qwen3-moe-30b-a3b with 8 experts and with 16 over the
+  model axis, mamba2-2.7b, zamba2-7b, seamless-m4t-medium) against the
+  JAX package's unsharded ``value_and_grad(loss_fn)`` and the AdamW
+  update its ``make_train_step`` applies to that gradient (loss within
+  1e-5, each gathered gradient leaf within 1e-4 of its largest |g|,
+  parameters within 1e-5), the MoE's
+  routing plans equal to the unsharded dispatch's; the sharded prefill
+  (logits within 1e-4, each cache block the JAX package's cache cut by
+  ``cache_specs``); a llama decode step on a sequence-split cache; a llama
+  step on a ``(pod 2, data 2, model 2)`` mesh; and each rank's FLOPs and
+  rank 0's collective log of its real step equal to the dry run's
+  ``trace_cell`` of the same step on ``meta``.
 """
 
 import dataclasses
+import functools
+import pickle
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -30,10 +47,12 @@ from repro.configs.base import ParallelConfig as JaxParallelConfig
 from repro.models import build_model as jax_build_model
 from repro.models import moe as jax_moe
 from repro.models.layers import ShardPlan as JaxShardPlan
+from repro.train import optimizer as jopt
 from repro.train.optimizer import opt_state_specs as jax_opt_state_specs
 from repro_torch import configs
 from repro_torch.configs.base import ParallelConfig
 from repro_torch.launch.mesh import run_workers
+from repro_torch.models import transformer as tmod
 from repro_torch.models.layers import P
 from repro_torch.models.zoo import build_model
 from repro_torch.train.optimizer import opt_state_specs
@@ -153,7 +172,7 @@ def _decode_reference(arch, data, grow):
 
 
 @pytest.fixture(scope="module")
-def mesh_run():
+def mesh_run(tmp_path_factory):
     data, want = {}, {}
     want["llama"] = _decode_reference("llama3.2-1b", data, M.FLASH["grow"])
     want["gemma2"] = _decode_reference("gemma2-9b", data, M.FLASH["grow"])
@@ -172,7 +191,59 @@ def mesh_run():
     data["qwen3-moe-30b-a3b/tokens"] = toks
     want["qwen3"] = [np.asarray(jax.jit(jm.prefill)(
         jp, jnp.asarray(toks[2 * d:2 * d + 2]))[0]) for d in range(2)]
-    return run_workers(M.program(data), M.N_RANKS, timeout=240), want
+    models = {}
+    for name in M.STEP_ARCHS:
+        arch, changes = M.step_arch(name)
+        jm, jp = models[name] = _jax_model(arch, **changes)
+        data[f"step/{name}/params"] = tree_np(jp)
+        data[f"step/{name}/batch"] = M.step_batch(jm.cfg)
+    path = tmp_path_factory.mktemp("sharded") / "inputs.pkl"
+    with open(path, "wb") as f:
+        pickle.dump(data, f)
+    # the ranks run while this process computes the sharded-step cases'
+    # JAX references, which they do not need
+    ranks = {}
+    spawn = threading.Thread(target=lambda: ranks.update(out=_run(
+        M.program(str(path)))))
+    spawn.start()
+    try:
+        for name in M.STEP_ARCHS:
+            want[f"step/{name}"] = _step_reference(
+                name, *models[name], data[f"step/{name}/batch"])
+    finally:
+        spawn.join()
+    if isinstance(ranks["out"], BaseException):
+        raise ranks["out"]
+    return ranks["out"], want
+
+
+def _run(fn):
+    try:
+        return run_workers(fn, M.N_RANKS, timeout=240)
+    except BaseException as e:   # raised again in the fixture's thread
+        return e
+
+
+def _step_reference(name, jm, jp, batch):
+    """The JAX package's unsharded loss, gradient, train step and prefill
+    of a sharded-step case on ``batch``."""
+    jb = {k: jnp.asarray(v) for k, v in batch.items()}
+    loss, grads = jax.jit(jax.value_and_grad(jm.loss_fn))(jp, jb)
+    # the JAX package's train step is this gradient through adamw_update
+    # (repro.train.trainer.make_train_step without microbatches)
+    update = jax.jit(functools.partial(jopt.adamw_update,
+                                       jopt.AdamWConfig(**M.STEP_OPT)))
+    new, _, _ = update(grads, jopt.adamw_init(jp), jp)
+    out = {"loss": float(loss), "grads": tree_np(grads),
+           "params": tree_np(new)}
+    if name in M.PREFILL_ARCHS:
+        if jm.cfg.family == "encdec":
+            logits, cache = jax.jit(jm.prefill)(jp, jb["frames"],
+                                                jb["tokens"])
+        else:
+            logits, cache = jax.jit(jm.prefill)(jp, jb["tokens"])
+        out["logits"], out["cache"] = np.asarray(logits), tree_np(cache)
+    return out
 
 
 def _rows(rank_out, n):
@@ -288,3 +359,156 @@ def test_production_mesh_refuses_a_world_of_8(mesh_run):
     for r in ranks:
         assert "needs 256 ranks; the world has 8" in \
             r["refusals"]["production_mesh"]
+
+
+# --------------------------------------------------- the sharded step
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: np.asarray(tree)}
+
+
+def _assert_grads(got, want, what):
+    got, want = _flat(got), _flat(want)
+    assert got.keys() == want.keys(), what
+    for k in want:
+        scale = max(float(np.abs(want[k]).max()), 1e-30)
+        err = float(np.abs(got[k] - want[k]).max())
+        assert err <= 1e-4 * scale, f"{what} {k}: {err} of {scale}"
+
+
+@pytest.mark.parametrize("name", M.STEP_ARCHS)
+def test_sharded_train_step_matches_the_unsharded_jax_step(mesh_run, name):
+    """Every rank's loss within 1e-5 of the JAX package's unsharded loss,
+    the gathered gradient within 1e-4 of each leaf's largest |g|, and the
+    gathered parameters after the AdamW step within 1e-5."""
+    ranks, want = mesh_run
+    w = want[f"step/{name}"]
+    for r in ranks:
+        np.testing.assert_allclose(r["step"][name]["loss"], w["loss"],
+                                   rtol=1e-5, atol=1e-5)
+    got = ranks[0]["step"][name]
+    _assert_grads(got["grads"], w["grads"], name)
+    gp, wp = _flat(got["params"]), _flat(w["params"])
+    for k in wp:
+        np.testing.assert_allclose(gp[k], wp[k], atol=1e-5, rtol=0,
+                                   err_msg=f"{name} {k}")
+
+
+@pytest.mark.parametrize("name", ["qwen3-moe-30b-a3b", "qwen3-moe-ep"])
+def test_sharded_moe_plans_equal_the_unsharded_plan(mesh_run, name):
+    """Each rank routes every global chunk that holds its tokens by the
+    plan of the unsharded dispatch, integer for integer (one per MoE
+    layer)."""
+    ranks, _ = mesh_run
+    for r in ranks:
+        assert r["step"][name]["plans"] == 4
+        assert r["step"][name]["plans_equal"]
+
+
+def _flat_specs(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k2: v2 for k, v in tree.items()
+                for k2, v2 in _flat_specs(v, f"{prefix}{k}/").items()}
+    return {prefix[:-1]: tree}
+
+
+def _cut(x, spec, coords, shape):
+    """``mesh.shard``'s block of a numpy array."""
+    for d, entry in enumerate(spec):
+        names = () if entry is None else (
+            entry if isinstance(entry, tuple) else (entry,))
+        n, i = 1, 0
+        for a in names:
+            i, n = i * shape[a] + coords[a], n * shape[a]
+        if n > 1:
+            w = x.shape[d] // n
+            x = np.take(x, range(i * w, (i + 1) * w), axis=d)
+    return x
+
+
+@pytest.mark.parametrize("name", M.PREFILL_ARCHS)
+def test_sharded_prefill_matches_the_unsharded_jax_prefill(mesh_run, name):
+    """Each rank's logits of its data rank's 8 rows within 1e-4, and each
+    cache block the JAX package's cache of all 16 rows cut by the port's
+    ``cache_specs`` (the global layers' 32 positions split over the model
+    axis, ``_SEQ_SHARD_MIN`` lowered to 16), within 1e-4."""
+    ranks, want = mesh_run
+    w = want[f"step/{name}"]
+    arch, changes = M.step_arch(name)
+    model = build_model(dataclasses.replace(
+        configs.reduced(configs.get(arch)), **changes), ParallelConfig())
+    shape = dict(zip(*reversed(M.MESH)))
+    saved = tmod._SEQ_SHARD_MIN
+    tmod._SEQ_SHARD_MIN = M.FLASH["seq_shard_min"]
+    try:
+        specs = model.cache_specs(M.STEP["seq"], M.STEP["batch"])
+    finally:
+        tmod._SEQ_SHARD_MIN = saved
+    for r in ranks:
+        got = r["prefill"][name]
+        np.testing.assert_allclose(got["logits"], w["logits"][_rows(r, 8)],
+                                   atol=1e-4, rtol=1e-4)
+        gc, wc = _flat(got["cache"]), _flat(w["cache"])
+        sc = _flat_specs(specs)
+        assert gc.keys() == wc.keys()
+        assert int(gc.pop("pos")) == int(wc.pop("pos")) == M.STEP["seq"]
+        for k in gc:
+            np.testing.assert_allclose(
+                gc[k], _cut(wc[k], sc[k], r["coords"], shape),
+                atol=1e-4, rtol=1e-4, err_msg=f"{name} {k} {r['coords']}")
+
+
+def test_sharded_decode_matches_the_unsharded_jax_decode(mesh_run):
+    """A llama decode step on the sequence-split cache (10 of 40 positions
+    a model rank, merged across the model axis), every rank's logits
+    within 1e-4 of the JAX package's unsharded ``decode_step``."""
+    ranks, want = mesh_run
+    for r in ranks:
+        got = r["decode"]
+        assert got["seq_len"] == 40 and got["cache_positions"] == 10
+        np.testing.assert_allclose(got["logits"],
+                                   want["llama"][0][_rows(r, 8)],
+                                   atol=1e-4, rtol=1e-4)
+
+
+def test_sharded_step_with_the_pod_axis(mesh_run):
+    """One llama step on (pod 2, data 2, model 2): the batch over pod and
+    data, the parameters replicated over the pods (their gradients summed
+    over them), against the same JAX step."""
+    ranks, want = mesh_run
+    assert [r["pod_coords"] for r in ranks] == [
+        {"pod": p, "data": d, "model": m}
+        for p in range(2) for d in range(2) for m in range(2)]
+    w = want["step/llama3.2-1b"]
+    for r in ranks:
+        np.testing.assert_allclose(r["pod_step"]["loss"], w["loss"],
+                                   rtol=1e-5, atol=1e-5)
+    got = ranks[0]["pod_step"]
+    _assert_grads(got["grads"], w["grads"], "pods")
+    gp, wp = _flat(got["params"]), _flat(w["params"])
+    for k in wp:
+        np.testing.assert_allclose(gp[k], wp[k], atol=1e-5, rtol=0,
+                                   err_msg=f"pods {k}")
+
+
+@pytest.mark.parametrize("case", [("step", "llama3.2-1b"),
+                                  ("step", "mamba2-2.7b"),
+                                  ("pod_step", None)])
+def test_the_dry_run_traces_what_the_real_step_does(mesh_run, case):
+    """``trace_cell`` of the step on a recording mesh at rank 0's
+    coordinates (``meta`` tensors) counts every rank's real FLOPs, and its
+    collective log is rank 0's real one, call for call; K6 / K7 charge
+    their own counts in both."""
+    ranks, _ = mesh_run
+    part, name = case
+    rows = [r[part][name] if name else r[part] for r in ranks]
+    trace = rows[0]["trace"]
+    assert trace["log"] == rows[0]["log"]
+    assert len(trace["log"]) > 0
+    for r in rows:
+        assert r["flops"] == trace["flops"] > 0
+        assert r["kernels"]

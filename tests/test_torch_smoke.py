@@ -371,3 +371,33 @@ def test_sharded_phase_holds_every_gate_at_a_cpu_size(monkeypatch):
     assert out["moe"]["experts_held"] == [2] * 8
     assert out["moe"]["ep_calls"] == [4] * 8
     assert all(out["moe"]["plans_bit_equal"])
+
+
+def test_sharded_step_phase_holds_every_gate_at_a_cpu_size(monkeypatch):
+    """Phase 15 at ``PHASE15_SMALL``: 8 gloo CPU ranks; the sharded train
+    steps of reduced llama3.2-1b (two), qwen3-moe and mamba2 within the
+    phase's tolerances of the unsharded ones on every rank, a prefill's
+    logits, the MoE's plans bit-equal, llama on the (pod 2, data 2, model
+    2) mesh, and the dry run's trace of the llama step logging rank 0's
+    collectives call for call."""
+    monkeypatch.syspath_prepend(str(ROOT))
+    smoke = importlib.import_module("chip_smoke")
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)    # the references beside 8 one-thread ranks
+    try:
+        out = smoke.phase_sharded_step(CPU, smoke.PHASE15_SMALL)
+    finally:
+        torch.set_num_threads(threads)
+    assert out["mesh"] == {"data": 2, "model": 4}
+    assert out["pod_mesh"] == {"pod": 2, "data": 2, "model": 2}
+    for name, steps in (("dense", 2), ("moe", 1), ("ssm", 1), ("pods", 1)):
+        assert len(out[name]["losses"]) == 8
+        assert all(len(x) == steps for x in out[name]["losses"])
+        assert max(out[name]["max_grad_err_over_leaf_max"]) <= \
+            smoke.SHARDED_GRAD_TOL
+    assert max(out["dense"]["logits_max_abs_err"]) <= \
+        smoke.SHARDED_LOGITS_TOL
+    assert out["moe"]["plans_bit_equal"]
+    assert out["moe"]["forward_plan_agreement"] == 1.0
+    check = out["dry_run_check"]
+    assert check["log_equal"] and check["collectives"] > 0

@@ -258,6 +258,16 @@ check that does not hold:
    (e) ``run_cell("llama3.2-1b", "train_4k")`` printed whole, with the
    card's ``total_memory``.  ms a step sharded and unsharded, not gated.
 
+16. The examples (``{"phase": "examples"}``, after phase 15;
+   ``PHASE16``).  The port's four ``examples/torch_*.py`` on the card, each
+   a subprocess at its default size: the quickstart (its bulk push and
+   steal launch K2 and K1, its vmapped superstep K1 and K4), the knapsack
+   solver (``bnb.solve`` and ``parallel_solve`` must equal the DP
+   oracle), the serving demo (every request served behind the straggler,
+   the master stole, K6 launched) and the LM trainer (the loss falls, K6
+   launched).  Each must exit 0; its exit code, wall seconds and the
+   integers it printed are reported.
+
 The last lines are one JSON object per kernel (``{"kernels": [...]}``),
 the card's name and power limit, and the result line
 ``{"ok": true, "device": {...}}``.
@@ -287,6 +297,9 @@ MEM_BYTES_PER_S = 3.35e12  # H100 SXM device memory rate (NVIDIA data sheet)
 # 8,192; 64 workers, a point of the Fig. 10 sweep; explore width 16 x batch
 # 8 = 128-row child pushes, 8-row pops).
 LANES, CAP, MAX_STEAL, PUSH_ROWS, POP_ROWS = 64, 16384, 8192, 128, 8
+# the ring geometry phase 1 times K1-K4 at (lanes, rows, max_steal, rows a
+# push, rows a pop)
+RING = (LANES, CAP, MAX_STEAL, PUSH_ROWS, POP_ROWS)
 # The paper's Fig. 6 sweep of push sizes, up to max_steal rows per lane.
 FIG6_PUSH_ROWS = (1, 16, 128, 1024, 8192)
 
@@ -597,6 +610,16 @@ PHASE15_SMALL = dict(
     pods=dict(PHASE15["pods"], seq=32, layers=None),
     moe=dict(PHASE15["moe"], seq=32, layers=None),
     ssm=dict(PHASE15["ssm"], seq=32, layers=None), run_cell=None)
+# Phase 16: the examples' arguments (their defaults on the card) and the
+# CPU rehearsal's smaller ones.
+PHASE16 = dict(quickstart=[], knapsack_solver=[], serve_demo=[], train_lm=[],
+               timeout=300)
+PHASE16_SMALL = dict(
+    quickstart=[], knapsack_solver=["--n", "10"],
+    serve_demo=["--requests", "6"],
+    train_lm=["--steps", "4", "--layers", "2", "--d-model", "256",
+              "--vocab", "512", "--seq", "32", "--batch", "2"],
+    timeout=120)
 SHARDED_LOSS_TOL = 1e-5
 SHARDED_GRAD_TOL = 1e-4
 SHARDED_LOGITS_TOL = 1e-4
@@ -691,11 +714,13 @@ class Timer:
     around ``n`` calls queued behind a device-side sleep, so the events
     see the device time of the calls and not the host's launch rate
     (``clean`` says whether the host finished queueing before the sleep
-    ended).  On the CPU (tests) it is host time, and never reported."""
+    ended).  On the CPU (tests) it is host time, and never reported.
+    ``reps`` caps the calls timed (and the three warm-up calls) of every
+    measurement, for a quick rehearsal; None times each as asked."""
 
-    def __init__(self, device):
+    def __init__(self, device, reps=None):
         import torch
-        self.torch, self.device = torch, device
+        self.torch, self.device, self.reps = torch, device, reps
         self.cycles_per_ms = None
         if device.type == "cuda":
             e0, e1 = self._events(2)
@@ -711,7 +736,9 @@ class Timer:
 
     def ms(self, fn, n: int = 100):
         torch = self.torch
-        for _ in range(3):
+        if self.reps is not None:
+            n = min(n, self.reps)
+        for _ in range(min(3, n)):
             fn()
         if self.device.type != "cuda":
             t = time.perf_counter()
@@ -1009,10 +1036,11 @@ def kernel_cases(device, rng):
                        f"path {dt}")
 
 
-def kernel_timings(device, rng, timer):
-    """Per kernel at the solver's shapes (int32 rows, every lane moving its
-    full count): kernel, plain version and library call times and the
-    device-memory bound."""
+def kernel_timings(device, rng, timer, ring=None):
+    """Per kernel at ``ring``'s geometry (default :data:`RING`, the
+    solver's; int32 rows, every lane moving its full count): kernel, plain
+    version and library call times and the device-memory bound."""
+    lanes, cap, max_steal, push_rows, pop_rows = ring or RING
     import torch
     from repro_torch.kernels.queue_push.ops import ring_scatter, ring_slice
     from repro_torch.kernels.queue_push.ref import (ring_scatter_ref,
@@ -1023,80 +1051,80 @@ def kernel_timings(device, rng, timer):
     from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 
     i32 = torch.int32
-    buf = torch.tensor(rng.integers(0, 2 ** 30, (LANES, CAP, 1)), dtype=i32,
+    buf = torch.tensor(rng.integers(0, 2 ** 30, (lanes, cap, 1)), dtype=i32,
                        device=device)
-    flat = buf.view(LANES * CAP, 1)
-    base = torch.arange(LANES, device=device)[:, None] * CAP
-    lo = torch.tensor(rng.integers(0, CAP, LANES), dtype=i32, device=device)
-    size = torch.tensor(rng.integers(POP_ROWS, CAP + 1, LANES), dtype=i32,
+    flat = buf.view(lanes * cap, 1)
+    base = torch.arange(lanes, device=device)[:, None] * cap
+    lo = torch.tensor(rng.integers(0, cap, lanes), dtype=i32, device=device)
+    size = torch.tensor(rng.integers(pop_rows, cap + 1, lanes), dtype=i32,
                         device=device)
 
     def rows_of(start, m):
         return (base + (start.long()[:, None]
-                        + torch.arange(m, device=device)) % CAP).reshape(-1)
+                        + torch.arange(m, device=device)) % cap).reshape(-1)
 
-    full_steal = torch.full((LANES,), MAX_STEAL, dtype=i32, device=device)
-    full_push = torch.full((LANES,), PUSH_ROWS, dtype=i32, device=device)
-    full_pop = torch.full((LANES,), POP_ROWS, dtype=i32, device=device)
-    batch = torch.tensor(rng.integers(0, 2 ** 30, (LANES, PUSH_ROWS, 1)),
+    full_steal = torch.full((lanes,), max_steal, dtype=i32, device=device)
+    full_push = torch.full((lanes,), push_rows, dtype=i32, device=device)
+    full_pop = torch.full((lanes,), pop_rows, dtype=i32, device=device)
+    batch = torch.tensor(rng.integers(0, 2 ** 30, (lanes, push_rows, 1)),
                          dtype=i32, device=device)
-    gathered = torch.tensor(rng.integers(0, 2 ** 30, (LANES * MAX_STEAL, 1)),
+    gathered = torch.tensor(rng.integers(0, 2 ** 30, (lanes * max_steal, 1)),
                             dtype=i32, device=device)
-    src = torch.tensor(rng.permutation(LANES), dtype=i32, device=device)
-    win_idx = rows_of(lo, MAX_STEAL)
-    pop_idx = rows_of(lo + size - POP_ROWS, POP_ROWS)
-    push_idx = rows_of(lo, PUSH_ROWS)
+    src = torch.tensor(rng.permutation(lanes), dtype=i32, device=device)
+    win_idx = rows_of(lo, max_steal)
+    pop_idx = rows_of(lo + size - pop_rows, pop_rows)
+    push_idx = rows_of(lo, push_rows)
     # src is a permutation, so window s lands in the one lane l with
-    # src[l] == s: row s * MAX_STEAL + i of the stack goes to lane l's
-    # physical row (lo[l] + i) % CAP.
-    splice_idx = win_idx.view(LANES, MAX_STEAL)[
+    # src[l] == s: row s * max_steal + i of the stack goes to lane l's
+    # physical row (lo[l] + i) % cap.
+    splice_idx = win_idx.view(lanes, max_steal)[
         torch.argsort(src.long())].reshape(-1)
-    cursor = 4 * LANES
+    cursor = 4 * lanes
 
     specs = {
         # the compact exchange's window: every lane reads max_steal rows
         "ring_gather": (
-            lambda: ring_gather(buf, lo, full_steal, MAX_STEAL),
-            lambda: ring_gather_ref(buf, lo, full_steal, MAX_STEAL),
+            lambda: ring_gather(buf, lo, full_steal, max_steal),
+            lambda: ring_gather_ref(buf, lo, full_steal, max_steal),
             lambda: flat.index_select(0, win_idx),
-            2 * LANES * MAX_STEAL * 4 + 2 * cursor,
+            2 * lanes * max_steal * 4 + 2 * cursor,
             "window at lo, n = max_steal on every lane"),
         "ring_scatter": (
             lambda: ring_scatter(buf, batch, lo, full_push),
             lambda: ring_scatter_ref(buf, batch, lo, full_push),
             lambda: flat.index_copy_(0, push_idx, batch.view(-1, 1)),
-            2 * LANES * PUSH_ROWS * 4 + 2 * cursor,
-            "128-row push on every lane"),
+            2 * lanes * push_rows * 4 + 2 * cursor,
+            f"{push_rows}-row push on every lane"),
         "ring_slice": (
-            lambda: ring_slice(buf, lo, size, full_pop, POP_ROWS),
-            lambda: ring_slice_ref(buf, lo, size, full_pop, POP_ROWS),
+            lambda: ring_slice(buf, lo, size, full_pop, pop_rows),
+            lambda: ring_slice_ref(buf, lo, size, full_pop, pop_rows),
             lambda: flat.index_select(0, pop_idx),
-            2 * LANES * POP_ROWS * 4 + 3 * cursor,
-            "8-row pop on every lane"),
+            2 * lanes * pop_rows * 4 + 3 * cursor,
+            f"{pop_rows}-row pop on every lane"),
         "ring_transfer": (
             lambda: ring_transfer(buf, gathered, lo, src, full_steal,
-                                  MAX_STEAL),
+                                  max_steal),
             lambda: ring_transfer_ref(buf, gathered, lo,
-                                      src.long() * MAX_STEAL, full_steal),
+                                      src.long() * max_steal, full_steal),
             lambda: flat.index_copy_(0, splice_idx, gathered),
-            2 * LANES * MAX_STEAL * 4 + 3 * cursor,
+            2 * lanes * max_steal * 4 + 3 * cursor,
             "max_steal rows from the window stack into every lane"),
     }
     # The library yardsticks compute the same function on these inputs.
-    check(torch.equal(specs["ring_gather"][2]().view(LANES, MAX_STEAL, 1),
-                      ring_gather(buf, lo, full_steal, MAX_STEAL)),
+    check(torch.equal(specs["ring_gather"][2]().view(lanes, max_steal, 1),
+                      ring_gather(buf, lo, full_steal, max_steal)),
           "index_select yardstick != ring_gather")
-    check(torch.equal(specs["ring_slice"][2]().view(LANES, POP_ROWS, 1),
-                      ring_slice(buf, lo, size, full_pop, POP_ROWS)),
+    check(torch.equal(specs["ring_slice"][2]().view(lanes, pop_rows, 1),
+                      ring_slice(buf, lo, size, full_pop, pop_rows)),
           "index_select yardstick != ring_slice")
     pushed = ring_scatter(buf.clone(), batch, lo, full_push)
     check(torch.equal(flat.clone().index_copy_(0, push_idx, batch.view(-1, 1)),
-                      pushed.view(LANES * CAP, 1)),
+                      pushed.view(lanes * cap, 1)),
           "index_copy_ yardstick != ring_scatter")
     spliced = ring_transfer(buf.clone(), gathered, lo, src, full_steal,
-                            MAX_STEAL)
+                            max_steal)
     check(torch.equal(flat.clone().index_copy_(0, splice_idx, gathered),
-                      spliced.view(LANES * CAP, 1)),
+                      spliced.view(lanes * cap, 1)),
           "index_copy_ yardstick != ring_transfer")
     out = {}
     for name, (kern, plain, library, nbytes, what) in specs.items():
@@ -1110,9 +1138,10 @@ def kernel_timings(device, rng, timer):
     return out
 
 
-def solver_payload_timings(device, rng, timer):
+def solver_payload_timings(device, rng, timer, ring=None):
     """K1-K4 as the solver calls them, on its payload tree of three int32
-    leaves (layer, state, value) of 64 x 16,384-row rings: K1 reads the
+    leaves (layer, state, value) of 64 x 16,384-row rings (``ring``,
+    default :data:`RING`): K1 reads the
     compact exchange's window (n = max_steal on every lane), K2 pushes a
     128-row batch of children with n drawn in 0-128 on every lane, K3 pops
     8 rows on every lane, K4 splices a superstep's mean transfer, 15 rows
@@ -1122,6 +1151,7 @@ def solver_payload_timings(device, rng, timer):
     plain versions leaf by leaf; ``launches_per_call`` counts the
     wrapper's launches in one call.  No single PyTorch call moves a
     tree."""
+    lanes, cap, max_steal, push_rows, pop_rows = ring or RING
     import torch
     from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
     from repro_torch.kernels.queue_push.ref import (ring_scatter_ref,
@@ -1131,31 +1161,31 @@ def solver_payload_timings(device, rng, timer):
     from repro_torch.kernels.queue_transfer.ops import transfer_splice
     from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 
-    thieves, rows = 11, 15
+    thieves, rows = min(11, lanes), min(15, max_steal)
 
     def leaves(shape):
         return {k: torch.tensor(rng.integers(0, 2 ** 30, shape),
                                 dtype=torch.int32, device=device)
                 for k in ("layer", "state", "value")}
 
-    rings, stacks = leaves((LANES, CAP)), leaves((LANES, MAX_STEAL))
-    lo = _vec(device, rng.integers(0, CAP, LANES))
-    full = _vec(device, np.full(LANES, MAX_STEAL))
-    n = np.zeros(LANES, np.int32)
-    n[rng.choice(LANES, thieves, replace=False)] = rows
+    rings, stacks = leaves((lanes, cap)), leaves((lanes, max_steal))
+    lo = _vec(device, rng.integers(0, cap, lanes))
+    full = _vec(device, np.full(lanes, max_steal))
+    n = np.zeros(lanes, np.int32)
+    n[rng.choice(lanes, thieves, replace=False)] = rows
     n = _vec(device, n)
-    src = _vec(device, rng.permutation(LANES))
-    size = _vec(device, rng.integers(POP_ROWS, CAP + 1, LANES))
-    pop = _vec(device, np.full(LANES, POP_ROWS))
-    children = leaves((LANES, PUSH_ROWS))
-    push_n = _vec(device, rng.integers(0, PUSH_ROWS + 1, LANES))
-    cursor = 4 * LANES
+    src = _vec(device, rng.permutation(lanes))
+    size = _vec(device, rng.integers(pop_rows, cap + 1, lanes))
+    pop = _vec(device, np.full(lanes, pop_rows))
+    children = leaves((lanes, push_rows))
+    push_n = _vec(device, rng.integers(0, push_rows + 1, lanes))
+    cursor = 4 * lanes
     specs = {
         "ring_gather": (
-            lambda t: steal_gather(t, lo, full, max_steal=MAX_STEAL),
-            lambda t: {k: ring_gather_ref(v, lo, full, MAX_STEAL)
+            lambda t: steal_gather(t, lo, full, max_steal=max_steal),
+            lambda t: {k: ring_gather_ref(v, lo, full, max_steal)
                        for k, v in t.items()},
-            3 * (2 * LANES * MAX_STEAL * 4) + 2 * cursor,
+            3 * (2 * lanes * max_steal * 4) + 2 * cursor,
             "the solver's 3 int32 leaves, window at lo, n = max_steal on "
             "every lane"),
         "ring_scatter": (
@@ -1163,23 +1193,24 @@ def solver_payload_timings(device, rng, timer):
             lambda t: {k: ring_scatter_ref(v, children[k], lo, push_n)
                        for k, v in t.items()},
             3 * (2 * int(push_n.sum()) * 4) + 2 * cursor,
-            f"the solver's 3 int32 leaves, {PUSH_ROWS}-row batch, n in "
-            f"0-{PUSH_ROWS} on every lane"),
+            f"the solver's 3 int32 leaves, {push_rows}-row batch, n in "
+            f"0-{push_rows} on every lane"),
         "ring_slice": (
-            lambda t: pop_slice(t, lo, size, pop, max_n=POP_ROWS),
-            lambda t: {k: ring_slice_ref(v, lo, size, pop, POP_ROWS)
+            lambda t: pop_slice(t, lo, size, pop, max_n=pop_rows),
+            lambda t: {k: ring_slice_ref(v, lo, size, pop, pop_rows)
                        for k, v in t.items()},
-            3 * (2 * LANES * POP_ROWS * 4) + 3 * cursor,
-            "the solver's 3 int32 leaves, 8-row pop on every lane"),
+            3 * (2 * lanes * pop_rows * 4) + 3 * cursor,
+            f"the solver's 3 int32 leaves, {pop_rows}-row pop on every "
+            f"lane"),
         "ring_transfer": (
             lambda t: transfer_splice(t, stacks, lo, src, n,
-                                      max_steal=MAX_STEAL),
+                                      max_steal=max_steal),
             lambda t: {k: ring_transfer_ref(v, stacks[k].view(-1), lo,
-                                            src.long() * MAX_STEAL, n)
+                                            src.long() * max_steal, n)
                        for k, v in t.items()},
             3 * (2 * thieves * rows * 4) + 3 * cursor,
             f"the solver's 3 int32 leaves, {rows} rows into {thieves} of "
-            f"{LANES} lanes"),
+            f"{lanes} lanes"),
     }
     counters = {"ring_gather": steal_gather, "ring_scatter": push_scatter,
                 "ring_slice": pop_slice, "ring_transfer": transfer_splice}
@@ -1443,9 +1474,10 @@ def explore_ops(subs, valid, out, *, width: int, n_vars: int) -> int:
     return layers * (4 * k + 2 * k * int(np.ceil(np.log2(k))))
 
 
-def explore_timing(device, rng, timer):
+def explore_timing(device, rng, timer, batch=None):
     """The fused explore and its plain version on the solver's batch
-    (``EXPLORE_CASES[0]``: 512 subproblems, width 16, 30 layers), checked
+    (``EXPLORE_CASES[0]``: 512 subproblems, width 16, 30 layers; ``batch``
+    subproblems of its kind instead where given), checked
     bit for bit first, and the bound: the larger of the bytes (the (B,)
     inputs, weights and profits read once, the bounds, flags and (B, W)
     children written once) at the memory rate and :func:`explore_ops` at
@@ -1454,6 +1486,8 @@ def explore_timing(device, rng, timer):
     from repro_torch.kernels import cases as C
 
     case = C.EXPLORE_CASES[0]
+    if batch is not None:
+        case = case[:1] + (batch,) + case[2:]
     what, b, width, n_vars = case[:4]
     args = _explore_args(device, rng, case)
     kw = dict(width=width, n_vars=n_vars)
@@ -1571,14 +1605,20 @@ def ssd_timing(device, rng, timer, shape):
 
 
 def phase_kernels(device, seed: int = 0, flash_shapes=None,
-                  ssd_shapes=None):
+                  ssd_shapes=None, ring=None, explore_batch=None, reps=None):
     """Every kernel against its plain version, then timed.  ``flash_shapes``
     are K6's three timed shapes (default: the serving slice's prefill,
     zamba2-7b's and seamless-m4t-medium's cross-attention, reported as
     ``flash_attention``, ``flash_attention_hd112`` and
     ``flash_attention_cross``) and ``ssd_shapes`` K7's (default: the SSM
     slice's prefill and zamba2-7b's, reported as ``ssd_scan`` and
-    ``ssd_scan_hd64_ns64``)."""
+    ``ssd_scan_hd64_ns64``).  The rest of the timed part is sized by
+    ``ring`` (K1-K4 and their solver payload; default :data:`RING`),
+    ``explore_batch`` (the fused explore's subproblems; default the
+    solver's 512) and ``reps`` (the :class:`Timer`'s cap on calls timed;
+    default none).  The defaults are the card's; the CPU rehearsal passes
+    small ones, and every parity check runs at its own shapes either
+    way."""
     from repro_torch.kernels import cases as C
     rng = np.random.default_rng(seed)
     errs, counts = {}, {}
@@ -1599,12 +1639,14 @@ def phase_kernels(device, seed: int = 0, flash_shapes=None,
     errs["ssd_scan"], counts["ssd_scan"] = ssd_checks(device, rng,
                                                       ssd_shapes)
     sync(device)
-    timer = Timer(device)
-    timings = kernel_timings(device, rng, timer)
-    for name, row in solver_payload_timings(device, rng, timer).items():
+    timer = Timer(device, reps=reps)
+    timings = kernel_timings(device, rng, timer, ring)
+    for name, row in solver_payload_timings(device, rng, timer,
+                                            ring).items():
         timings[name]["solver_payload"] = row
     per_layer = expand_timing(device, rng, timer)
-    timings["dd_expand"] = dict(explore_timing(device, rng, timer),
+    timings["dd_expand"] = dict(explore_timing(device, rng, timer,
+                                               explore_batch),
                                 earlier_ms=per_layer["ms"],
                                 earlier=per_layer)
     flash_rows = ("flash_attention", "flash_attention_hd112",
@@ -4556,6 +4598,121 @@ def phase_obs(device, counters, cfg, expect=None, served=None,
     return out
 
 
+# ----------------------------------------------- phase 16: the examples
+
+EXAMPLE_INTS = {
+    "quickstart": {
+        "steal_n": r"device bulk steal: (\d+) items",
+        "queue_launches": r"queue kernel launches: ring_gather=(\d+) "
+                          r"ring_scatter=(\d+) ring_transfer=(\d+)",
+        "moved": r"superstep moved (\d+) items in (\d+) steals",
+        "superstep_launches": r"superstep kernel launches: ring_gather="
+                              r"(\d+) ring_scatter=(\d+) ring_transfer="
+                              r"(\d+)",
+        "sizes": r"sizes before: \[([\d, ]+)\] after one master "
+                 r"superstep: \[([\d, ]+)\]"},
+    "knapsack_solver": {
+        "paper_optimum": r"DD branch-and-bound optimum: (\d+)",
+        "oracle": r"DP oracle=(\d+)", "sequential": r"sequential=(\d+)",
+        "parallel": r"parallel=(\d+)", "supersteps": r"(\d+) supersteps",
+        "steals": r"runtime telemetry: (\d+) steals"},
+    "serve_demo": {
+        "served": r"\[serve_demo\] (\d+)/(\d+) requests",
+        "stolen": r"master bulk-stole (\d+) requests over (\d+) rounds",
+        "completed": r"per-replica completed: \[([\d, ]+)\]",
+        "flash_attention": r"flash-attention kernel launches: (\d+)"},
+    "train_lm": {
+        "losses": r"step +\d+ +loss ([\d.]+)",
+        "flash_attention": r"flash-attention kernel launches: (\d+)"},
+}
+
+
+def _example_ints(name: str, out: str) -> dict:
+    """The integers (and the losses) an example printed, by
+    :data:`EXAMPLE_INTS`; a pattern it did not print fails the phase."""
+    import re
+    got = {}
+    for key, pat in EXAMPLE_INTS[name].items():
+        hits = re.findall(pat, out)
+        check(bool(hits), f"example {name} printed no {key!r} line:\n{out}")
+        groups = [g for h in hits
+                  for g in (h if isinstance(h, tuple) else (h,))]
+        nums = [float(x) if "." in x else int(x)
+                for g in groups for x in re.split(r"[,\s]+", g) if x]
+        got[key] = nums if key == "losses" or len(nums) > 1 else nums[0]
+    return got
+
+
+def run_example(name: str, args, device, timeout: float) -> dict:
+    """``examples/torch_<name>.py`` in a subprocess on ``device``: its exit
+    code, wall seconds, and the integers it printed (the run's output on
+    failure)."""
+    import shutil
+    import tempfile
+    argv = [sys.executable, str(ROOT / "examples" / f"torch_{name}.py"),
+            "--device", device.type, *args]
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_example_")
+    if name == "train_lm":  # a fresh checkpoint directory: no resume
+        argv += ["--ckpt-dir", tmp]
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [str(ROOT / "src")] + [p for p in os.environ.get(
+            "PYTHONPATH", "").split(os.pathsep) if p]))
+    if device.type == "cpu":
+        env["OMP_NUM_THREADS"] = "1"  # beside other test processes
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run(argv, cwd=str(ROOT), env=env, timeout=timeout,
+                             capture_output=True, text=True)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    wall = time.perf_counter() - t0
+    check(res.returncode == 0, f"example {name} exited {res.returncode}:\n"
+          f"{res.stdout[-2000:]}\n{res.stderr[-4000:]}")
+    return dict(rc=res.returncode, wall_s=wall,
+                ints=_example_ints(name, res.stdout))
+
+
+def phase_examples(device, cfg) -> dict:
+    """Phase 16: the four examples of the port in turn, each a subprocess
+    on ``device`` with ``cfg``'s arguments, held to their own results:
+    the knapsack optimum equal to the DP oracle's (sequential and
+    parallel), every request served and some stolen, the superstep
+    conserving the items, the loss falling; on the card, each example's
+    kernels launched (K2 and K1 by the quickstart's queue, K1 and K4 by
+    its superstep, K6 by the serving demo and the trainer)."""
+    t0 = time.perf_counter()
+    out = {}
+    for name in ("quickstart", "knapsack_solver", "serve_demo", "train_lm"):
+        out[name] = run_example(name, cfg[name], device, cfg["timeout"])
+    q, k, s, t = (out[n]["ints"] for n in ("quickstart", "knapsack_solver",
+                                            "serve_demo", "train_lm"))
+    before, after = q["sizes"][:4], q["sizes"][4:]
+    check(sum(before) == sum(after) and q["moved"][0] > 0,
+          f"quickstart superstep: {before} -> {after}, moved {q['moved']}")
+    check(k["oracle"] == k["sequential"] == k["parallel"],
+          f"knapsack: oracle {k['oracle']}, sequential {k['sequential']}, "
+          f"parallel {k['parallel']}")
+    check(k["paper_optimum"] == 15, f"paper example optimum "
+          f"{k['paper_optimum']} != 15")
+    served, requests = s["served"]
+    check(served == requests and sum(s["completed"]) == requests,
+          f"serve demo served {served} of {requests}")
+    check(s["stolen"][0] > 0, "serve demo: the master stole nothing")
+    check(t["losses"][-1] < t["losses"][0],
+          f"train_lm: the loss did not fall: {t['losses']}")
+    if device.type == "cuda":
+        g, sc, _ = q["queue_launches"]
+        check(g > 0 and sc > 0, f"quickstart queue launched K1 {g} / K2 "
+              f"{sc} times")
+        g, _, tr = q["superstep_launches"]
+        check(g > 0 and tr > 0, f"quickstart superstep launched K1 {g} / "
+              f"K4 {tr} times")
+        check(s["flash_attention"] > 0 and t["flash_attention"] > 0,
+              f"K6 launched {s['flash_attention']} / {t['flash_attention']} "
+              f"times in the serving demo / the trainer")
+    return dict(examples=out, wall_s=time.perf_counter() - t0)
+
+
 def card_line() -> str:
     return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4660,6 +4817,10 @@ def main() -> int:
     sharded_step = phase_sharded_step(device, PHASE15)
     print(json.dumps({"phase": "sharded_step", "card": card,
                       "result": sharded_step}), flush=True)
+
+    examples = phase_examples(device, PHASE16)
+    print(json.dumps({"phase": "examples", "card": card,
+                      "result": examples}), flush=True)
 
     launches = {**solver["launches"],
                 "flash_attention": serving["serve"]["launches"][

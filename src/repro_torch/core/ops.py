@@ -57,7 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch._tree import resolve_device, tree_leaves, tree_map
-from repro_torch.kernels.queue_push.ops import pop_slice, push_scatter
+from repro_torch.kernels._lib import ring_extents_fit
+from repro_torch.kernels.queue_push.ops import (pop_slice, push_scatter,
+                                                ring_scatter_supported,
+                                                ring_slice_supported)
 from repro_torch.kernels.queue_push.ref import ring_scatter_ref, ring_slice_ref
 from repro_torch.kernels.queue_steal.ops import steal_gather
 from repro_torch.kernels.queue_steal.ref import ring_gather_ref
@@ -66,6 +69,7 @@ from repro_torch.kernels.queue_transfer.ops import transfer_splice
 __all__ = [
     "QueueState",
     "make_queue",
+    "queue_size",
     "item_nbytes",
     "queue_from_numpy",
     "queue_to_numpy",
@@ -77,6 +81,10 @@ __all__ = [
     "register_backend",
     "available_backends",
     "steal_counted",
+    "kernel_steal_available",
+    "kernel_push_available",
+    "kernel_pop_available",
+    "kernel_transfer_available",
     "DEFAULT_QUEUE_LIMIT",
     "BACKEND_ENV_VAR",
     "CHECK_ENV_VAR",
@@ -146,6 +154,11 @@ def make_queue(capacity: int, item_spec: Pytree, *,
                    item_spec)
     zero = torch.zeros((), dtype=I32, device=dev)
     return QueueState(buf=buf, lo=zero, size=zero.clone())
+
+
+def queue_size(q: QueueState) -> torch.Tensor:
+    """The number of live items: 0-d for one queue, ``(W,)`` for lanes."""
+    return q.size
 
 
 def item_nbytes(item_spec: Pytree) -> int:
@@ -419,6 +432,37 @@ def steal_counted(q: QueueState, proportion, *, max_steal: int,
     for i in range(max_steal):
         count = count + (n > i).to(I32)
     return _unlane(qs, single), _unlane(batch, single), _unlane(count, single)
+
+
+# ---------------------------------------------------------------------------
+# Geometry predicates: whether the CUDA kernels serve a geometry.  They
+# take any geometry their 32-bit extents hold (rows of one int32 item),
+# so "auto" never needs another route; the wrappers raise where these are
+# False.
+# ---------------------------------------------------------------------------
+
+
+def kernel_push_available(capacity: int, max_push: int) -> bool:
+    """Whether K2 serves a bulk push of this geometry."""
+    return ring_scatter_supported(capacity, max_push)
+
+
+def kernel_pop_available(capacity: int, max_n: int) -> bool:
+    """Whether K3 serves a bulk pop of this geometry."""
+    return ring_slice_supported(capacity, max_n)
+
+
+def kernel_steal_available(capacity: int, max_steal: int) -> bool:
+    """Whether K1 serves a steal (or a window read) of this geometry: a
+    ring to read, and its extents within 32 bits."""
+    return (capacity > 0 or max_steal == 0) and ring_extents_fit(
+        max(capacity, max_steal), capacity, max_steal)
+
+
+def kernel_transfer_available(capacity: int, max_steal: int) -> bool:
+    """Whether K4 serves the compact exchange's thief-side cut-and-splice
+    of this geometry: its extents within 32 bits."""
+    return ring_extents_fit(max(capacity, max_steal), capacity, max_steal)
 
 
 # ---------------------------------------------------------------------------

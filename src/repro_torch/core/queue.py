@@ -18,10 +18,14 @@ import torch
 
 from repro_torch._tree import resolve_device, tree_leaves, tree_map
 from repro_torch.core.ops import (DEFAULT_QUEUE_LIMIT, BulkOps, QueueState,
-                                  _lanes, _pop, _unlane, f32_scalar, make_ops,
-                                  make_queue)
+                                  _lanes, _pop, _unlane, f32_scalar,
+                                  kernel_pop_available, kernel_push_available,
+                                  kernel_steal_available, make_ops,
+                                  make_queue, queue_size, steal_counted)
 
-__all__ = ["pop", "PagedQueue"]
+__all__ = ["QueueState", "make_queue", "queue_size", "pop", "steal_counted",
+           "kernel_steal_available", "kernel_push_available",
+           "kernel_pop_available", "PagedQueue"]
 
 Pytree = Any
 

@@ -30,7 +30,8 @@ from pathlib import Path
 import torch
 
 __all__ = ["library", "launch", "row_bytes", "check_cuda", "lane_vec",
-           "ring_trees", "RingTree", "MAX_LEAVES", "BUILD_DIR", "SOURCES"]
+           "ring_trees", "ring_extents_fit", "RingTree", "MAX_LEAVES",
+           "BUILD_DIR", "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
@@ -199,6 +200,16 @@ def ring_trees(pairs, rows: int):
         for j, leaf in enumerate(group):
             tree.leaf[j] = leaf
         yield tree
+
+
+def ring_extents_fit(rows: int, *extents: int) -> bool:
+    """Whether a K1-K4 launch takes a ring geometry of int32 items: every
+    ``int`` argument within 32 bits (:func:`launch`), and the byte offsets
+    of ``rows`` rows of one int32 item too (:func:`ring_trees`).  The
+    ``kernel_*_available`` predicates answer with it; there is no tiling
+    rule."""
+    return (all(0 <= int(e) < 2 ** 31 for e in extents)
+            and 4 * int(rows) < 2 ** 31)
 
 
 def check_cuda(*tensors: torch.Tensor) -> torch.device:

@@ -15,7 +15,28 @@ from repro_torch._tree import tree_map
 from repro_torch.kernels import _lib
 from repro_torch.kernels.queue_push.ref import ring_scatter_ref, ring_slice_ref
 
-__all__ = ["push_scatter", "pop_slice", "ring_scatter", "ring_slice"]
+__all__ = ["push_scatter", "pop_slice", "ring_scatter", "ring_slice",
+           "ring_scatter_supported", "ring_slice_supported", "DEFAULT_BLOCK"]
+
+# Threads of one CTA of K2 and K3: it mirrors ``ring_copy.cuh``'s
+# ``kThreads`` (a test holds the two equal).  The kernels take any
+# geometry their 32-bit extents hold, so no predicate reads it.
+DEFAULT_BLOCK = 128
+
+
+def ring_scatter_supported(capacity: int, max_push: int) -> bool:
+    """Whether :func:`push_scatter` launches K2 for this geometry of int32
+    items on a CUDA device: its extents within 32 bits.  The wrapper
+    raises ``ValueError`` where this is False."""
+    return _lib.ring_extents_fit(max(capacity, max_push), capacity, max_push)
+
+
+def ring_slice_supported(capacity: int, max_n: int) -> bool:
+    """Whether :func:`pop_slice` launches K3 for this geometry of int32
+    items on a CUDA device: its extents within 32 bits, and a ring to pop
+    from.  The wrapper raises ``ValueError`` where this is False."""
+    return (capacity > 0 or max_n == 0) and _lib.ring_extents_fit(
+        max(capacity, max_n), capacity, max_n)
 
 
 def ring_scatter(buf: torch.Tensor, batch: torch.Tensor, start: torch.Tensor,

@@ -65,7 +65,8 @@ from repro_torch._tree import tree_leaves
 from repro_torch.configs.base import ModelConfig, ParallelConfig, ShapeConfig
 from repro_torch.kernels import bounds
 from repro_torch.launch import roofline as rf
-from repro_torch.launch.mesh import make_recording_mesh
+from repro_torch.launch.mesh import (make_recording_mesh,
+                                     production_mesh_shape)
 from repro_torch.models.zoo import build_model, input_specs, meta_init
 from repro_torch.train.optimizer import AdamWConfig, adamw_init
 from repro_torch.train.trainer import make_train_step
@@ -77,14 +78,6 @@ __all__ = ["model_flops_for", "cell_blocks", "argument_bytes", "trace_cell",
 # torch.cuda.get_device_properties(0).total_memory of the NVIDIA H100
 # 80GB HBM3 the chip runs (chip_smoke.py's phase 15 prints it)
 HBM_BYTES = 85_017_493_504
-
-
-def production_mesh_shape(multi_pod: bool):
-    """The JAX package's production mesh: ``(data 16, model 16)``, or
-    ``(pod 2, data 16, model 16)``."""
-    if multi_pod:
-        return (2, 16, 16), ("pod", "data", "model")
-    return (16, 16), ("data", "model")
 
 
 def model_flops_for(cfg: ModelConfig, shape: ShapeConfig) -> float:
@@ -289,10 +282,9 @@ def cell_result(arch: str, cfg: ModelConfig, shape: ShapeConfig, mesh,
     tr = trace_cell(cfg, shape, mesh, parallel)
     dt = time.time() - t0
     mf = model_flops_for(cfg, shape)
-    report = rf.analyze(arch=arch, shape=shape.name, mesh_name=mesh_name,
-                        n_devices=n_devices, model_flops=mf,
-                        flops=tr["flops"], nbytes=tr["bytes"],
-                        records=tr["records"], memory=tr)
+    report = rf.analyze_compiled(tr, arch=arch, shape=shape.name,
+                                 mesh_name=mesh_name, n_devices=n_devices,
+                                 model_flops=mf)
     result = {
         "arch": arch, "shape": shape.name, "mesh": mesh_name,
         "status": "ok", "compile_s": round(dt, 1),

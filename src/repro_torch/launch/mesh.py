@@ -39,6 +39,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import datetime
+import math
 import multiprocessing
 import os
 import queue as queue_mod
@@ -57,7 +58,12 @@ from repro_torch.core.lanes import MeshLanes, RecordedLanes
 from repro_torch.models import layers
 
 __all__ = ["WorkerMesh", "make_worker_mesh", "ModelMesh", "make_model_mesh",
-           "make_recording_mesh", "make_production_mesh", "run_workers"]
+           "make_recording_mesh", "make_production_mesh",
+           "production_mesh_shape", "run_workers", "CHIPS_PER_POD"]
+
+# Devices in one pod of the production mesh, laid out (data 16, model 16):
+# a mesh topology, not a figure of any one chip.
+CHIPS_PER_POD = 256
 
 
 @dataclasses.dataclass(frozen=True)
@@ -444,13 +450,23 @@ def make_recording_mesh(shape: Tuple[int, ...], axis_names: Tuple[str, ...],
     return mesh
 
 
+def production_mesh_shape(multi_pod: bool):
+    """The JAX package's production mesh, shape and axis names: one pod of
+    :data:`CHIPS_PER_POD` as ``(data 16, model 16)``, or two of them as
+    ``(pod 2, data 16, model 16)``."""
+    side = math.isqrt(CHIPS_PER_POD)
+    pod = (side, CHIPS_PER_POD // side)
+    if multi_pod:
+        return (2,) + pod, ("pod", "data", "model")
+    return pod, ("data", "model")
+
+
 def make_production_mesh(*, multi_pod: bool = False,
                          device=None) -> ModelMesh:
-    """The JAX package's production mesh: ``(data=16, model=16)``, or
-    ``(pod=2, data=16, model=16)`` with ``multi_pod``; raises a
-    ``ValueError`` naming the ranks it needs when the world is smaller."""
-    shape = (2, 16, 16) if multi_pod else (16, 16)
-    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    """The JAX package's production mesh (:func:`production_mesh_shape`);
+    raises a ``ValueError`` naming the ranks it needs when the world is
+    smaller."""
+    shape, axes = production_mesh_shape(multi_pod)
     return make_model_mesh(shape, axes, device=device)
 
 

@@ -29,21 +29,24 @@ Hardware constants (NVIDIA H100 SXM5):
   crosses InfiniBand; NVLink 4, the in-node rate, is ``NVLINK_BW`` =
   450e9 B/s per direction (900 GB/s both ways), named but not used.
 
-The JAX module's ``normalize_cost_analysis`` and its HLO-text parser have
-no counterpart: there is no compiled program and no HLO here; the trace
-counts operations as they dispatch and collectives as they run.
+There is no compiled program and no HLO here: the trace counts operations
+as they dispatch and collectives as they run.  The JAX module's
+``normalize_cost_analysis`` and ``analyze_compiled``, which read XLA's
+cost dict and compiled object, take the traced step's counts instead
+and reach the same :func:`analyze`; the JAX module's HLO-text parser has
+no counterpart.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Iterable, Sequence
+from typing import Any, Dict, Iterable, Sequence
 
 import torch
 
 __all__ = ["HW", "PEAK_FLOPS", "HBM_BW", "NET_BW", "NVLINK_BW",
-           "COLLECTIVES", "RooflineReport", "analyze", "collective_bytes",
-           "record_bytes"]
+           "COLLECTIVES", "RooflineReport", "analyze", "analyze_compiled",
+           "collective_bytes", "normalize_cost_analysis", "record_bytes"]
 
 PEAK_FLOPS = 989e12        # dense bf16 per GPU
 HBM_BW = 3.35e12           # bytes/s per GPU
@@ -144,3 +147,37 @@ def analyze(*, arch: str, shape: str, mesh_name: str, n_devices: int,
         argument_bytes=int(memory["argument_bytes"]),
         output_bytes=int(memory["output_bytes"]),
         temp_bytes=int(memory["temp_bytes"]), **t)
+
+
+def normalize_cost_analysis(counts: Any) -> Dict[str, float]:
+    """The counts of a traced step under XLA's cost-analysis keys,
+    ``"flops"`` and ``"bytes accessed"``, per device.  ``counts`` is a
+    ``launch.dryrun.StepTrace``, the counts dict ``dryrun.trace_cell``
+    returns, a list of either (summed, as the JAX function sums one dict
+    per program), or None (``{}``)."""
+    if counts is None:
+        return {}
+    if isinstance(counts, (list, tuple)):
+        out: Dict[str, float] = {}
+        for entry in counts:
+            for k, v in normalize_cost_analysis(entry).items():
+                out[k] = out.get(k, 0.0) + v
+        return out
+    if isinstance(counts, dict):
+        flops, nbytes = counts["flops"], counts["bytes"]
+    else:
+        flops, nbytes = counts.flops, counts.bytes
+    return {"flops": float(flops), "bytes accessed": float(nbytes)}
+
+
+def analyze_compiled(traced: Dict[str, Any], *, arch: str, shape: str,
+                     mesh_name: str, n_devices: int, model_flops: float
+                     ) -> RooflineReport:
+    """The report of one traced step from what ``dryrun.trace_cell``
+    returns: its counts (:func:`normalize_cost_analysis`), its collective
+    log (``records``) and its memory counts."""
+    ca = normalize_cost_analysis(traced)
+    return analyze(arch=arch, shape=shape, mesh_name=mesh_name,
+                   n_devices=n_devices, model_flops=model_flops,
+                   flops=ca["flops"], nbytes=ca["bytes accessed"],
+                   records=traced["records"], memory=traced)

@@ -17,8 +17,8 @@ the JAX package's.  A model mesh (``launch.mesh.ModelMesh``) is made
 active with ``with mesh:``, as a JAX mesh is, and :func:`_active_mesh`
 reads it; the explicit-collective bodies (flash-decoding, expert-parallel
 MoE) take their branch only under one.  The JAX package's ``shard`` (a
-``with_sharding_constraint``) has no counterpart: without GSPMD there is
-no partitioner for it to constrain.
+``with_sharding_constraint``) constrains GSPMD's partitioner; the port has
+none, so :func:`shard` returns its input (see there).
 
 The sharded step (``with mesh.spmd():``, :func:`_spmd_mesh`) is the
 port's counterpart of GSPMD's partitioning: the models run explicitly
@@ -56,8 +56,11 @@ Pytree = Any
 __all__ = [
     "P",
     "ShardPlan",
+    "shard",
+    "axes",
     "rms_norm",
     "softcap",
+    "cross_entropy",
     "dense_init",
     "embed_init",
     "mlp_init",
@@ -133,6 +136,20 @@ class ShardPlan:
     @classmethod
     def from_parallel(cls, par) -> "ShardPlan":
         return cls(dp=par.batch_axes, tp=par.model_axis, fsdp=par.fsdp_axis)
+
+
+# The default plan, for models called without an explicit one.
+axes = ShardPlan()
+
+
+def shard(x: torch.Tensor, *spec) -> torch.Tensor:
+    """The JAX package's sharding constraint ``P(*spec)`` on ``x``: ``x``
+    itself.  A constraint never changes a value, and the port has no
+    partitioner to steer: under ``ModelMesh.spmd()`` every tensor already
+    is this rank's block by the spec trees, and the functions below place
+    the collectives explicitly."""
+    del spec
+    return x
 
 
 # The model meshes made active by ``with mesh:``, innermost last.
@@ -300,6 +317,20 @@ def softcap(x: torch.Tensor, cap: Optional[float]) -> torch.Tensor:
     if cap is None:
         return x
     return torch.tanh(x / cap) * cap
+
+
+def cross_entropy(logits: torch.Tensor, labels: torch.Tensor,
+                  mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mean token cross-entropy, the logits in float32 for a stable
+    softmax; with ``mask``, the mean over its weight (at least 1)."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = logits.gather(-1, labels.long()[..., None])[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / mask.sum().clamp(min=1.0)
 
 
 def dense_init(gen: torch.Generator, shape: Sequence[int], dtype,

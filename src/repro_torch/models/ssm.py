@@ -33,12 +33,13 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
+from repro_torch.kernels.ssd_scan.ref import ssd_chunked
 from repro_torch.models.layers import (dense_init, rms_norm, rms_norm_tp,
                                        tp_copy, tp_gather, tp_info, tp_sum)
 
 Pytree = Any
 
-__all__ = ["SSMConfig", "SSMCache", "ssm_init", "mamba_block",
+__all__ = ["SSMConfig", "SSMCache", "ssm_init", "ssd_chunked", "mamba_block",
            "mamba_decode_step"]
 
 

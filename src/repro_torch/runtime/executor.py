@@ -105,7 +105,7 @@ Pytree = Any
 WorkerFn = Callable[[bulk_ops.QueueState, Pytree],
                     Tuple[bulk_ops.QueueState, Pytree]]
 
-__all__ = ["StealRuntime"]
+__all__ = ["StealRuntime", "make_lane_step"]
 
 
 def _read_back(*tensors: torch.Tensor) -> List[np.ndarray]:
@@ -122,6 +122,53 @@ def _read_back(*tensors: torch.Tensor) -> List[np.ndarray]:
                    else part)
         at += t.numel()
     return out
+
+
+def make_lane_step(policy: StealPolicy, ops: bulk_ops.BulkOps,
+                   worker_fn: Optional[WorkerFn], *,
+                   pod_size: Optional[int] = None, lanes=None,
+                   fault: bool = False) -> Callable:
+    """The one definition of a round:
+    ``(q, carry, proportion, faults=None, mark=None) -> (q, carry, stats)``
+    on the lanes ``lanes`` holds (default: the stack of ``q``).
+
+    A round is the optional worker body, then the rebalancing superstep at
+    the float32 tensor ``proportion`` (flat, or two-level in pods of
+    ``pod_size``), splicing into the rings of ``q`` in place.
+    :class:`StealRuntime` runs it on stacked lanes and
+    :class:`repro_torch.distributed.MeshStealRuntime` with one lane per
+    rank (``lanes`` a :class:`~repro_torch.core.lanes.MeshLanes`), so both
+    run the same computation.  With ``fault=True`` the round is
+    :func:`~repro_torch.runtime.resilience.make_resilient_lane`'s, which
+    needs the round's :class:`~repro_torch.runtime.resilience.RoundFaults`
+    as ``faults`` (ignored otherwise).
+
+    The JAX package's ``stage=`` compiles truncated prefixes of the round
+    for its phase probe.  Here ``mark`` takes its place: the phase clock's
+    boundary hook (:meth:`repro_torch.obs.phase.PhaseClock.mark`), called
+    with ``"worker_body"`` after the worker body and ``"exchange"`` after
+    the superstep's exchange, on the committed round itself."""
+    if fault:
+        return resilience.make_resilient_lane(policy, ops, worker_fn,
+                                              pod_size=pod_size, lanes=lanes)
+
+    def lane(q, carry, proportion, faults=None, mark=None):
+        del faults  # the fault layer is off
+        if worker_fn is not None:
+            q, carry = worker_fn(q, carry)
+        if mark is not None:
+            mark("worker_body")
+        pol = dataclasses.replace(policy, proportion=proportion)
+        if pod_size is not None:
+            q, stats = master_ops.hierarchical_superstep(
+                q, pol, pod_size=pod_size, ops=ops, donate=True, lanes=lanes,
+                mark=mark)
+        else:
+            q, stats = master_ops.superstep(q, pol, ops=ops, donate=True,
+                                            lanes=lanes, mark=mark)
+        return q, carry, stats
+
+    return lane
 
 
 class StealRuntime:
@@ -228,7 +275,6 @@ class StealRuntime:
         self._snapshot_every = 0
         self._snapshot_keep = 3
         self._last_snapshot_round = -1
-        self._resilient: Dict[Any, Callable] = {}
         self._phase_probe = None  # attach_phase_probe
         self._clock = None
 
@@ -544,33 +590,12 @@ class StealRuntime:
 
     def _step(self, worker_fn: Optional[WorkerFn], qs, carry,
               proportion: torch.Tensor, faults=None, mark=None):
-        """One round on the stacked lanes, on the device: worker body, then
-        the superstep(s) at the float32 ``proportion``, splicing in place.
-        ``faults`` is the round's :class:`~repro_torch.runtime.resilience.
-        RoundFaults` when the fault layer is armed; ``mark`` the phase
-        clock's boundary hook, or None."""
-        if self.fault is not None:
-            fn = self._resilient.get(worker_fn)
-            if fn is None:
-                fn = self._resilient[worker_fn] = (
-                    resilience.make_resilient_round(
-                        self.policy, self.ops, worker_fn,
-                        pod_size=self.pod_size, lanes=self.lanes))
-            return fn(qs, carry, proportion, faults, mark=mark)
-        if worker_fn is not None:
-            qs, carry = worker_fn(qs, carry)
-        if mark is not None:
-            mark("worker_body")
-        pol = dataclasses.replace(self.policy, proportion=proportion)
-        if self.pod_size is not None:
-            qs, stats = master_ops.hierarchical_superstep(
-                qs, pol, pod_size=self.pod_size, ops=self.ops, donate=True,
-                lanes=self.lanes, mark=mark)
-        else:
-            qs, stats = master_ops.superstep(qs, pol, ops=self.ops,
-                                             donate=True, lanes=self.lanes,
-                                             mark=mark)
-        return qs, carry, stats
+        """One round on this runtime's lanes: :func:`make_lane_step` at the
+        current policy, backend, pods and fault layer."""
+        step = make_lane_step(self.policy, self.ops, worker_fn,
+                              pod_size=self.pod_size, lanes=self.lanes,
+                              fault=self.fault is not None)
+        return step(qs, carry, proportion, faults, mark=mark)
 
     def _ctx(self, k: int):
         """The fault schedule of the next ``k`` rounds on the device (one

@@ -16,12 +16,15 @@ machinery around that observation:
   dropped rounds).  Before a block of k rounds the host turns it into
   a :class:`FaultContext`: the ``(k + 1, W)`` dead masks, the ``(k, W)``
   skip masks, the ``(k,)`` drop flags and each round's skipped lane
-  indices among the lanes this process holds, uploaded once.  The
+  indices among the lanes this process holds, uploaded once.
+  :func:`ctx_round`, :func:`ctx_advance` and :func:`dead_mask` read a
+  context as the JAX package's helpers read its schedule dict, and
+  :func:`ctx_specs` says where its parts live on a mesh.  The
   schedule is the replicated master's view: every mesh rank holds all of
   it.  No host read decides anything mid-round (the
   executor's contract); the host knows the schedule, so it also knows
   which lanes of a round skip their body.
-* :func:`make_resilient_round` — the fault-aware round on the W lanes
+* :func:`make_resilient_lane` — the fault-aware round on the W lanes
   (stacked, or one per mesh rank through the lane collectives).  Per
   round, in the JAX package's order: (1) the worker body runs on EVERY
   lane and its effects are discarded on dead and delayed
@@ -59,10 +62,14 @@ __all__ = [
     "FaultState",
     "FaultContext",
     "RoundFaults",
+    "ctx_round",
+    "ctx_advance",
+    "ctx_specs",
+    "dead_mask",
     "mask_sizes",
     "masked_plan",
     "recovery_plan",
-    "make_resilient_round",
+    "make_resilient_lane",
 ]
 
 Pytree = Any
@@ -146,6 +153,7 @@ class RoundFaults(NamedTuple):
     skip: torch.Tensor     # (W,) bool — worker body discarded (dead | delayed)
     drop: torch.Tensor     # () bool — this round's exchanges dropped
     skip_idx: Optional[torch.Tensor]  # (n,) int64 lanes of skip; None if n=0
+    index: int = 0         # the round's index (host)
 
 
 class FaultContext(NamedTuple):
@@ -154,18 +162,20 @@ class FaultContext(NamedTuple):
     adaptive update of the last round reads), ``skip`` ``(k, W)``,
     ``drop`` ``(k,)``, and ``skip_idx`` the skipped lanes of every round
     in turn, round i's at ``skip_idx[skip_at[i]:skip_at[i + 1]]`` (host
-    offsets)."""
+    offsets); ``first`` is the index of the block's first round."""
 
     dead: torch.Tensor
     skip: torch.Tensor
     drop: torch.Tensor
     skip_idx: torch.Tensor
     skip_at: Tuple[int, ...]
+    first: int = 0
 
     def round(self, i: int) -> RoundFaults:
         a, b = self.skip_at[i], self.skip_at[i + 1]
         return RoundFaults(self.dead[i], self.skip[i], self.drop[i],
-                           self.skip_idx[a:b] if b > a else None)
+                           self.skip_idx[a:b] if b > a else None,
+                           self.first + i)
 
 
 class FaultState:
@@ -238,7 +248,7 @@ class FaultState:
             skip=masks[(k + 1) * w:(2 * k + 1) * w].reshape(k, w),
             drop=masks[(2 * k + 1) * w:],
             skip_idx=packed[(2 * k + 1) * w + k:],
-            skip_at=tuple(int(a) for a in at))
+            skip_at=tuple(int(a) for a in at), first=int(round0))
 
     # -- snapshot / restore --------------------------------------------------
 
@@ -255,6 +265,61 @@ class FaultState:
         self.delay_from = np.asarray(state["delay_from"], np.int32).copy()
         self.delay_until = np.asarray(state["delay_until"], np.int32).copy()
         self.drop_rounds = np.asarray(state["drop_rounds"], np.int32).copy()
+
+
+# ---------------------------------------------------------------------------
+# Reading a context (the JAX package's helpers over its schedule dict)
+
+
+def ctx_round(ctx) -> int:
+    """The round a context stands at: a block's first round, one round's
+    own, or the bare round index that stands for the context when the
+    fault layer is off (as the JAX package's context is then)."""
+    if isinstance(ctx, FaultContext):
+        return ctx.first
+    if isinstance(ctx, RoundFaults):
+        return ctx.index
+    return ctx
+
+
+def ctx_advance(ctx):
+    """The context of the next round: the block without its first round
+    (the schedule shared, nothing uploaded), or the round index + 1."""
+    if isinstance(ctx, FaultContext):
+        a = ctx.skip_at[1]
+        return FaultContext(dead=ctx.dead[1:], skip=ctx.skip[1:],
+                            drop=ctx.drop[1:], skip_idx=ctx.skip_idx[a:],
+                            skip_at=tuple(x - a for x in ctx.skip_at[1:]),
+                            first=ctx.first + 1)
+    if isinstance(ctx, RoundFaults):
+        raise TypeError("one round's RoundFaults hold no later round: "
+                        "advance the block's FaultContext")
+    return ctx + 1
+
+
+def dead_mask(ctx) -> torch.Tensor:
+    """``(W,)`` bool, every lane: the lanes dead at the context's round."""
+    return ctx.dead[0] if isinstance(ctx, FaultContext) else ctx.dead
+
+
+# Where the parts of a context live on a mesh (:func:`ctx_specs`).
+REPLICATED = "replicated"   # the whole tensor on every rank
+LOCAL = "local"             # this rank's rows only
+HOST = "host"               # host values, the same on every rank
+
+
+def ctx_specs(fault_active: bool):
+    """Where a context lives when the lanes are ranks: the JAX package's
+    ``shard_map`` specs for it, which replicate everything.  Here every
+    rank uploads the whole schedule too (``FaultState.ctx``): the masks
+    and drop flags are :data:`REPLICATED`, the skipped-lane indices
+    :data:`LOCAL` (among the rows this rank's lanes hold, the ``rows=``
+    of ``FaultState.ctx``) and the offsets and round index :data:`HOST`.
+    With the fault layer off the context is the round index alone."""
+    if not fault_active:
+        return HOST
+    return FaultContext(dead=REPLICATED, skip=REPLICATED, drop=REPLICATED,
+                        skip_idx=LOCAL, skip_at=HOST, first=HOST)
 
 
 def mask_sizes(sizes: torch.Tensor, dead: Optional[torch.Tensor],
@@ -335,12 +400,13 @@ def _put_rows(tree: Pytree, idx: torch.Tensor, rows: Pytree, *,
     return tree_map(lambda a, r: a.index_copy(0, idx, r), tree, rows)
 
 
-def make_resilient_round(policy: StealPolicy, ops, worker_fn, *,
-                         pod_size: Optional[int] = None,
-                         lanes=None) -> Callable:
+def make_resilient_lane(policy: StealPolicy, ops, worker_fn, *,
+                        pod_size: Optional[int] = None,
+                        lanes=None) -> Callable:
     """The fault-injecting round on the W lanes (stacked, or ``lanes``):
     ``(q, carry, proportion, faults) -> (q, carry, stats)``, ``faults`` a
-    :class:`RoundFaults` — what ``StealRuntime`` runs when built with a
+    :class:`RoundFaults` — what ``runtime.executor.make_lane_step`` returns
+    with ``fault=True``, i.e. what ``StealRuntime`` runs when built with a
     :class:`FaultPlan`.
 
     The round splices into the rings of ``q`` in place (the runtime owns

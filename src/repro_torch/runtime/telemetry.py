@@ -36,8 +36,16 @@ from typing import Any, Dict, List, Optional, Sequence
 
 import numpy as np
 
-__all__ = ["reduce_round_stats", "RoundRecord", "WaveRecord",
+__all__ = ["item_nbytes", "reduce_round_stats", "RoundRecord", "WaveRecord",
            "RequestRecord", "Telemetry"]
+
+
+def item_nbytes(item_spec: Any) -> int:
+    """Bytes per queue item: ``core.ops.item_nbytes``, the one source of
+    the payload accounting (the master's ``bytes_moved`` uses it too)."""
+    from repro_torch.core.ops import item_nbytes as _impl
+
+    return _impl(item_spec)
 
 
 def reduce_round_stats(stats, *, n_workers: Optional[int] = None,

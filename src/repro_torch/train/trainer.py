@@ -19,7 +19,7 @@ the clip's norm is the global one and AdamW updates the local blocks.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Tuple
+from typing import Any, Callable, NamedTuple, Tuple
 
 import torch
 
@@ -29,7 +29,16 @@ from repro_torch.train.optimizer import AdamWConfig, OptState, adamw_update
 
 Pytree = Any
 
-__all__ = ["make_train_step", "value_and_grad", "sync_grads"]
+__all__ = ["make_train_step", "TrainState", "value_and_grad", "sync_grads"]
+
+
+class TrainState(NamedTuple):
+    """What a train step carries from one step to the next: the parameter
+    tree and the optimizer state.  The step itself takes and returns them
+    as two arguments, as in the JAX package."""
+
+    params: Pytree
+    opt: OptState
 
 
 def value_and_grad(loss_fn: Callable, params: Pytree, batch

@@ -22,8 +22,13 @@ from repro_torch._tree import tree_map
 from repro_torch.core.dd.knapsack import random_instance
 from repro_torch.core import ops as bulk_ops
 from repro_torch.core.dd.parallel import parallel_solve
-from repro_torch.core.ops import to_numpy
+from repro_torch.core.lanes import StackedLanes
+from repro_torch.core.master import RebalanceStats, hierarchical_superstep
+from repro_torch.core.ops import QueueState, to_numpy
 from repro_torch.core.policy import StealPolicy
+from repro_torch.core.sharded_queue import (make_sharded_queues,
+                                            sharded_superstep,
+                                            vmapped_superstep)
 from repro_torch.distributed import MeshStealRuntime, elastic, launch_runtime
 from repro_torch.launch.mesh import make_worker_mesh
 from repro_torch.runtime import FaultPlan
@@ -36,6 +41,10 @@ SIZES = [40, 0, 0, 0, 25, 0, 3, 0]
 PARITY = [(pod, backend, exchange) for pod in (None, 4)
           for backend in ("reference", "auto")
           for exchange in ("compact", "dense")]
+# sharded_superstep against the stacked superstep, flat and in pods of 4:
+# (pod_size, exchange)
+SUPERSTEP = [(pod, exchange) for pod in (None, 4)
+             for exchange in ("compact", "dense")]
 # the relaxed backend and the sanitizer (check=True) on both layouts:
 # (backend, check, pod_size, exchange)
 CHECKED = [("relaxed", False, None, "compact"), ("relaxed", False, 4, "dense"),
@@ -124,6 +133,69 @@ def parity_case(execution, pod_size, backend, exchange, mesh=None) -> dict:
     _, s3, rounds = rt.run_fused(3, until_drained=True)
     return dict(stats=[host(s1), host(s2), host(s3)], rounds=rounds,
                 resolved=rt.ops.resolved, **state(rt))
+
+
+def _lane0(stats, pod_size) -> RebalanceStats:
+    """Stacked-layout stats of one round in ``sharded_superstep``'s layout:
+    lane 0's (pod 0, worker 0) view, counters ``(1,)``."""
+    if pod_size is None:
+        return RebalanceStats(*(f.reshape(-1) if f.dim() else f.reshape(1)
+                                for f in stats))
+    return stats._replace(
+        sizes_before=stats.sizes_before[:pod_size],
+        sizes_after=stats.sizes_after[::pod_size],
+        n_transferred=stats.n_transferred[:1], n_steals=stats.n_steals[:1],
+        bytes_moved=stats.bytes_moved[:1],
+        n_transferred_xpod=stats.n_transferred_xpod.reshape(1),
+        n_steals_xpod=stats.n_steals_xpod.reshape(1),
+        bytes_moved_xpod=stats.bytes_moved_xpod.reshape(1))
+
+
+def superstep_case(execution, pod_size, exchange, mesh=None) -> dict:
+    """tests/test_sharded_superstep.py's drive: SIZES' items (ids from 1)
+    on W lanes of 128 rows, three supersteps, through ``sharded_superstep``
+    (``"mesh"``: this rank's lane, every rank calling it) or on the
+    stacked lanes (``"vmap"``: ``vmapped_superstep``'s lane 0 flat,
+    ``hierarchical_superstep`` in pods, each round's stats put in the
+    layout of ``sharded_superstep``).  Returns the W lanes' rings and cursors and
+    each round's stats."""
+    pol = parity_policy(exchange)
+    ops = bulk_ops.make_ops("auto")
+    n = W if execution == "vmap" else 1
+    first = 0 if execution == "vmap" else mesh.lane
+    qs = make_sharded_queues(n, 128, SPEC, device="cpu")
+    ids = np.concatenate([[0], np.cumsum(SIZES)]) + 1
+    batch = torch.zeros((n, max(SIZES)), dtype=torch.int32)
+    for i in range(n):
+        k = SIZES[first + i]
+        batch[i, :k] = torch.arange(ids[first + i], ids[first + i] + k)
+    qs, _ = ops.push(qs, batch, torch.tensor(SIZES[first:first + n],
+                                             dtype=torch.int32))
+    if execution == "mesh":
+        step = sharded_superstep(mesh, pol, pod_axis=mesh.axis_names[0]
+                                 if pod_size else None, ops=ops)
+    elif pod_size is None:
+        vmapped = vmapped_superstep(pol, ops, device="cpu")
+
+        def step(q):
+            q, stats = vmapped(q)
+            return q, RebalanceStats(*(f[0] for f in stats))
+    else:
+        def step(q):
+            q, stats = hierarchical_superstep(q, pol, pod_size=pod_size,
+                                              ops=ops, lanes=StackedLanes(W))
+            return q, _lane0(stats, pod_size)
+    rounds = []
+    for _ in range(3):
+        qs, stats = step(qs)
+        rounds.append(host(_lane0(stats, None) if execution == "vmap"
+                           and pod_size is None else stats))
+    if execution == "mesh":
+        lanes = mesh.lanes()
+        qs = QueueState(lanes.all_gather(qs.buf), lanes.all_gather(qs.lo),
+                        lanes.all_gather(qs.size))
+    q = host(qs)
+    return dict(buf=q.buf, lo=q.lo, size=q.size, stats=rounds)
 
 
 def checked_case(execution, backend, check, pod_size, exchange,
@@ -421,6 +493,8 @@ def rank_program(rank: int, restore_dir: str, save_dir: str) -> dict:
         "mesh", *case, mesh=pods if case[0] else flat) for case in PARITY}}
     out["checked"] = {case: checked_case(
         "mesh", *case, mesh=pods if case[2] else flat) for case in CHECKED}
+    out["superstep"] = {case: superstep_case(
+        "mesh", *case, mesh=pods if case[0] else flat) for case in SUPERSTEP}
     out["dag"] = dag_case("mesh", mesh=flat)
     out["fault_flat"] = dag_case("mesh", FAULT, plan=FLAT_PLAN, rounds=2,
                                  mesh=flat)

@@ -6,9 +6,22 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.core.ops import to_numpy
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    """A module that imports this fixture runs on one intra-op thread: the
+    tier-1 run puts several test processes on the host's cores, where a
+    thread pool per process spends more time waiting for its threads than
+    computing."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def bits(x) -> np.ndarray:

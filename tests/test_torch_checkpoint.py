@@ -21,6 +21,7 @@ from repro_torch.train.fault import GracefulExit, run_supervised
 from _torch_fault import (FLAT_PLAN, POD, W, drain, items_of,
                           jax_dag_body, jax_runtime, port_runtime, queues_np,
                           run_port_dag, torch_dag_body)
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 def _tree():

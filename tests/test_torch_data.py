@@ -13,6 +13,8 @@ from repro.data import synthetic as jsynthetic
 from repro_torch.data.pipeline import WorkStealingPipeline
 from repro_torch.data.synthetic import SynthDataset, synth_batch
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 
 @pytest.mark.parametrize("seed", range(3))
 def test_synth_batch_is_deterministic_and_equal_to_the_jax_package(seed):

@@ -20,7 +20,7 @@ from repro_torch.core.dd import diagram as tdd
 from repro_torch.core.dd.knapsack import dp_solve, random_instance
 from repro_torch.core.dd.parallel import parallel_solve
 
-from _torch_parity import assert_same
+from _torch_parity import assert_same, one_torch_thread  # noqa: F401
 
 WIDTH = 8
 

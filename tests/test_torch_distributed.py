@@ -42,6 +42,7 @@ from repro.distributed import launch_runtime as jax_launch_runtime
 from repro_torch.launch.mesh import run_workers
 
 from _torch_fault import jax_dag_body
+from _torch_parity import one_torch_thread  # noqa: F401
 
 JSPEC = jax.ShapeDtypeStruct((), jnp.int32)
 CASE_IDS = [f"{'pods' if p else 'flat'}-{b}-{e}" for p, b, e in M.PARITY]
@@ -125,6 +126,24 @@ def test_relaxed_and_sanitized_backends_on_the_mesh(ranks, case):
     got = ranks[0][0]["checked"][case]
     assert got["checked"] == case[1]
     assert_equal(M.checked_case("vmap", *case), got, str(case))
+
+
+@pytest.mark.parametrize("case", M.SUPERSTEP, ids=[
+    f"{'pods' if p else 'flat'}-{e}" for p, e in M.SUPERSTEP])
+def test_sharded_superstep_equals_the_stacked_supersteps(ranks, case):
+    """``sharded_superstep`` with one lane per rank: rings, cursors and
+    each round's stats equal to ``vmapped_superstep``'s (flat) and the
+    stacked ``hierarchical_superstep``'s (pods of 4), in the JAX function's
+    lane-0 layout, the same on every rank."""
+    results, _ = ranks
+    got = results[0]["superstep"][case]
+    assert_equal(M.superstep_case("vmap", *case), got, str(case))
+    assert sum(got["size"]) == sum(M.SIZES)
+    assert got["stats"][0].n_transferred[0] > 0
+    assert got["stats"][0].sizes_after.shape == ((M.W // case[0],)
+                                                    if case[0] else (M.W,))
+    for r in range(1, M.W):
+        assert_equal(got, results[r]["superstep"][case], f"rank {r}")
 
 
 def test_every_rank_holds_the_stacked_layout(ranks):

@@ -52,18 +52,12 @@ from repro_torch.launch import dryrun, perf, report, roofline
 from repro_torch.launch.mesh import make_recording_mesh
 from repro_torch.models.zoo import input_specs
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 CELLS = [(a, s.name) for a in configs.ARCH_IDS
          for s in configs.cells_for(configs.get(a))]
 MESH_SIZES = {False: {"data": 16, "model": 16},
               True: {"pod": 2, "data": 16, "model": 16}}
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @functools.lru_cache(maxsize=None)

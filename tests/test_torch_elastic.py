@@ -19,6 +19,7 @@ from repro_torch.distributed import elastic as tel
 from repro_torch.runtime import FaultPlan, StealRuntime
 
 from _torch_fault import JSPEC, SPEC, W, items_of, queues_np
+from _torch_parity import one_torch_thread  # noqa: F401
 
 POL = dict(backend="reference", low_watermark=2, high_watermark=8,
            max_steal=64)

@@ -37,22 +37,13 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as topt
 from repro_torch.train.trainer import make_train_step, value_and_grad
 
-from _torch_parity import tree_np
+from _torch_parity import one_torch_thread, tree_np  # noqa: F401
 
 CPU = torch.device("cpu")
 ARCH = "seamless-m4t-medium"
 TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LOSS_TOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-7
 PARAM_ATOL, STEP_EPS = 1e-5, 1e-6
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """Small models run on one intra-op thread (see test_torch_train.py)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _np32(x):

@@ -21,7 +21,7 @@ from repro_torch.core.dd import diagram as tdd
 from repro_torch.kernels import cases as C
 from repro_torch.kernels.dd_expand.ops import expand_layer_bulk, expand_pool
 
-from _torch_parity import assert_same
+from _torch_parity import assert_same, one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

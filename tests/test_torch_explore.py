@@ -23,6 +23,7 @@ from repro_torch.kernels.dd_expand.ops import expand_pool, explore_fused
 from repro_torch.kernels.queue_push.ops import pop_slice, ring_slice
 
 from _torch_parity import assert_same, jax_payload
+from _torch_parity import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

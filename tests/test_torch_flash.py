@@ -27,7 +27,7 @@ from repro_torch.kernels.flash_attention.ops import (HEAD_DIMS, SIMT,
                                                      route, tile_shape)
 from repro_torch.kernels.flash_attention.ref import attention_ref, visible
 
-from _torch_parity import jax_payload
+from _torch_parity import jax_payload, one_torch_thread  # noqa: F401
 
 CASES = C.FLASH_CASES + C.FLASH_EXTRA_CASES
 

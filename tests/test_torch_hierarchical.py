@@ -26,7 +26,7 @@ from repro_torch.runtime.telemetry import reduce_round_stats
 from _torch_fault import (DEAD_POD_PLAN, FLAT_PLAN, POD, W, assert_same_run,
                           items_of, jax_runtime, port_runtime, run_jax_dag,
                           run_port_dag)
-from _torch_parity import assert_same
+from _torch_parity import assert_same, one_torch_thread  # noqa: F401
 from test_torch_master import CAP, _jax_state, _state
 
 

@@ -22,6 +22,8 @@ from repro_torch.runtime.detector import DetectorPolicy, FailureDetector
 from repro_torch.runtime.telemetry import Telemetry
 from repro_torch.serve.scheduler import AdmissionMaster, Request
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 QUEUES = ["LinkedWSQueue", "PerItemDequeQueue", "ResizingArrayQueue"]
 
 

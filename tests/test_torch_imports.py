@@ -82,6 +82,99 @@ def test_every_jax_module_has_a_counterpart_in_the_port():
     assert not missing, missing
 
 
+def _bound_names(tree: ast.Module) -> set:
+    """The names a module binds at its top level (in ``if`` / ``try``
+    blocks too): definitions, assignments and imports."""
+    names = set()
+
+    def walk(body):
+        for node in body:
+            if isinstance(node, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                 ast.ClassDef)):
+                names.add(node.name)
+            elif isinstance(node, (ast.Assign, ast.AnnAssign)):
+                targets = (node.targets if isinstance(node, ast.Assign)
+                           else [node.target])
+                names.update(n.id for t in targets for n in ast.walk(t)
+                             if isinstance(n, ast.Name))
+            elif isinstance(node, (ast.Import, ast.ImportFrom)):
+                names.update((a.asname or a.name).split(".")[0]
+                             for a in node.names)
+            elif isinstance(node, (ast.If, ast.Try)):
+                for part in (node.body, node.orelse,
+                             getattr(node, "finalbody", []),
+                             *(h.body for h in getattr(node, "handlers", []))):
+                    walk(part)
+
+    walk(tree.body)
+    return names
+
+
+def _public_names(path: Path):
+    """``(__all__, names bound)`` of a module's source, or None without an
+    ``__all__``; read from the source, so JAX is not imported."""
+    tree = ast.parse(path.read_text())
+    for node in tree.body:
+        if (isinstance(node, ast.Assign)
+                and any(isinstance(t, ast.Name) and t.id == "__all__"
+                        for t in node.targets)):
+            return list(ast.literal_eval(node.value)), _bound_names(tree)
+    return None
+
+
+# ``__all__`` entries of the JAX package that its module never defines:
+# ``configs/base.py`` lists ``AttentionKind`` and binds no such name.
+DANGLING = {("configs/base.py", "AttentionKind")}
+
+
+def test_every_public_jax_name_resolves_in_the_port():
+    """Every name a module of ``src/repro`` lists in ``__all__`` and
+    defines resolves in the port's module of the same path (the modules
+    the file-level test pairs, package ``__init__`` files included); the
+    names it lists without defining are exactly :data:`DANGLING`."""
+    import importlib
+
+    jax_pkg = ROOT / "src" / "repro"
+    missing, dangling = [], set()
+    for path in sorted(jax_pkg.rglob("*.py")):
+        rel = path.relative_to(jax_pkg)
+        found = _public_names(path)
+        if found is None or not (PORT / rel).exists():
+            continue
+        names, bound = found
+        parts = rel.with_suffix("").parts
+        mod = importlib.import_module(".".join(
+            ("repro_torch",) + (parts[:-1] if parts[-1] == "__init__"
+                                else parts)))
+        for name in names:
+            if name not in bound:
+                dangling.add((rel.as_posix(), name))
+            elif not hasattr(mod, name):
+                missing.append(f"{rel.as_posix()}:{name}")
+    assert not missing, missing
+    assert dangling == DANGLING, dangling
+
+
+EXAMPLES = sorted((ROOT / "examples").glob("torch_*.py"))
+
+
+def test_the_examples_and_chip_smoke_import_no_jax_and_no_repro():
+    """The port's examples and ``chip_smoke.py`` name neither JAX nor the
+    JAX package in any import, nested ones included."""
+    assert [p.name for p in EXAMPLES] == [
+        "torch_knapsack_solver.py", "torch_quickstart.py",
+        "torch_serve_demo.py", "torch_train_lm.py"]
+    for path in EXAMPLES + [ROOT / "chip_smoke.py"]:
+        for node in ast.walk(ast.parse(path.read_text())):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom):
+                names = [node.module or ""]
+            else:
+                continue
+            assert not any(_forbidden(n) for n in names), (path, names)
+
+
 @pytest.mark.parametrize("path", sorted(PORT.rglob("*.py"))
                          + [ROOT / "chip_smoke.py"],
                          ids=lambda p: str(p.relative_to(ROOT)))

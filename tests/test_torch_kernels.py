@@ -36,6 +36,7 @@ from repro_torch.kernels.queue_transfer.ref import ring_transfer_ref
 from repro_torch.kernels.ssd_scan.ops import ssd
 
 from _torch_parity import assert_same, jax_payload
+from _torch_parity import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 I32 = torch.int32

@@ -10,6 +10,8 @@ import pytest
 from repro.analysis import linearize as jlin
 from repro_torch.analysis import linearize as lin
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 # port backend -> the JAX package's backend of the same routing
 JAX_NAME = {"reference": "reference", "cuda": "pallas", "auto": "auto",

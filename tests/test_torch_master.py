@@ -24,7 +24,7 @@ from repro_torch.core import ops as tops
 from repro_torch.core.master import RebalanceStats, superstep
 from repro_torch.core.policy import StealPolicy, plan_transfers
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, tree_np, one_torch_thread  # noqa: F401
 
 CAP = 128
 

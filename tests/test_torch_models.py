@@ -30,7 +30,7 @@ from repro_torch.models.layers import mlp_apply, mlp_init, rms_norm
 from repro_torch.models.transformer import DecoderLM
 from repro_torch.models.zoo import build_model, params_from_numpy
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, one_torch_thread, tree_np  # noqa: F401
 
 CPU = torch.device("cpu")
 
@@ -43,17 +43,6 @@ def _np32(x):
 
 def _t(a):
     return params_from_numpy(np.asarray(a), CPU)
-
-
-@pytest.fixture
-def one_torch_thread():
-    """Small models run on one intra-op thread: the tier-1 run puts several
-    test processes on the host's cores, where a thread pool per process
-    spends more time waiting for its threads than computing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 # ------------------------------------------------------------------ configs
@@ -242,7 +231,6 @@ def _vlm_inputs(tm, B=2, S=12, seed=8):
     return toks, patches
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 def test_vlm_prefix_forward_prefill_and_loss_match():
     """internvl2's patch prefix: the hidden states over patches + text, the
     prefill's last logits and cache length, and the loss over the text
@@ -284,7 +272,6 @@ GRAD_ARCHS = ["llama3.2-1b", "gemma2-9b", "qwen3-moe-30b-a3b",
 LOSS_TOL, GRAD_RTOL, GRAD_ATOL = 1e-5, 1e-4, 1e-7
 
 
-@pytest.mark.usefixtures("one_torch_thread")
 @pytest.mark.parametrize("arch", GRAD_ARCHS)
 def test_loss_and_every_gradient_leaf_match_jax_value_and_grad(arch):
     from repro_torch._tree import tree_leaves_with_path

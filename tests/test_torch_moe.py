@@ -26,22 +26,11 @@ from repro_torch import configs
 from repro_torch.models import moe
 from repro_torch.models.zoo import build_model, params_from_numpy
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, one_torch_thread, tree_np  # noqa: F401
 
 CPU = torch.device("cpu")
 PLAN_TOL = 1e-6
 F32_TOL = 1e-4
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """These small models run on one intra-op thread: the tier-1 run puts
-    several test processes on the host's cores, where a thread pool per
-    process spends more time waiting for its threads than computing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _probs(rng, T, E, kind):

@@ -33,6 +33,8 @@ from repro_torch.runtime.detector import DetectorPolicy
 from repro_torch.serve.engine import ServeCluster
 from repro_torch.serve.scheduler import AdmissionMaster, Request
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 COMPILED = "repro_compiled_programs"
 POLICY = dict(low_watermark=1, high_watermark=8)
 # tests/test_obs.py's seeded drain, with a kill, a straggler window and a

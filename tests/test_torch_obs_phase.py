@@ -22,6 +22,7 @@ from repro_torch.runtime.telemetry import RoundRecord, Telemetry
 
 from _torch_fault import (DEAD_POD_PLAN, FLAT_PLAN, POD, W, port_runtime,
                           queues_np, torch_dag_body)
+from _torch_parity import one_torch_thread  # noqa: F401
 
 RECORD_FIELDS = [f.name for f in dataclasses.fields(RoundRecord)
                  if not f.name.startswith("t_")

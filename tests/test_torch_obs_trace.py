@@ -14,6 +14,8 @@ from repro.runtime.telemetry import Telemetry as JaxTelemetry
 from repro_torch.obs import trace as ttrace
 from repro_torch.runtime.telemetry import Telemetry
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 
 def _records(cls):
     """Rounds (two of them phase-timed, one estimated), waves with and

@@ -27,7 +27,7 @@ from repro_torch import configs
 from repro_torch.models.zoo import build_model, params_from_numpy
 from repro_torch.serve import paged_kv as T
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, tree_np, one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 S, PP, P, PS = 5, 4, 9, 4          # slots, pages a sequence, pool pages, rows

@@ -15,6 +15,8 @@ from repro_torch.core import ops as tops
 from repro_torch.core import queue as tqueue
 from repro_torch.core.queue import PagedQueue
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 SPEC = torch.zeros((), dtype=torch.int32)
 JSPEC = jax.ShapeDtypeStruct((), jnp.int32)

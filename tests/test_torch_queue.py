@@ -17,7 +17,7 @@ import torch
 from repro.core import ops as jops
 from repro_torch.core import ops as tops
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, tree_np, one_torch_thread  # noqa: F401
 
 CAP = 64
 W_SRC = 3

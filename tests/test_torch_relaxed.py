@@ -23,7 +23,7 @@ from repro_torch.core import relaxed as trelaxed
 from repro_torch.core.master import superstep
 from repro_torch.core.policy import StealPolicy
 
-from _torch_parity import assert_same
+from _torch_parity import assert_same, one_torch_thread  # noqa: F401
 
 CPU = "cpu"
 CAP, MS = 16, 8

@@ -23,6 +23,7 @@ from repro_torch.runtime import resilience as tres
 from _torch_fault import (CAP, FLAT_PLAN, MAX_STEAL, POLICY, SPEC, W,
                           assert_same_run, items_of, jax_runtime,
                           port_runtime, run_jax_dag, run_port_dag)
+from _torch_parity import one_torch_thread  # noqa: F401
 
 
 @pytest.fixture(scope="module")

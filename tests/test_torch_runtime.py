@@ -24,7 +24,7 @@ from repro_torch.runtime.adaptive import AdaptiveConfig, adaptive_update
 from repro_torch.runtime.executor import StealRuntime
 from repro_torch.runtime.telemetry import RoundRecord
 
-from _torch_parity import assert_same
+from _torch_parity import assert_same, one_torch_thread  # noqa: F401
 
 JSPEC = jax.ShapeDtypeStruct((), jnp.int32)
 TSPEC = torch.zeros((), dtype=torch.int32)

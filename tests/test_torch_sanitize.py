@@ -20,6 +20,8 @@ from repro_torch.core import ops as tops
 from repro_torch.core.policy import StealPolicy
 from repro_torch.runtime.executor import StealRuntime
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 CPU = "cpu"
 SPEC = torch.zeros((), dtype=torch.int32)
 

@@ -34,7 +34,7 @@ from repro_torch.serve.engine import Replica, ServeCluster
 from repro_torch.serve.kv_cache import cache_tokens, pad_cache
 from repro_torch.serve.scheduler import AdmissionMaster, Request
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, tree_np, one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 POLICY = dict(proportion=0.5, low_watermark=1, high_watermark=2)

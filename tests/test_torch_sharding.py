@@ -57,7 +57,7 @@ from repro_torch.models.layers import P
 from repro_torch.models.zoo import build_model
 from repro_torch.train.optimizer import opt_state_specs
 
-from _torch_parity import tree_np
+from _torch_parity import tree_np, one_torch_thread  # noqa: F401
 
 PLANS = {"default": None, "parallel": {}, "pods": {"pod_axis": "pod"}}
 

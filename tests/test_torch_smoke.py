@@ -1,12 +1,12 @@
 """``chip_smoke.py``'s phases, rehearsed on the CPU at a small size: the
 kernel checks (there the wrappers run the plain versions), the backlog
 supersteps across backends and exchanges, the solver phase against the
-JAX package's results for the same configuration, the mesh phase on gloo
-CPU ranks against the same script's pins, and the serving phases
-on reduced llama3.2-1b, mamba2-2.7b and zamba2-7b.  On the card the
-script runs the same code at full size."""
+JAX package's results for the same configuration, the serving phases
+on reduced llama3.2-1b, mamba2-2.7b and zamba2-7b, and the examples
+phase (16) on the port's four examples.  The phases that spawn ranks
+(9, 13, 15) are rehearsed in ``tests/test_torch_smoke_mesh.py``.  On the
+card the script runs the same code at full size."""
 
-import importlib
 import importlib.util
 from pathlib import Path
 
@@ -19,6 +19,8 @@ from repro.core.dd.parallel import parallel_solve as jax_parallel_solve
 from repro.core.policy import StealPolicy as JaxPolicy
 from repro_torch.kernels import cases as C
 
+from _torch_parity import one_torch_thread  # noqa: F401
+
 ROOT = Path(__file__).resolve().parents[1]
 CPU = torch.device("cpu")
 # K6 and K7 timed at CPU-sized shapes (the card times the serving
@@ -28,6 +30,11 @@ FLASH_SMALL_112 = (2, 128, 128, 4, 4, 112, True, None, None, "bfloat16")
 FLASH_SMALL_CROSS = (2, 64, 100, 4, 4, 64, False, None, None, "bfloat16")
 SSD_SMALL = (2, 100, 4, 16, 32, 32, "bfloat16")
 SSD_SMALL_64 = (1, 130, 3, 64, 64, 64, "bfloat16")
+# The rest of phase 1's timed part at a CPU size: K1-K4 on 8 lanes of 256
+# rows (max_steal 64, pushes of 16, pops of 8), the fused explore on 32
+# subproblems, one timed call each (the card times RING, 512 and 100).
+RING_SMALL = (8, 256, 64, 16, 8)
+EXPLORE_SMALL = 32
 
 
 def _chip_smoke():
@@ -42,7 +49,8 @@ def test_kernel_phase_checks_every_kernel():
     smoke = _chip_smoke()
     out = smoke.phase_kernels(
         CPU, flash_shapes=(FLASH_SMALL, FLASH_SMALL_112, FLASH_SMALL_CROSS),
-        ssd_shapes=(SSD_SMALL, SSD_SMALL_64))
+        ssd_shapes=(SSD_SMALL, SSD_SMALL_64), ring=RING_SMALL,
+        explore_batch=EXPLORE_SMALL, reps=1)
     assert set(out) == {name for name, _, _ in smoke.KERNELS}
     for name, row in out.items():
         assert row["max_abs_err"] == 0.0 and row["parity_cases"] >= 9, name
@@ -205,34 +213,6 @@ def test_obs_phase_holds_every_check_at_a_cpu_size():
         smoke.phase_obs(CPU, counters, cfg, served=(11, snap), turns=1)
 
 
-def test_mesh_phase_matches_the_pins_script_at_a_cpu_size(monkeypatch):
-    """Phase 9 at ``PHASE9_SMALL`` on 4 gloo CPU ranks: the mesh solver
-    held to what ``scripts/mesh_pins.py`` computes from the JAX package at
-    that size and to the stacked runtime, the backlog's digests to the
-    stacked runtime's, and (c) on one gloo rank (the card's run is held to
-    the same script's full-size run, pinned in ``PHASE9_EXPECT``)."""
-    # the ranks import chip_smoke by name, from the path they inherit
-    monkeypatch.syspath_prepend(str(ROOT))
-    smoke = importlib.import_module("chip_smoke")
-    spec = importlib.util.spec_from_file_location(
-        "mesh_pins", ROOT / "scripts" / "mesh_pins.py")
-    pins = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(pins)
-    cfg = smoke.PHASE9_SMALL
-    expect = pins.pins(cfg["solver"])
-    _, counters = smoke._port()
-    out = smoke.phase_mesh(CPU, counters, cfg, expect=expect)
-    assert out["solver"]["supersteps"] == expect["supersteps"] > 8
-    assert out["solver"]["transferred"] > 0
-    assert set(out["backlog"]) == {"flat/compact", "flat/dense",
-                                   "pods/compact", "pods/dense"}
-    assert all(b["transport"] == "gloo, staged through the host"
-               for b in out["backlog"].values())
-    assert out["single"]["supersteps"] > 1
-    # the card's pins come from the same script at PHASE9's size
-    assert set(smoke.PHASE9_EXPECT) == set(expect)
-
-
 def _assert_first_wave_is_the_plain_computation(out):
     """On the CPU every wrapper takes its plain version: nothing launches,
     and the two first-wave prefills are the same computation."""
@@ -292,12 +272,7 @@ def test_train_phase_holds_every_gate_at_a_cpu_size():
     thread: the tier-1 run puts several test processes on the host's
     cores, where a thread pool per process mostly waits."""
     smoke = _chip_smoke()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        out = smoke.phase_train(CPU, smoke.PHASE11_SMALL)
-    finally:
-        torch.set_num_threads(n)
+    out = smoke.phase_train(CPU, smoke.PHASE11_SMALL)
     dense, moe, ssm, vlm = (out[k] for k in ("dense", "moe", "ssm", "vlm"))
     assert dense["launches_expected_per_step"] == {"flash_attention": 8}
     assert len(dense["losses"]) == 4
@@ -331,12 +306,7 @@ def test_encdec_phase_holds_every_gate_at_a_cpu_size():
     (both sides the plain version); training falls, with every layer's
     attention projections reached.  On one intra-op thread."""
     smoke = _chip_smoke()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        out = smoke.phase_encdec(CPU, smoke.PHASE12_SMALL)
-    finally:
-        torch.set_num_threads(n)
+    out = smoke.phase_encdec(CPU, smoke.PHASE12_SMALL)
     serve, train = out["serve"], out["train"]
     assert serve["calls_by_mode"] == {"encoder": 2, "self": 2, "cross": 2}
     # K6's counters move only where it launches, which the CPU never does
@@ -354,50 +324,22 @@ def test_encdec_phase_holds_every_gate_at_a_cpu_size():
     assert smoke.train_launches(cfg) == {"flash_attention": 72}
 
 
-def test_sharded_phase_holds_every_gate_at_a_cpu_size(monkeypatch):
-    """Phase 13 at ``PHASE13_SMALL``: 8 gloo CPU ranks as a (data 2, model
-    4) mesh; flash-decoding within its tolerances of the unsharded decode
-    on every rank (model ranks 2 and 3 start with 5 and 0 valid slots),
-    and expert-parallel prefill with bit-equal plans."""
-    # the ranks import chip_smoke by name, from the path they inherit
-    monkeypatch.syspath_prepend(str(ROOT))
-    smoke = importlib.import_module("chip_smoke")
-    out = smoke.phase_sharded(CPU, smoke.PHASE13_SMALL)
-    assert out["mesh"] == {"data": 2, "model": 4}
-    for name in ("flash", "flash_f32"):
-        assert all(x <= 1.0 for x in out[name]["max_err_over_tol"])
-        assert out[name]["flash_decode_calls"] == [12] * 8  # 3 steps x 4
-        assert out[name]["valid_slots_at_first_step"] == [10, 10, 5, 0] * 2
-    assert out["moe"]["experts_held"] == [2] * 8
-    assert out["moe"]["ep_calls"] == [4] * 8
-    assert all(out["moe"]["plans_bit_equal"])
-
-
-def test_sharded_step_phase_holds_every_gate_at_a_cpu_size(monkeypatch):
-    """Phase 15 at ``PHASE15_SMALL``: 8 gloo CPU ranks; the sharded train
-    steps of reduced llama3.2-1b (two), qwen3-moe and mamba2 within the
-    phase's tolerances of the unsharded ones on every rank, a prefill's
-    logits, the MoE's plans bit-equal, llama on the (pod 2, data 2, model
-    2) mesh, and the dry run's trace of the llama step logging rank 0's
-    collectives call for call."""
-    monkeypatch.syspath_prepend(str(ROOT))
-    smoke = importlib.import_module("chip_smoke")
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)    # the references beside 8 one-thread ranks
-    try:
-        out = smoke.phase_sharded_step(CPU, smoke.PHASE15_SMALL)
-    finally:
-        torch.set_num_threads(threads)
-    assert out["mesh"] == {"data": 2, "model": 4}
-    assert out["pod_mesh"] == {"pod": 2, "data": 2, "model": 2}
-    for name, steps in (("dense", 2), ("moe", 1), ("ssm", 1), ("pods", 1)):
-        assert len(out[name]["losses"]) == 8
-        assert all(len(x) == steps for x in out[name]["losses"])
-        assert max(out[name]["max_grad_err_over_leaf_max"]) <= \
-            smoke.SHARDED_GRAD_TOL
-    assert max(out["dense"]["logits_max_abs_err"]) <= \
-        smoke.SHARDED_LOGITS_TOL
-    assert out["moe"]["plans_bit_equal"]
-    assert out["moe"]["forward_plan_agreement"] == 1.0
-    check = out["dry_run_check"]
-    assert check["log_equal"] and check["collectives"] > 0
+def test_examples_phase_holds_every_gate_at_a_cpu_size():
+    """Phase 16 at ``PHASE16_SMALL``: the port's four examples, each a
+    subprocess with ``--device cpu``, exit 0 and print what the phase
+    gates: the knapsack optimum equal to the DP oracle's, every request
+    served and some stolen, the superstep conserving its items, the loss
+    falling; nothing launches on the CPU."""
+    smoke = _chip_smoke()
+    out = smoke.phase_examples(CPU, smoke.PHASE16_SMALL)
+    runs = out["examples"]
+    assert set(runs) == {"quickstart", "knapsack_solver", "serve_demo",
+                         "train_lm"}
+    assert all(r["rc"] == 0 and r["wall_s"] > 0 for r in runs.values())
+    k = runs["knapsack_solver"]["ints"]
+    assert k["oracle"] == k["parallel"] == k["sequential"]
+    assert k["paper_optimum"] == 15 and k["steals"] > 0
+    assert runs["serve_demo"]["ints"]["served"] == [6, 6]
+    assert runs["quickstart"]["ints"]["sizes"] == [16, 0, 0, 0, 8, 8, 0, 0]
+    assert runs["quickstart"]["ints"]["queue_launches"] == [0, 0, 0]
+    assert len(runs["train_lm"]["ints"]["losses"]) == 2

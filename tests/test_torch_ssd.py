@@ -25,6 +25,7 @@ from repro_torch.kernels import cases as C
 from repro_torch.kernels.ssd_scan.ops import SIMT, TENSOR_CORE, route, ssd
 from repro_torch.kernels.ssd_scan.ref import (ssd_chunk_parallel,
                                               ssd_chunk_ref, ssd_chunked)
+from _torch_parity import one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 

@@ -37,7 +37,7 @@ from repro_torch.models.zoo import build_model, params_from_numpy
 from repro_torch.serve.engine import Replica, ServeCluster
 from repro_torch.serve.scheduler import AdmissionMaster, Request
 
-from _torch_parity import assert_same, tree_np
+from _torch_parity import assert_same, tree_np, one_torch_thread  # noqa: F401
 
 CPU = torch.device("cpu")
 ARCHS = ["mamba2-2.7b", "zamba2-7b"]

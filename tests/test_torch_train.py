@@ -44,22 +44,11 @@ from repro_torch.train import checkpoint as ckpt
 from repro_torch.train import optimizer as topt
 from repro_torch.train.trainer import make_train_step
 
-from _torch_parity import tree_np
+from _torch_parity import one_torch_thread, tree_np  # noqa: F401
 
 CPU = torch.device("cpu")
 LOSS_TOL, METRIC_RTOL, PARAM_ATOL = 1e-5, 1e-5, 1e-5
 STEP_EPS = 1e-6
-
-
-@pytest.fixture(autouse=True)
-def _one_torch_thread():
-    """These small models run on one intra-op thread: the tier-1 run puts
-    several test processes on the host's cores, where a thread pool per
-    process spends more time waiting for its threads than computing."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _leaves(tree):

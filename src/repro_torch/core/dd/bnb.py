@@ -30,6 +30,7 @@ from repro_torch.core.dd.diagram import (DEAD, NEG, build_bounds,
                                          root_pool, where_pool)
 from repro_torch.core.dd.knapsack import Knapsack
 from repro_torch.kernels.dd_expand import ops as dd_expand
+from repro_torch.obs.phase import span
 
 __all__ = ["Subproblem", "exact_frontier", "explore", "explore_batch",
            "explore_batch_plain", "solve"]
@@ -99,15 +100,17 @@ def explore_batch(subs: Subproblem, valid: torch.Tensor, weights, profits,
     """:func:`explore` over an ``(E,)`` batch; invalid rows produce
     nothing.  On CUDA tensors one launch of the fused DD explore
     (``dd_expand.explore_fused``, pool widths 2 to 32); on CPU tensors
-    :func:`explore_batch_plain`.  Both give the same integers."""
-    if subs.state.device.type == "cpu":
-        return explore_batch_plain(subs, valid, weights, profits,
-                                   width=width, n_vars=n_vars)
-    primal, dual, exact, *children = dd_expand.explore_fused(
-        subs.layer, subs.state, subs.value, valid, weights, profits,
-        width=width, n_vars=n_vars)
-    return {"primal": primal, "dual": dual, "exact": exact,
-            "children": Subproblem(*children)}
+    :func:`explore_batch_plain`.  Both give the same integers.  The host
+    span ``repro.explore`` (:func:`repro_torch.obs.phase.span`)."""
+    with span("explore"):
+        if subs.state.device.type == "cpu":
+            return explore_batch_plain(subs, valid, weights, profits,
+                                       width=width, n_vars=n_vars)
+        primal, dual, exact, *children = dd_expand.explore_fused(
+            subs.layer, subs.state, subs.value, valid, weights, profits,
+            width=width, n_vars=n_vars)
+        return {"primal": primal, "dual": dual, "exact": exact,
+                "children": Subproblem(*children)}
 
 
 def explore_batch_plain(subs: Subproblem, valid: torch.Tensor, weights,

@@ -25,15 +25,22 @@ on the ``"cuda"`` routing each superstep is, on each process:
                             package's ``lax.pmax``; a max over the stack,
                             or an all-reduce on a mesh)
   4. prune + compact      — children of dominated nodes are dropped
-  5. ops.push(children)   — one K2 launch for the payload tree, in place
+  5. ops.push(children)   — one K2 launch for the payload tree, in place;
+                            the rows a full ring refused and each lane's
+                            size after it kept in the carry (3 launches)
   6. master.superstep     — K1 window + K4 splice (appended by the runtime)
 
 ``fused_rounds`` supersteps run per :meth:`StealRuntime.run_fused` block,
-with one host read-back per block.
+with one host read-back per block.  A refused row is a lost subproblem:
+a solve that refused one says so with a :class:`RingOverflowWarning`.
+Each step is a host span (:func:`repro_torch.obs.phase.span`:
+``repro.pop``, ``repro.explore``, ``repro.prune``, ``repro.push``) inside
+the runtime's ``repro.worker_body``, and the solve is ``repro.solve``.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple
 
 import torch
@@ -45,10 +52,17 @@ from repro_torch.core.dd.knapsack import Knapsack
 from repro_torch.core.ops import BulkOps, QueueState
 from repro_torch.core.policy import StealPolicy
 from repro_torch.distributed.launch import launch_runtime
+from repro_torch.obs.phase import span
 
-__all__ = ["parallel_solve"]
+__all__ = ["parallel_solve", "RingOverflowWarning"]
 
 I32 = torch.int32
+
+
+class RingOverflowWarning(RuntimeWarning):
+    """A full ring refused children of a solve: those subproblems are
+    lost, so the optimum it returned is not proven.  Turn it into an error
+    with ``warnings.simplefilter("error", RingOverflowWarning)``."""
 
 
 def _item_spec():
@@ -59,43 +73,55 @@ def _item_spec():
 def _make_worker_body(weights, profits, ops: BulkOps, lanes, *,
                       explore_width: int, batch: int, n_vars: int):
     """The solver's slice of a superstep, on the lanes this process
-    holds."""
+    holds.  Besides the incumbent and the explored count, the carry keeps
+    two ring counters per lane: ``ring_refused``, the children a full ring
+    refused (a lost subproblem each), and ``ring_peak``, the largest size
+    after a push."""
 
     def body(q: QueueState, carry):
         w = q.size.shape[0]
         # 1. bulk pop up to `batch` subproblems per lane
-        q, items, n_popped = ops.pop_bulk(q, batch, batch, donate=True)
-        rows = torch.arange(batch, dtype=I32, device=q.size.device)
-        valid = rows[None, :] < n_popped[:, None]               # (W, E)
-        subs = Subproblem(layer=items["layer"].reshape(-1),
-                          state=items["state"].reshape(-1),
-                          value=items["value"].reshape(-1))
+        with span("pop"):
+            q, items, n_popped = ops.pop_bulk(q, batch, batch, donate=True)
+            explored = carry["explored"] + n_popped
+            rows = torch.arange(batch, dtype=I32, device=q.size.device)
+            valid = rows[None, :] < n_popped[:, None]           # (W, E)
+            subs = Subproblem(layer=items["layer"].reshape(-1),
+                              state=items["state"].reshape(-1),
+                              value=items["value"].reshape(-1))
 
-        # 2. explore all W x E subproblems in one batch
+        # 2. explore all W x E subproblems in one batch (span
+        # ``repro.explore``)
         out = explore_batch(subs, valid.reshape(-1), weights, profits,
                             width=explore_width, n_vars=n_vars)
 
-        # 3. global incumbent: max over lanes, every lane gets it
-        local_best = torch.maximum(carry["incumbent"],
-                                   out["primal"].reshape(w, batch).amax(-1))
-        incumbent = lanes.max(local_best)
+        with span("prune"):
+            # 3. global incumbent: max over lanes, every lane gets it
+            local_best = torch.maximum(
+                carry["incumbent"], out["primal"].reshape(w, batch).amax(-1))
+            incumbent = lanes.max(local_best)
 
-        # 4. prune: a subproblem's children survive iff dual > incumbent
-        keep = (out["dual"].reshape(w, batch) > incumbent[:, None])[..., None]
-        ch = out["children"]
-        live = keep & (ch.layer.reshape(w, batch, -1) >= 0)   # (W, E, width)
-        flive = live.reshape(w, -1)
-        # compact live children to the front of each lane (one stable
-        # sort on an int key, as jnp.argsort(~flive) orders the bools)
-        order = torch.argsort((~flive).to(I32), dim=1, stable=True)
-        flat = {k: getattr(ch, k).reshape(w, -1).gather(1, order)
-                for k in ("layer", "state", "value")}
-        n_children = flive.sum(1).to(I32)
+            # 4. prune: a subproblem's children survive iff dual > incumbent
+            keep = (out["dual"].reshape(w, batch)
+                    > incumbent[:, None])[..., None]
+            ch = out["children"]
+            # (W, E, width)
+            live = keep & (ch.layer.reshape(w, batch, -1) >= 0)
+            flive = live.reshape(w, -1)
+            # compact live children to the front of each lane (one stable
+            # sort on an int key, as jnp.argsort(~flive) orders the bools)
+            order = torch.argsort((~flive).to(I32), dim=1, stable=True)
+            flat = {k: getattr(ch, k).reshape(w, -1).gather(1, order)
+                    for k in ("layer", "state", "value")}
+            n_children = flive.sum(1).to(I32)
 
         # 5. bulk push (step 6, the superstep, is appended by the runtime)
-        q, _ = ops.push(q, flat, n_children, donate=True)
-        return q, {"incumbent": incumbent,
-                   "explored": carry["explored"] + n_popped}
+        with span("push"):
+            q, pushed = ops.push(q, flat, n_children, donate=True)
+            refused = carry["ring_refused"] + (n_children - pushed)
+            peak = torch.maximum(carry["ring_peak"], q.size)
+        return q, {"incumbent": incumbent, "explored": explored,
+                   "ring_refused": refused, "ring_peak": peak}
 
     return body
 
@@ -121,42 +147,70 @@ def parallel_solve(inst: Knapsack, *, n_workers: int = 8,
     read-back.
 
     Returns (optimum, stats); ``stats["telemetry"]`` carries the runtime's
-    per-round rebalancing summary and ``stats["backend"]`` the resolved
-    routing (``"cuda"`` for the kernels).
+    per-round rebalancing summary, ``stats["backend"]`` the resolved
+    routing (``"cuda"`` for the kernels), ``stats["ring_refused_rows"]``
+    the rows full rings refused (summed over the lanes),
+    ``stats["per_worker_ring_peak"]`` each lane's largest size after a
+    push, and ``stats["ring_peak_rows"]`` the largest lane size seen,
+    after a push on the device or after a splice on the host.  Warns with
+    :class:`RingOverflowWarning` when a ring refused a row: the subproblem
+    is lost and the optimum not proven.
     """
     policy = policy or StealPolicy(proportion=0.5, high_watermark=4,
                                    low_watermark=0,
                                    max_steal=min(capacity, 1024))
-    runtime = launch_runtime(
-        n_workers, capacity, _item_spec(), execution=execution,
-        policy=policy, adaptive=adaptive, backend=backend,
-        device=resolve_device(device) if execution == "vmap" else device)
-    dev, lanes = runtime.device, runtime.lanes
-    w = torch.tensor(inst.weights, dtype=I32, device=dev)
-    p = torch.tensor(inst.profits, dtype=I32, device=dev)
-    # seed: root subproblem on worker 0
-    runtime.push(0, {"layer": torch.zeros((1,), dtype=I32),
-                     "state": torch.full((1,), inst.capacity, dtype=I32),
-                     "value": torch.zeros((1,), dtype=I32)}, 1)
+    with span("solve"):
+        with span("launch_runtime"):
+            runtime = launch_runtime(
+                n_workers, capacity, _item_spec(), execution=execution,
+                policy=policy, adaptive=adaptive, backend=backend,
+                device=(resolve_device(device) if execution == "vmap"
+                        else device))
+            dev, lanes = runtime.device, runtime.lanes
+            w = torch.tensor(inst.weights, dtype=I32, device=dev)
+            p = torch.tensor(inst.profits, dtype=I32, device=dev)
+            # seed: root subproblem on worker 0
+            runtime.push(0, {"layer": torch.zeros((1,), dtype=I32),
+                             "state": torch.full((1,), inst.capacity,
+                                                 dtype=I32),
+                             "value": torch.zeros((1,), dtype=I32)}, 1)
 
-    body = _make_worker_body(w, p, runtime.ops, lanes,
-                             explore_width=explore_width, batch=batch,
-                             n_vars=inst.n)
-    carry = {"incumbent": torch.full((lanes.n_local,), NEG, dtype=I32,
-                                     device=dev),
-             "explored": torch.zeros((lanes.n_local,), dtype=I32,
-                                     device=dev)}
-    carry = runtime.run(body, carry, max_rounds=max_supersteps,
-                        fused=fused_rounds)
+        body = _make_worker_body(w, p, runtime.ops, lanes,
+                                 explore_width=explore_width, batch=batch,
+                                 n_vars=inst.n)
+        carry = {"incumbent": torch.full((lanes.n_local,), NEG, dtype=I32,
+                                         device=dev)}
+        for key in ("explored", "ring_refused", "ring_peak"):
+            carry[key] = torch.zeros((lanes.n_local,), dtype=I32, device=dev)
+        carry = runtime.run(body, carry, max_rounds=max_supersteps,
+                            fused=fused_rounds)
 
-    explored = lanes.all_gather(carry["explored"]).cpu().tolist()
-    stats = {
-        "supersteps": runtime.rounds_run,
-        "explored": int(sum(explored)),
-        "transferred": runtime.telemetry.total_transferred,
-        "per_worker_explored": [int(x) for x in explored],
-        "telemetry": runtime.telemetry.summary(),
-        "backend": runtime.ops.resolved,
-        "execution": execution,
-    }
-    return int(carry["incumbent"][0]), stats
+        with span("solve_end"):
+            # (W, 3): explored, refused, peak of every lane, one read-back
+            counts = lanes.all_gather(torch.stack(
+                [carry["explored"], carry["ring_refused"],
+                 carry["ring_peak"]], 1)).cpu()
+            explored, refused, peak = counts.T.tolist()
+            telemetry = runtime.telemetry
+            stats = {
+                "supersteps": runtime.rounds_run,
+                "explored": int(sum(explored)),
+                "transferred": telemetry.total_transferred,
+                "per_worker_explored": [int(x) for x in explored],
+                "telemetry": telemetry.summary(),
+                "backend": runtime.ops.resolved,
+                "execution": execution,
+                "ring_refused_rows": int(sum(refused)),
+                "per_worker_ring_peak": [int(x) for x in peak],
+                # the post-push peak, or a post-splice size the host saw
+                "ring_peak_rows": max(max(peak), max(
+                    (r.sizes_max for r in telemetry.rounds), default=0)),
+            }
+            optimum = int(carry["incumbent"][0])
+    if stats["ring_refused_rows"]:
+        warnings.warn(
+            f"parallel_solve: full rings of {capacity} rows refused "
+            f"{stats['ring_refused_rows']} subproblems, so the optimum "
+            f"{optimum} is not proven; raise capacity",
+            RingOverflowWarning, stacklevel=2)
+    return optimum, stats

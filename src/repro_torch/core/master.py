@@ -74,6 +74,7 @@ from repro_torch.core import ops as bulk_ops
 from repro_torch.core.lanes import StackedLanes
 from repro_torch.core.ops import QueueState
 from repro_torch.core.policy import StealPolicy, plan_transfers
+from repro_torch.obs.phase import span
 
 __all__ = ["RebalanceStats", "superstep", "hierarchical_superstep",
            "gather_sizes", "exchange_probe", "probe_token", "Level"]
@@ -208,13 +209,14 @@ def _exchange(q, ops, lanes, policy, sizes, src, amt, exchange, donate
               ) -> Tuple[QueueState, torch.Tensor]:
     """The block exchange of a plan over the lanes of ``lanes``: ``sizes``,
     ``src`` and ``amt`` span all of them, ``q`` holds this process's."""
-    if exchange == "dense":
-        return _dense_exchange(q, ops, lanes, policy, src, amt, donate)
-    if exchange == "compact":
+    if exchange not in ("compact", "dense"):
+        raise ValueError(
+            f"unknown exchange {exchange!r}; expected 'compact' or 'dense'")
+    with span("exchange"):
+        if exchange == "dense":
+            return _dense_exchange(q, ops, lanes, policy, src, amt, donate)
         return _compact_exchange(q, ops, lanes, policy, sizes, src, amt,
                                  donate)
-    raise ValueError(
-        f"unknown exchange {exchange!r}; expected 'compact' or 'dense'")
 
 
 def superstep(
@@ -252,29 +254,31 @@ def superstep(
     if exchange is None:
         exchange = policy.exchange
     lanes = lanes or StackedLanes(q.size.shape[0])
-    before = q.size
-    if sizes is None:
-        sizes = gather_sizes(q, lanes)
-    if plan is None:
-        plan = plan_transfers(sizes, policy)
-    src, amt = plan[:, 0], plan[:, 1]
-    q, bytes_moved = _exchange(q, ops, lanes, policy, sizes, src, amt,
-                               exchange, donate)
-    if mark is not None:
-        mark("exchange")
-    _check_level(ops, lanes, before, q)
-    zero = torch.zeros((), dtype=I32, device=q.size.device)
-    stats = RebalanceStats(
-        sizes_before=before,
-        sizes_after=q.size,
-        n_transferred=torch.where(amt > 0, amt, 0).sum().to(I32),
-        n_steals=(amt > 0).sum().to(I32),
-        bytes_moved=bytes_moved,
-        n_transferred_xpod=zero,
-        n_steals_xpod=zero,
-        bytes_moved_xpod=zero,
-    )
-    return q, stats
+    with span("superstep"):
+        before = q.size
+        with span("plan"):
+            if sizes is None:
+                sizes = gather_sizes(q, lanes)
+            if plan is None:
+                plan = plan_transfers(sizes, policy)
+        src, amt = plan[:, 0], plan[:, 1]
+        q, bytes_moved = _exchange(q, ops, lanes, policy, sizes, src, amt,
+                                   exchange, donate)
+        if mark is not None:
+            mark("exchange")
+        _check_level(ops, lanes, before, q)
+        zero = torch.zeros((), dtype=I32, device=q.size.device)
+        stats = RebalanceStats(
+            sizes_before=before,
+            sizes_after=q.size,
+            n_transferred=torch.where(amt > 0, amt, 0).sum().to(I32),
+            n_steals=(amt > 0).sum().to(I32),
+            bytes_moved=bytes_moved,
+            n_transferred_xpod=zero,
+            n_steals_xpod=zero,
+            bytes_moved_xpod=zero,
+        )
+        return q, stats
 
 
 def _check_level(ops, lanes, sizes_before, q) -> None:
@@ -475,29 +479,33 @@ def hierarchical_superstep(
     kw = dict(ops=ops, policy=policy, exchange=exchange, donate=donate)
     sentinel = policy.low_watermark + 1
 
-    before = q.size
-    sizes = pods.gather(q.size)
-    planned = sizes if dead is None else torch.where(
-        pods.view(dead), sentinel, sizes).to(I32)
-    plan = _unless_dropped(plan_transfers(planned, policy), drop)
-    q, intra = pods.exchange(q, sizes, plan, **kw)
-    if mark is not None:
-        mark("exchange")
-    _check_level(ops, lanes, before, q)
+    with span("superstep"):
+        before = q.size
+        with span("plan"):
+            sizes = pods.gather(q.size)
+            planned = sizes if dead is None else torch.where(
+                pods.view(dead), sentinel, sizes).to(I32)
+            plan = _unless_dropped(plan_transfers(planned, policy), drop)
+        q, intra = pods.exchange(q, sizes, plan, **kw)
+        if mark is not None:
+            mark("exchange")
+        _check_level(ops, lanes, before, q)
 
-    # Across pods: only lane 0 of each pod takes part with its true size.
-    rep = lanes.index(q.size.device) % pod_size == 0
-    if dead is not None:
-        rep = rep & ~lanes.local(dead)
-    eff = torch.where(rep, q.size, sentinel).to(I32)
-    mid = q.size
-    eff = rows.gather(eff)
-    xplan = _unless_dropped(plan_transfers(eff, policy), drop)
-    q, xpod = rows.exchange(q, eff, xplan, **kw)
-    _check_level(ops, lanes, mid, q)
-    stats = intra._replace(
-        sizes_after=q.size,
-        n_transferred_xpod=xpod.n_transferred[0],
-        n_steals_xpod=xpod.n_steals[0],
-        bytes_moved_xpod=xpod.bytes_moved[0])
-    return q, stats
+        # Across pods: only lane 0 of each pod takes part with its true
+        # size.
+        with span("plan"):
+            rep = lanes.index(q.size.device) % pod_size == 0
+            if dead is not None:
+                rep = rep & ~lanes.local(dead)
+            eff = torch.where(rep, q.size, sentinel).to(I32)
+            mid = q.size
+            eff = rows.gather(eff)
+            xplan = _unless_dropped(plan_transfers(eff, policy), drop)
+        q, xpod = rows.exchange(q, eff, xplan, **kw)
+        _check_level(ops, lanes, mid, q)
+        stats = intra._replace(
+            sizes_after=q.size,
+            n_transferred_xpod=xpod.n_transferred[0],
+            n_steals_xpod=xpod.n_steals[0],
+            bytes_moved_xpod=xpod.bytes_moved[0])
+        return q, stats

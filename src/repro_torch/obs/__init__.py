@@ -6,7 +6,9 @@ Three cooperating pieces:
 * :mod:`repro_torch.obs.phase` — each round's time attributed to
   ``worker_body`` / ``exchange`` / ``splice`` / ``adaptive_update`` from
   marks at the phase boundaries (CUDA events on the device), read once
-  per block (off by default; bit-identical when on).
+  per block (off by default; bit-identical when on); and the program's
+  host spans (``repro.solve`` down to ``repro.explore``), profiler
+  ranges on the device trace's clock when on, a null context when off.
 * :mod:`repro_torch.obs.trace` — Chrome-trace/Perfetto JSON export of one
   :class:`~repro_torch.runtime.telemetry.Telemetry` stream: round spans
   with phase children, wave spans, per-request flows, fault/detector

@@ -30,6 +30,17 @@ update is the host controller, timed on the host after the read-back.
 With no probe, or a disabled one, the runtime makes no mark and creates
 no event; with one, the results are bit-identical (a mark records a time
 and touches no tensor).
+
+Host spans.  :func:`span` names a stretch of the program's host code:
+``repro.solve`` around a solve, ``repro.block`` around a fused block,
+``repro.round``, ``repro.worker_body``, ``repro.superstep`` and the
+layers inside them.  Off by default, a span is one test of a module flag
+and a shared null context.  On (:func:`enable_spans`, or inside a
+:func:`trace_span` profile), it is a ``torch.profiler.record_function``
+range: the profiler stamps it on the clock of the device operations it
+traces and links each operation to the host operation that launched it,
+so a trace says which layer of the round the host was issuing while the
+device waited.  Spans live in the profiler's memory until it stops.
 """
 
 from __future__ import annotations
@@ -46,7 +57,7 @@ import torch
 from repro_torch._tree import tree_leaves
 
 __all__ = ["PHASES", "PhaseSample", "PhaseProbe", "PhaseClock",
-           "timed_call", "trace_span"]
+           "timed_call", "trace_span", "span", "enable_spans"]
 
 # Phase order is load-bearing: calibration deltas and trace children are
 # emitted in this order.
@@ -82,6 +93,28 @@ class PhaseSample:
         }
 
 
+# the program's host spans: off until enable_spans(True)
+_SPANS_ON = False
+_NO_SPAN = contextlib.nullcontext()
+SPAN_PREFIX = "repro."
+
+
+def span(name: str):
+    """The host span ``repro.<name>``: a ``torch.profiler.record_function``
+    range while spans are on, the one shared null context otherwise."""
+    if not _SPANS_ON:
+        return _NO_SPAN
+    return torch.profiler.record_function(SPAN_PREFIX + name)
+
+
+def enable_spans(on: bool = True) -> bool:
+    """Turn the program's host spans on or off; returns the previous
+    setting, for the caller to restore."""
+    global _SPANS_ON
+    prev, _SPANS_ON = _SPANS_ON, bool(on)
+    return prev
+
+
 def _fence(out) -> None:
     devices = {leaf.device for leaf in tree_leaves(out)
                if isinstance(leaf, torch.Tensor) and leaf.is_cuda}
@@ -106,7 +139,8 @@ def trace_span(name: str):
     ``torch.profiler.profile`` (CPU and, where there is one, CUDA
     activities) and ``<dir>/<name>.json`` receives its Chrome trace
     (kernel-level detail — it complements, not replaces, the logical
-    trace :mod:`repro_torch.obs.trace` builds from telemetry).  A no-op
+    trace :mod:`repro_torch.obs.trace` builds from telemetry), with the
+    program's host spans (:func:`span`) on for the block.  A no-op
     otherwise, and inside a profile that is already running."""
     trace_dir = os.environ.get("REPRO_TRACE")
     if not trace_dir or torch.autograd._profiler_enabled():
@@ -117,8 +151,12 @@ def trace_span(name: str):
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
-    with profile(activities=activities) as prof:
-        yield
+    prev = enable_spans(True)
+    try:
+        with profile(activities=activities) as prof:
+            yield
+    finally:
+        enable_spans(prev)
     os.makedirs(trace_dir, exist_ok=True)
     prof.export_chrome_trace(os.path.join(trace_dir, f"{name}.json"))
 

@@ -45,9 +45,10 @@ from __future__ import annotations
 
 import argparse
 import json
-from typing import Any, Dict, List, Optional
+from typing import TYPE_CHECKING, Any, Dict, List, Optional
 
-from repro_torch.runtime.telemetry import Telemetry
+if TYPE_CHECKING:  # the runtime imports this package's span
+    from repro_torch.runtime.telemetry import Telemetry
 
 __all__ = ["export_trace", "validate_trace"]
 

@@ -76,7 +76,12 @@ Python, so a :class:`~repro_torch.obs.phase.PhaseClock` marks each
 boundary as it is issued (CUDA events on the device, ``perf_counter`` on
 the CPU) and the block's times are read once, after its read-back, for
 every round, fused or not.  The probe adds no host sync, no launch and
-no change to any result.
+no change to any result.  The host spans of :func:`repro_torch.obs.phase.
+span`, when on, name what the host is issuing: ``repro.block`` (a
+:meth:`StealRuntime.run_fused` call), ``repro.round`` (each round, and
+:meth:`StealRuntime.round`), ``repro.worker_body``, the superstep's
+(:mod:`repro_torch.core.master`), ``repro.adaptive_update``, and after
+the rounds ``repro.read_back`` and ``repro.bookkeeping``.
 """
 
 from __future__ import annotations
@@ -95,6 +100,7 @@ from repro_torch.core import ops as bulk_ops
 from repro_torch.core.lanes import StackedLanes, stack_stats
 from repro_torch.core.policy import StealPolicy
 from repro_torch.core.sharded_queue import make_sharded_queues
+from repro_torch.obs.phase import span, trace_span
 from repro_torch.runtime import resilience
 from repro_torch.runtime.adaptive import (AdaptiveConfig, AdaptiveController,
                                           adaptive_update)
@@ -155,7 +161,8 @@ def make_lane_step(policy: StealPolicy, ops: bulk_ops.BulkOps,
     def lane(q, carry, proportion, faults=None, mark=None):
         del faults  # the fault layer is off
         if worker_fn is not None:
-            q, carry = worker_fn(q, carry)
+            with span("worker_body"):
+                q, carry = worker_fn(q, carry)
         if mark is not None:
             mark("worker_body")
         pol = dataclasses.replace(policy, proportion=proportion)
@@ -690,36 +697,38 @@ class StealRuntime:
         when omitted).  Returns ``(carry_out, stats)`` with device-tensor
         stats in the stacked layout.  One host read at the end.
         """
-        carry = self._default_carry(carry)
-        proportion = self.proportion
-        snap = self._pre_dispatch_snapshot(worker_fn)
-        ctx = self._ctx(1)
-        t0 = time.perf_counter()
-        clock = self._phase_clock()
-        with self._deferred():
-            self.queues, carry, stats = self._step(
-                worker_fn, self.queues, carry, self._p(),
-                None if ctx is None else ctx.round(0),
-                mark=None if clock is None else clock.mark)
-        if clock is not None:
-            clock.mark("splice")
-        [stats] = stack_stats(self.lanes, [stats], pod_size=self.pod_size)
-        host = master_ops.RebalanceStats(*_read_back(*stats))
-        wall_s = time.perf_counter() - t0
-        if self._check:
-            self._post_dispatch_checks([host], snap,
-                                       context="StealRuntime.round")
-        t_a0 = time.perf_counter()
-        if self.controller is not None:
-            self.controller.update(self._controller_sizes(host.sizes_after))
-        [phases] = self._phase_records(clock, wall_s, 1,
-                                       t_adaptive=time.perf_counter() - t_a0)
-        self._record(host, proportion, phases)
-        r0 = self.rounds_run
-        self.rounds_run += 1
-        self._feed_detector(r0, 1, wall_s=wall_s)
-        self._maybe_snapshot()
-        return carry, stats
+        with span("round"):
+            carry = self._default_carry(carry)
+            proportion = self.proportion
+            snap = self._pre_dispatch_snapshot(worker_fn)
+            ctx = self._ctx(1)
+            t0 = time.perf_counter()
+            clock = self._phase_clock()
+            with self._deferred():
+                self.queues, carry, stats = self._step(
+                    worker_fn, self.queues, carry, self._p(),
+                    None if ctx is None else ctx.round(0),
+                    mark=None if clock is None else clock.mark)
+            if clock is not None:
+                clock.mark("splice")
+            [stats] = stack_stats(self.lanes, [stats], pod_size=self.pod_size)
+            host = master_ops.RebalanceStats(*_read_back(*stats))
+            wall_s = time.perf_counter() - t0
+            if self._check:
+                self._post_dispatch_checks([host], snap,
+                                           context="StealRuntime.round")
+            t_a0 = time.perf_counter()
+            if self.controller is not None:
+                self.controller.update(
+                    self._controller_sizes(host.sizes_after))
+            [phases] = self._phase_records(
+                clock, wall_s, 1, t_adaptive=time.perf_counter() - t_a0)
+            self._record(host, proportion, phases)
+            r0 = self.rounds_run
+            self.rounds_run += 1
+            self._feed_detector(r0, 1, wall_s=wall_s)
+            self._maybe_snapshot()
+            return carry, stats
 
     def _deferred(self):
         """With the sanitizer on, the block's op violations are recorded
@@ -788,45 +797,49 @@ class StealRuntime:
         """
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
-        from repro_torch.obs.phase import trace_span
-
-        carry = self._default_carry(carry)
-        snap = self._pre_dispatch_snapshot(worker_fn)
-        t0 = time.perf_counter()
-        clock = self._phase_clock()
-        with trace_span(f"run_fused_k{k}"):
-            with self._deferred():
-                carry, per_round, ran, p = self._fused_rounds(
-                    k, worker_fn, carry, until_drained,
-                    mark=None if clock is None else clock.mark)
-            stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
-                *stack_stats(self.lanes, [stats for stats, _ in per_round],
-                             pod_size=self.pod_size))))
-            props = torch.stack([q for _, q in per_round])
-            # ONE host read-back for the whole block.
-            host_ran, p_final, props, *host = _read_back(ran, p, props,
-                                                         *stacked)
-        wall_s = time.perf_counter() - t0
-        rounds = int(host_ran) if until_drained else k
-        host_rounds = [master_ops.RebalanceStats(*(x[r] for x in host))
-                       for r in range(rounds)]
-        if self._check:
-            self._post_dispatch_checks(
-                host_rounds, snap,
-                context=f"StealRuntime.run_fused[{rounds} rounds]")
-        phases = self._phase_records(clock, wall_s, rounds)
-        for r, host_r in enumerate(host_rounds):
-            self._record(host_r, float(props[r]), phases[r])
-        if self.controller is not None and rounds > 0:
-            self.controller.absorb(props[:rounds], float(p_final))
-        r0 = self.rounds_run
-        self.rounds_run += rounds
-        self._feed_detector(r0, rounds, wall_s=wall_s)
-        self._maybe_snapshot()
-        if until_drained:
-            stacked = master_ops.RebalanceStats(*(x[:rounds] for x in stacked))
-            return carry, stacked, rounds
-        return carry, stacked
+        with span("block"):
+            carry = self._default_carry(carry)
+            snap = self._pre_dispatch_snapshot(worker_fn)
+            t0 = time.perf_counter()
+            clock = self._phase_clock()
+            with trace_span(f"run_fused_k{k}"):
+                with self._deferred():
+                    carry, per_round, ran, p = self._fused_rounds(
+                        k, worker_fn, carry, until_drained,
+                        mark=None if clock is None else clock.mark)
+                with span("read_back"):
+                    stacked = master_ops.RebalanceStats(*map(
+                        torch.stack, zip(*stack_stats(
+                            self.lanes, [stats for stats, _ in per_round],
+                            pod_size=self.pod_size))))
+                    props = torch.stack([q for _, q in per_round])
+                    # ONE host read-back for the whole block.
+                    host_ran, p_final, props, *host = _read_back(
+                        ran, p, props, *stacked)
+            wall_s = time.perf_counter() - t0
+            with span("bookkeeping"):
+                rounds = int(host_ran) if until_drained else k
+                host_rounds = [
+                    master_ops.RebalanceStats(*(x[r] for x in host))
+                    for r in range(rounds)]
+                if self._check:
+                    self._post_dispatch_checks(
+                        host_rounds, snap,
+                        context=f"StealRuntime.run_fused[{rounds} rounds]")
+                phases = self._phase_records(clock, wall_s, rounds)
+                for r, host_r in enumerate(host_rounds):
+                    self._record(host_r, float(props[r]), phases[r])
+                if self.controller is not None and rounds > 0:
+                    self.controller.absorb(props[:rounds], float(p_final))
+                r0 = self.rounds_run
+                self.rounds_run += rounds
+                self._feed_detector(r0, rounds, wall_s=wall_s)
+                self._maybe_snapshot()
+                if until_drained:
+                    stacked = master_ops.RebalanceStats(
+                        *(x[:rounds] for x in stacked))
+                    return carry, stacked, rounds
+                return carry, stacked
 
     def _fused_rounds(self, k: int, worker_fn, carry, until_drained: bool,
                       mark=None):
@@ -845,32 +858,35 @@ class StealRuntime:
         # the adaptive update's input), gathered once a round
         sizes = self.lanes.all_gather(qs.size) if until_drained else None
         for i in range(k):
-            faults = None if ctx is None else ctx.round(i)
-            if until_drained:
-                active = active & (sizes.sum() > 0)
-                with self.ops.gated(active):
-                    qs, new_carry, stats = self._step(worker_fn, qs, carry,
-                                                      p, faults, mark)
-                carry = tree_map(lambda new, old: torch.where(active, new, old),
-                                 new_carry, carry)
-                ran = ran + active.to(torch.int32)
-            else:
-                qs, carry, stats = self._step(worker_fn, qs, carry, p, faults,
-                                              mark)
-            if mark is not None:
-                mark("splice")
-            per_round.append((stats, p))
-            if self.controller is not None or until_drained:
-                sizes = self.lanes.all_gather(qs.size)
-            if self.controller is not None:
-                masked = resilience.mask_sizes(
-                    sizes, None if ctx is None else ctx.dead[i + 1],
-                    self.policy)
-                p_new = adaptive_update(p, masked, policy=self.policy,
-                                        config=config)
-                p = torch.where(active, p_new, p)
-            if mark is not None:
-                mark("adaptive_update")
+            with span("round"):
+                faults = None if ctx is None else ctx.round(i)
+                if until_drained:
+                    active = active & (sizes.sum() > 0)
+                    with self.ops.gated(active):
+                        qs, new_carry, stats = self._step(
+                            worker_fn, qs, carry, p, faults, mark)
+                    carry = tree_map(
+                        lambda new, old: torch.where(active, new, old),
+                        new_carry, carry)
+                    ran = ran + active.to(torch.int32)
+                else:
+                    qs, carry, stats = self._step(worker_fn, qs, carry, p,
+                                                  faults, mark)
+                if mark is not None:
+                    mark("splice")
+                per_round.append((stats, p))
+                with span("adaptive_update"):
+                    if self.controller is not None or until_drained:
+                        sizes = self.lanes.all_gather(qs.size)
+                    if self.controller is not None:
+                        masked = resilience.mask_sizes(
+                            sizes, None if ctx is None else ctx.dead[i + 1],
+                            self.policy)
+                        p_new = adaptive_update(p, masked, policy=self.policy,
+                                                config=config)
+                        p = torch.where(active, p_new, p)
+                if mark is not None:
+                    mark("adaptive_update")
         self.queues = qs
         return carry, per_round, ran, p
 

@@ -266,7 +266,8 @@ def solver_case(execution) -> dict:
     opt, st = parallel_solve(inst, execution=execution, device="cpu", **cfg)
     return dict(optimum=opt, **{k: st[k] for k in (
         "supersteps", "explored", "transferred", "per_worker_explored",
-        "telemetry", "execution")})
+        "telemetry", "execution", "ring_refused_rows", "ring_peak_rows",
+        "per_worker_ring_peak")})
 
 
 def elastic_seed(rt, lanes) -> None:

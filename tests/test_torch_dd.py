@@ -134,6 +134,77 @@ def test_parallel_solve_matches_reference(case):
     assert (jst["backend"], tst["backend"]) == ("pallas", "cuda")
 
 
+def test_parallel_solve_refuses_no_row():
+    """The largest of the cases above: no child refused by a full ring,
+    and each lane's peak after a push within the ring."""
+    n, seed, workers, fused = SOLVER_CASES[-1]
+    _, st = parallel_solve(random_instance(n, seed=seed), device="cpu",
+                           n_workers=workers, explore_width=WIDTH, batch=4,
+                           fused_rounds=fused)
+    assert st["ring_refused_rows"] == 0
+    assert len(st["per_worker_ring_peak"]) == workers
+    assert 0 < max(st["per_worker_ring_peak"]) <= st["ring_peak_rows"]
+    assert st["ring_peak_rows"] <= 4096
+
+
+def test_a_full_ring_refusing_rows_is_loud():
+    """n 18 on rings of 8 rows: children are refused, so the optimum is
+    not proven; the solve warns, naming the capacity and the count, and
+    raises where the caller makes the warning an error."""
+    import warnings
+
+    from repro_torch.core.dd.parallel import RingOverflowWarning
+
+    inst = random_instance(18, seed=0)
+    with pytest.warns(RingOverflowWarning,
+                      match=r"rings of 8 rows refused \d+ subproblems"):
+        _, st = parallel_solve(inst, device="cpu", capacity=8)
+    assert st["ring_refused_rows"] > 0 and st["ring_peak_rows"] == 8
+    with warnings.catch_warnings():
+        warnings.simplefilter("error", RingOverflowWarning)
+        with pytest.raises(RingOverflowWarning, match="rings of 8 rows"):
+            parallel_solve(inst, device="cpu", capacity=8)
+
+
+@pytest.mark.parametrize("capacity", [8, 4096])
+def test_ring_counters_equal_in_fused_and_single_rounds(capacity):
+    """A fused block's gated rounds past the drain add nothing to the
+    ring counters: blocks of 8 rounds count what single rounds count."""
+    from repro_torch.core.dd.diagram import NEG
+    from repro_torch.core.dd.parallel import _item_spec, _make_worker_body
+    from repro_torch.core.policy import StealPolicy
+    from repro_torch.distributed import launch_runtime
+
+    inst = random_instance(18, seed=0)
+
+    def counters(fused):
+        rt = launch_runtime(4, capacity, _item_spec(), execution="vmap",
+                            device="cpu",
+                            policy=StealPolicy(proportion=0.5,
+                                               high_watermark=4,
+                                               max_steal=min(capacity, 64)))
+        rt.push(0, {"layer": torch.zeros((1,), dtype=torch.int32),
+                    "state": torch.full((1,), inst.capacity,
+                                        dtype=torch.int32),
+                    "value": torch.zeros((1,), dtype=torch.int32)}, 1)
+        w = torch.tensor(inst.weights, dtype=torch.int32)
+        p = torch.tensor(inst.profits, dtype=torch.int32)
+        body = _make_worker_body(w, p, rt.ops, rt.lanes, explore_width=WIDTH,
+                                 batch=4, n_vars=inst.n)
+        zero = torch.zeros((4,), dtype=torch.int32)
+        carry = rt.run(body, {"incumbent": torch.full((4,), NEG,
+                                                      dtype=torch.int32),
+                              "explored": zero, "ring_refused": zero,
+                              "ring_peak": zero}, fused=fused)
+        return rt.rounds_run, {k: carry[k].tolist() for k in
+                               ("explored", "ring_refused", "ring_peak")}
+
+    fused, single = counters(8), counters(1)
+    assert fused == single
+    assert (sum(fused[1]["ring_refused"]) > 0) == (capacity == 8)
+    assert max(fused[1]["ring_peak"]) <= capacity
+
+
 def test_knapsack_copy_matches_reference():
     from repro.core.dd.knapsack import dp_solve as jax_dp_solve
 

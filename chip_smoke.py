@@ -283,6 +283,7 @@ import hashlib
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -692,6 +693,14 @@ def _port():
                  "ring_slice": push_ops.pop_slice,
                  "ring_transfer": transfer_ops.transfer_splice,
                  "dd_expand": expand_ops.explore_fused}
+
+
+# each launch counter's kernel, as the profiler's device events name it
+COUNTED_KERNELS = {"ring_gather": "ring_gather_kernel",
+           "ring_scatter": "ring_scatter_kernel",
+           "ring_slice": "ring_slice_kernel",
+           "ring_transfer": "ring_transfer_kernel",
+           "dd_expand": "explore_kernel", "dd_expand_layer": "expand_kernel"}
 
 
 def _off_path():
@@ -1952,11 +1961,14 @@ def _runtime_device(device, execution: str):
     return device
 
 
-def solve_counted(device, counters, cfg, execution: str) -> dict:
+def solve_counted(device, counters, cfg, execution: str, *,
+                  profile: bool = False) -> dict:
     """``parallel_solve`` on the kernel routing, stacked or one lane per
     rank (every rank calls it), twice: this process's launch counters are
     zeroed just before the first run and read just after it, and the
-    second run (warm: a mesh's communicators are up) is timed."""
+    second run (warm: a mesh's communicators are up) is timed.  With
+    ``profile``, a third run under the profiler
+    (:func:`_profiled_solve`)."""
     from repro_torch.core.dd.knapsack import random_instance
     from repro_torch.core.dd.parallel import parallel_solve
     from repro_torch.core.policy import StealPolicy
@@ -1983,15 +1995,55 @@ def solve_counted(device, counters, cfg, execution: str) -> dict:
     launches = {name: fn.launches for name, fn in counters.items()}
     check(st["backend"] == "cuda", f"routing {st['backend']!r} is not cuda")
     t0 = time.perf_counter()
-    solve()
+    _, warm = solve()
     sync(device)
     wall = time.perf_counter() - t0
+    graph = [{k: s[f"graph_{k}"] for k in ("captures", "replays",
+                                          "eager_blocks")}
+             for s in (st, warm)]
     return dict(optimum=opt, supersteps=st["supersteps"],
                 explored=st["explored"], transferred=st["transferred"],
                 steals=st["telemetry"]["steals"],
                 per_worker_explored=st["per_worker_explored"],
                 launches=launches, wall_s_first=first, wall_s=wall,
-                ms_per_superstep=wall * 1e3 / st["supersteps"])
+                ms_per_superstep=wall * 1e3 / st["supersteps"],
+                graph_blocks=graph,
+                **(_profiled_solve(device, counters, solve) if profile
+                   else {}))
+
+
+def _profiled_solve(device, counters, solve) -> dict:
+    """A third solve under the profiler (:func:`traced_launches`): how its
+    blocks ran, each counter's launches and the profiler's count of each
+    counter's kernel."""
+    (_, st), counted, traced = traced_launches(device, counters, solve)
+    return dict(profiled_blocks={k: st[f"graph_{k}"] for k in (
+                    "captures", "replays", "eager_blocks")},
+                launches_profiled=counted, kernels_profiled=traced)
+
+
+def traced_launches(device, counters, fn):
+    """``fn()`` under ``torch.profiler``: its result, each counter's
+    launches in the call, and each counter's kernel
+    (:data:`COUNTED_KERNELS`) counted in the profiler's device events,
+    which list every kernel a CUDA graph's replay runs."""
+    import torch
+    from torch.autograd import DeviceType
+
+    before = {name: c.launches for name, c in counters.items()}
+    sync(device)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        sync(device)
+    names = [e.name() for e in prof.profiler.kineto_results.events()
+             if e.device_type() == DeviceType.CUDA]
+    counted = {name: c.launches - before[name]
+               for name, c in counters.items()}
+    traced = {name: sum(bool(re.search(rf"\b{COUNTED_KERNELS[name]}\b",
+                                       n)) for n in names)
+              for name in counters}
+    return out, counted, traced
 
 
 def phase_solver(device, counters, *, n_items: int, seed: int,
@@ -2006,7 +2058,7 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
     out = solve_counted(device, {**counters, **off_path}, dict(
         n_items=n_items, seed=seed, n_workers=n_workers,
         explore_width=explore_width, batch=batch, capacity=capacity,
-        max_steal=max_steal), "vmap")
+        max_steal=max_steal), "vmap", profile=device.type == "cuda")
     launches = {name: out["launches"][name] for name in counters}
     off = {name: out["launches"][name] for name in off_path}
     got = {k: out[k] for k in ("optimum", "supersteps", "explored",
@@ -2018,11 +2070,26 @@ def phase_solver(device, counters, *, n_items: int, seed: int,
     if device.type == "cuda":
         for name, n in launches.items():
             check(n > 0, f"{name} never launched on the solver path")
+        # the timed solve: every block a replay of the captured graph
+        timed = out["graph_blocks"][1]
+        check(timed["replays"] > 0 and timed["eager_blocks"] == 0,
+              f"the second solve's blocks ran {timed}, not all replayed")
+        # the third solve, under the profiler, replayed too: each counter
+        # equals the launches of its kernel that the card ran
+        blocks = out["profiled_blocks"]
+        check(blocks["replays"] > 0 and blocks["eager_blocks"] == 0,
+              f"the profiled solve's blocks ran {blocks}, not all replayed")
+        counted, traced = out["launches_profiled"], out["kernels_profiled"]
+        check(counted == traced and all(counted[n] > 0 for n in counters),
+              f"launch counters {counted} != the profiler's kernels "
+              f"{traced}")
     for name, n in off.items():
         check(n == 0, f"{name} launched {n} times on the solver path")
     return {**got, "launches": launches, "launches_off_path": off,
-            **{k: out[k] for k in ("wall_s_first", "wall_s",
-                                   "ms_per_superstep")}}
+            **{k: out.get(k) for k in (
+                "wall_s_first", "wall_s", "ms_per_superstep",
+                "graph_blocks", "profiled_blocks", "launches_profiled",
+                "kernels_profiled")}}
 
 
 def phase_sequential(device, counter, *, n_items: int, seed: int,

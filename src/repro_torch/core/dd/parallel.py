@@ -36,6 +36,14 @@ a solve that refused one says so with a :class:`RingOverflowWarning`.
 Each step is a host span (:func:`repro_torch.obs.phase.span`:
 ``repro.pop``, ``repro.explore``, ``repro.prune``, ``repro.push``) inside
 the runtime's ``repro.worker_body``, and the solve is ``repro.solve``.
+
+The instance's weights and profits ride in the carry, one row a lane,
+so that the worker body reads no tensor but its queues and its carry.
+Its key (``_graph_key``) then names all else that fixes its work, and on
+stacked lanes on a CUDA device the runtime replays each block as one
+CUDA graph captured once per geometry in the process
+(:mod:`repro_torch.runtime.block_graph`): a series of instances of one
+geometry is captured once and replayed for every later block.
 """
 
 from __future__ import annotations
@@ -70,13 +78,29 @@ def _item_spec():
     return {"layer": z, "state": z, "value": z}
 
 
+def _items_carry(inst: Knapsack, lanes, dev: torch.device) -> dict:
+    """The carry's ``weights`` and ``profits``: the instance's items, one
+    ``(n,)`` int32 row for each lane this process holds."""
+    return {k: torch.tensor(getattr(inst, k), dtype=I32, device=dev)
+            .expand(lanes.n_local, inst.n) for k in ("weights", "profits")}
+
+
 def _make_worker_body(weights, profits, ops: BulkOps, lanes, *,
                       explore_width: int, batch: int, n_vars: int):
     """The solver's slice of a superstep, on the lanes this process
     holds.  Besides the incumbent and the explored count, the carry keeps
     two ring counters per lane: ``ring_refused``, the children a full ring
     refused (a lost subproblem each), and ``ring_peak``, the largest size
-    after a push."""
+    after a push.
+
+    The body reads the instance's items, ``weights`` and ``profits``, from
+    the carry's leaves of those names (:func:`_items_carry`), so that a
+    block replayed from a CUDA graph reads each solve's own; the two
+    arguments stay first, where the benchmark's wrappers of this function
+    (``bench/rings.py``) pass them.  With the runtime's own
+    :class:`BulkOps` the body carries ``_graph_key``, so that its blocks
+    can be replayed.  The key holds the ``explore_batch`` it calls, so a
+    body around another explore is captured apart."""
 
     def body(q: QueueState, carry):
         w = q.size.shape[0]
@@ -92,8 +116,9 @@ def _make_worker_body(weights, profits, ops: BulkOps, lanes, *,
 
         # 2. explore all W x E subproblems in one batch (span
         # ``repro.explore``)
-        out = explore_batch(subs, valid.reshape(-1), weights, profits,
-                            width=explore_width, n_vars=n_vars)
+        out = explore_batch(subs, valid.reshape(-1), carry["weights"][0],
+                            carry["profits"][0], width=explore_width,
+                            n_vars=n_vars)
 
         with span("prune"):
             # 3. global incumbent: max over lanes, every lane gets it
@@ -121,8 +146,11 @@ def _make_worker_body(weights, profits, ops: BulkOps, lanes, *,
             refused = carry["ring_refused"] + (n_children - pushed)
             peak = torch.maximum(carry["ring_peak"], q.size)
         return q, {"incumbent": incumbent, "explored": explored,
-                   "ring_refused": refused, "ring_peak": peak}
+                   "ring_refused": refused, "ring_peak": peak,
+                   "weights": carry["weights"], "profits": carry["profits"]}
 
+    if isinstance(ops, BulkOps):
+        body._graph_key = (explore_width, batch, n_vars, explore_batch)
     return body
 
 
@@ -152,7 +180,10 @@ def parallel_solve(inst: Knapsack, *, n_workers: int = 8,
     the rows full rings refused (summed over the lanes),
     ``stats["per_worker_ring_peak"]`` each lane's largest size after a
     push, and ``stats["ring_peak_rows"]`` the largest lane size seen,
-    after a push on the device or after a splice on the host.  Warns with
+    after a push on the device or after a splice on the host.
+    ``stats["graph_captures"]``, ``stats["graph_replays"]`` and
+    ``stats["graph_eager_blocks"]`` count this solve's ``run_fused``
+    blocks captured, replayed as a CUDA graph and issued eager.  Warns with
     :class:`RingOverflowWarning` when a ring refused a row: the subproblem
     is lost and the optimum not proven.
     """
@@ -167,19 +198,19 @@ def parallel_solve(inst: Knapsack, *, n_workers: int = 8,
                 device=(resolve_device(device) if execution == "vmap"
                         else device))
             dev, lanes = runtime.device, runtime.lanes
-            w = torch.tensor(inst.weights, dtype=I32, device=dev)
-            p = torch.tensor(inst.profits, dtype=I32, device=dev)
+            items = _items_carry(inst, lanes, dev)
             # seed: root subproblem on worker 0
             runtime.push(0, {"layer": torch.zeros((1,), dtype=I32),
                              "state": torch.full((1,), inst.capacity,
                                                  dtype=I32),
                              "value": torch.zeros((1,), dtype=I32)}, 1)
 
-        body = _make_worker_body(w, p, runtime.ops, lanes,
+        body = _make_worker_body(items["weights"][0], items["profits"][0],
+                                 runtime.ops, lanes,
                                  explore_width=explore_width, batch=batch,
                                  n_vars=inst.n)
         carry = {"incumbent": torch.full((lanes.n_local,), NEG, dtype=I32,
-                                         device=dev)}
+                                         device=dev), **items}
         for key in ("explored", "ring_refused", "ring_peak"):
             carry[key] = torch.zeros((lanes.n_local,), dtype=I32, device=dev)
         carry = runtime.run(body, carry, max_rounds=max_supersteps,
@@ -205,6 +236,9 @@ def parallel_solve(inst: Knapsack, *, n_workers: int = 8,
                 # the post-push peak, or a post-splice size the host saw
                 "ring_peak_rows": max(max(peak), max(
                     (r.sizes_max for r in telemetry.rounds), default=0)),
+                "graph_captures": runtime.graph_blocks["captures"],
+                "graph_replays": runtime.graph_blocks["replays"],
+                "graph_eager_blocks": runtime.graph_blocks["eager"],
             }
             optimum = int(carry["incumbent"][0])
     if stats["ring_refused_rows"]:

@@ -12,12 +12,18 @@ rebuilds and an unchanged one is loaded as built.  Nothing here runs at
 import time: this module imports on machines without ``nvcc`` or a GPU.
 
 :func:`launch` is the one call path from a wrapper into a kernel: it
-refuses extents past 32 bits, takes PyTorch's current stream and raises on
-any error ``cudaGetLastError`` reports right after the launch.
+refuses extents past 32 bits, takes PyTorch's current stream, raises on
+any error ``cudaGetLastError`` reports right after the launch, and counts
+the launch on the wrapper it is given (``<wrapper>.launches``).  While a
+thread captures a CUDA graph (:func:`recording`) its launches run no
+kernel: they are noted instead, and :func:`replayed` counts them at each
+replay of the graph, so a counter means launches on the card.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
 import ctypes
 import hashlib
 import math
@@ -25,13 +31,15 @@ import os
 import shutil
 import subprocess
 import tempfile
+import threading
 from pathlib import Path
 
 import torch
 
-__all__ = ["library", "launch", "row_bytes", "check_cuda", "lane_vec",
-           "ring_trees", "ring_extents_fit", "RingTree", "MAX_LEAVES",
-           "BUILD_DIR", "SOURCES"]
+__all__ = ["library", "launch", "counted", "recording", "replayed",
+           "row_bytes", "check_cuda", "lane_vec", "ring_trees",
+           "ring_extents_fit", "RingTree", "MAX_LEAVES", "BUILD_DIR",
+           "SOURCES"]
 
 _HERE = Path(__file__).resolve().parent
 BUILD_DIR = _HERE / "_build"
@@ -87,6 +95,8 @@ _SIGNATURES = {
 }
 
 _LIB = None
+# per thread: the launches a CUDA graph's capture on it has noted, or None
+_capture = threading.local()
 
 
 def _nvcc() -> str:
@@ -156,11 +166,11 @@ def library() -> ctypes.CDLL:
     return _LIB
 
 
-def launch(name: str, *args, device: torch.device) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream of ``device``;
-    raise ``ValueError`` for an extent the kernel's 32-bit ``int``
-    arguments cannot hold, and ``RuntimeError`` if the launch was
-    refused."""
+def launch(name: str, *args, device: torch.device, counter=None) -> None:
+    """Launch kernel ``name`` on PyTorch's current stream of ``device``
+    and count it on ``counter``, the wrapper (:func:`counted`); raise
+    ``ValueError`` for an extent the kernel's 32-bit ``int`` arguments
+    cannot hold, and ``RuntimeError`` if the launch was refused."""
     for arg, kind in zip(args, _SIGNATURES[name]):
         if kind is _I and not 0 <= arg < 2 ** 31:
             raise ValueError(f"{name}: extent {arg} does not fit the "
@@ -171,6 +181,39 @@ def launch(name: str, *args, device: torch.device) -> None:
     if err != 0:
         raise RuntimeError(f"{name} launch failed: "
                            f"{lib.rk_error_string(err).decode()} ({err})")
+    if counter is not None:
+        counted(counter)
+
+
+def counted(counter) -> None:
+    """One launch of ``counter``'s kernel: ``counter.launches`` goes up by
+    one, or, while this thread captures a CUDA graph, the launch is noted
+    for the graph's replays to count."""
+    noted = getattr(_capture, "noted", None)
+    if noted is None:
+        counter.launches += 1
+    else:
+        noted[counter] += 1
+
+
+@contextlib.contextmanager
+def recording():
+    """Within the block, this thread captures a CUDA graph: its launches
+    run nothing, so they are noted, not counted.  Yields the notes, ``{
+    counter: launches}``, that :func:`replayed` counts at each replay."""
+    noted, saved = collections.Counter(), getattr(_capture, "noted", None)
+    _capture.noted = noted
+    try:
+        yield noted
+    finally:
+        _capture.noted = saved
+
+
+def replayed(noted) -> None:
+    """Count the launches of one replay of a graph whose capture noted
+    ``noted`` (:func:`recording`)."""
+    for counter, n in noted.items():
+        counter.launches += n
 
 
 def row_bytes(t: torch.Tensor) -> int:

@@ -66,8 +66,7 @@ def expand_pool(states: torch.Tensor, values: torch.Tensor, w, p
         return s_out, v_out
     _lib.launch("dd_expand", states.data_ptr(), values.data_ptr(), w_ptr,
                 w_val, p_ptr, p_val, s_out.data_ptr(), v_out.data_ptr(),
-                states.numel(), W, device=dev)
-    expand_pool.launches += 1
+                states.numel(), W, device=dev, counter=expand_pool)
     return s_out, v_out
 
 
@@ -121,8 +120,8 @@ def explore_fused(layer: torch.Tensor, state: torch.Tensor,
                     value.data_ptr(), valid.data_ptr(), weights.data_ptr(),
                     profits.data_ptr(), n_vars, width, b, primal.data_ptr(),
                     dual.data_ptr(), exact.data_ptr(),
-                    *(c.data_ptr() for c in children), device=dev)
-        explore_fused.launches += 1
+                    *(c.data_ptr() for c in children), device=dev,
+                    counter=explore_fused)
     return (primal, dual, exact, *children)
 
 

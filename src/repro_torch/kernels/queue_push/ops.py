@@ -93,8 +93,7 @@ def push_scatter(buf_tree, batch_tree, start: torch.Tensor, n: torch.Tensor):
         return buf_tree
     for tree in _lib.ring_trees(pairs, max(cap, max_push)):
         _lib.launch("rk_ring_scatter", tree, start.data_ptr(), n.data_ptr(),
-                    lanes, cap, max_push, device=dev)
-        push_scatter.launches += 1
+                    lanes, cap, max_push, device=dev, counter=push_scatter)
     return buf_tree
 
 
@@ -134,8 +133,8 @@ def _launch_slice(pairs, lo, size, n, max_n: int) -> None:
         raise ValueError("cannot pop from rings of 0 rows")
     for tree in _lib.ring_trees(pairs, max(cap, max_n)):
         _lib.launch("rk_ring_slice", tree, lo.data_ptr(), size.data_ptr(),
-                    n.data_ptr(), lanes, cap, max_n, device=dev)
-        pop_slice.launches += 1
+                    n.data_ptr(), lanes, cap, max_n, device=dev,
+                    counter=pop_slice)
 
 
 push_scatter.launches = 0

@@ -53,8 +53,7 @@ def _launch(pairs, lo, n, max_steal: int) -> None:
         raise ValueError("cannot gather from rings of 0 rows")
     for tree in _lib.ring_trees(pairs, max(cap, max_steal)):
         _lib.launch("rk_ring_gather", tree, lo.data_ptr(), n.data_ptr(),
-                    lanes, cap, max_steal, device=dev)
-        steal_gather.launches += 1
+                    lanes, cap, max_steal, device=dev, counter=steal_gather)
 
 
 def ring_gather(buf: torch.Tensor, lo: torch.Tensor, n: torch.Tensor,

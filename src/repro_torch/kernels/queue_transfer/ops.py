@@ -96,8 +96,7 @@ def _splice(buf_tree, flat_tree, head, src_row, n, max_steal: int) -> None:
     for tree in _lib.ring_trees(pairs, max(cap, src_rows)):
         _lib.launch("rk_ring_transfer", tree, head.data_ptr(),
                     src_row.data_ptr(), n.data_ptr(), lanes, cap, src_rows,
-                    max_steal, device=dev)
-        transfer_splice.launches += 1
+                    max_steal, device=dev, counter=transfer_splice)
 
 
 transfer_splice.launches = 0

@@ -82,6 +82,14 @@ span`, when on, name what the host is issuing: ``repro.block`` (a
 :meth:`StealRuntime.round`), ``repro.worker_body``, the superstep's
 (:mod:`repro_torch.core.master`), ``repro.adaptive_update``, and after
 the rounds ``repro.read_back`` and ``repro.bookkeeping``.
+
+CUDA graphs (:mod:`repro_torch.runtime.block_graph`): a block whose
+worker body carries ``_graph_key`` runs, on stacked lanes on a CUDA
+device with no fault layer, no sanitizer and no armed phase probe, as the
+replay of one graph of its k rounds, captured once per geometry in the
+process (host spans ``repro.capture`` and ``repro.replay``); its
+read-back and bookkeeping are the eager block's.  Every other block is
+issued op by op as above.
 """
 
 from __future__ import annotations
@@ -94,14 +102,15 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch._tree import resolve_device, tree_map
+from repro_torch._tree import (resolve_device, tree_leaves,
+                               tree_leaves_with_path, tree_map)
 from repro_torch.core import master as master_ops
 from repro_torch.core import ops as bulk_ops
 from repro_torch.core.lanes import StackedLanes, stack_stats
 from repro_torch.core.policy import StealPolicy
 from repro_torch.core.sharded_queue import make_sharded_queues
 from repro_torch.obs.phase import span, trace_span
-from repro_torch.runtime import resilience
+from repro_torch.runtime import block_graph, resilience
 from repro_torch.runtime.adaptive import (AdaptiveConfig, AdaptiveController,
                                           adaptive_update)
 from repro_torch.runtime.resilience import FaultPlan, FaultState
@@ -114,20 +123,47 @@ WorkerFn = Callable[[bulk_ops.QueueState, Pytree],
 __all__ = ["StealRuntime", "make_lane_step"]
 
 
-def _read_back(*tensors: torch.Tensor) -> List[np.ndarray]:
-    """Host copies of int32 / float32 device tensors in ONE transfer
-    (float32 travels as its bits)."""
-    flat = torch.cat([
+def _pack(*tensors: torch.Tensor) -> torch.Tensor:
+    """int32 / float32 device tensors as one int32 vector (float32 as its
+    bits), for one transfer."""
+    return torch.cat([
         (t.view(torch.int32) if t.dtype == torch.float32
          else t.to(torch.int32)).reshape(-1) for t in tensors])
-    host = flat.cpu().numpy()
+
+
+def _unpack(host: np.ndarray, like) -> List[np.ndarray]:
+    """The host copy of :func:`_pack`'s vector split back into arrays
+    shaped and typed like the tensors ``like``."""
     out, at = [], 0
-    for t in tensors:
+    for t in like:
         part = host[at:at + t.numel()].reshape(tuple(t.shape))
         out.append(part.view(np.float32) if t.dtype == torch.float32
                    else part)
         at += t.numel()
     return out
+
+
+def _read_back(*tensors: torch.Tensor) -> List[np.ndarray]:
+    """Host copies of int32 / float32 device tensors in ONE transfer
+    (float32 travels as its bits)."""
+    return _unpack(_pack(*tensors).cpu().numpy(), tensors)
+
+
+def _assign(dst: Pytree, src: Pytree) -> None:
+    """Copy ``src``'s leaves into ``dst``'s, skipping a leaf that is
+    already its destination."""
+    for d, s in zip(tree_leaves(dst), tree_leaves(src)):
+        if d is not s:
+            d.copy_(s)
+
+
+def _layout(tree: Pytree) -> Optional[tuple]:
+    """The shapes and dtypes of ``tree``'s leaves by path, or None when a
+    leaf is not a tensor."""
+    leaves = tree_leaves_with_path(tree)
+    if not all(isinstance(x, torch.Tensor) for _, x in leaves):
+        return None
+    return tuple((path, tuple(x.shape), x.dtype) for path, x in leaves)
 
 
 def make_lane_step(policy: StealPolicy, ops: bulk_ops.BulkOps,
@@ -284,6 +320,11 @@ class StealRuntime:
         self._last_snapshot_round = -1
         self._phase_probe = None  # attach_phase_probe
         self._clock = None
+        # run_fused blocks captured, replayed and run eager
+        self.graph_blocks = {"captures": 0, "replays": 0, "eager": 0}
+        # graphs run() holds from their first replay to its end, by key
+        self._held: Dict[Any, Any] = {}
+        self._holding = False
 
     # -- state access --------------------------------------------------------
 
@@ -794,28 +835,50 @@ class StealRuntime:
         docstring) and returns ``(carry_out, stats, rounds)``, ``rounds <=
         k`` the rounds executed and ``stats`` leaves leading with
         ``(rounds,)``.
+
+        A worker body that carries ``_graph_key`` may run as the replay
+        of one CUDA graph of the block (:mod:`repro_torch.runtime.
+        block_graph`, host spans ``repro.capture`` and ``repro.replay``),
+        with the same results, copied off the graph's static tensors;
+        inside :meth:`run`, which holds the graph to its end, they stay
+        there until then.  :attr:`graph_blocks` counts the blocks
+        captured, replayed and run eager.
         """
         if k < 1:
             raise ValueError(f"k must be >= 1, got {k}")
         with span("block"):
             carry = self._default_carry(carry)
+            key = self._graph_key(worker_fn, carry, k, until_drained)
+            entry = self._held.get(key) or block_graph.acquire(key)
             snap = self._pre_dispatch_snapshot(worker_fn)
             t0 = time.perf_counter()
             clock = self._phase_clock()
             with trace_span(f"run_fused_k{k}"):
-                with self._deferred():
-                    carry, per_round, ran, p = self._fused_rounds(
-                        k, worker_fn, carry, until_drained,
-                        mark=None if clock is None else clock.mark)
-                with span("read_back"):
-                    stacked = master_ops.RebalanceStats(*map(
-                        torch.stack, zip(*stack_stats(
-                            self.lanes, [stats for stats, _ in per_round],
-                            pod_size=self.pod_size))))
-                    props = torch.stack([q for _, q in per_round])
-                    # ONE host read-back for the whole block.
-                    host_ran, p_final, props, *host = _read_back(
-                        ran, p, props, *stacked)
+                if entry is None:
+                    self.graph_blocks["eager"] += 1
+                    with self._deferred():
+                        self.queues, carry, per_round, ran, p = \
+                            self._fused_rounds(
+                                k, worker_fn, self.queues, carry, self._p(),
+                                until_drained,
+                                mark=None if clock is None else clock.mark)
+                    with span("read_back"):
+                        stacked, props = self._stack_block(per_round)
+                        # ONE host read-back for the whole block.
+                        host_ran, p_final, props, *host = _read_back(
+                            ran, p, props, *stacked)
+                else:
+                    try:
+                        carry, stacked, flat, like = self._replay_block(
+                            entry, k, worker_fn, carry, until_drained)
+                        with span("read_back"):
+                            host_ran, p_final, props, *host = _unpack(
+                                flat.cpu().numpy(), like)
+                    finally:
+                        if self._holding:
+                            self._held[key] = entry
+                        else:
+                            entry.release()
             wall_s = time.perf_counter() - t0
             with span("bookkeeping"):
                 rounds = int(host_ran) if until_drained else k
@@ -841,14 +904,92 @@ class StealRuntime:
                     return carry, stacked, rounds
                 return carry, stacked
 
-    def _fused_rounds(self, k: int, worker_fn, carry, until_drained: bool,
-                      mark=None):
-        """The k rounds of :meth:`run_fused` on the device, no read-back:
-        ``(carry, [(stats, proportion)] per round, rounds run, final
-        proportion)``.  ``mark``: the phase clock's boundary hook (the
-        splice ends once the round's carry is kept, the adaptive update
-        once the next proportion is), or None."""
-        qs, p = self.queues, self._p()
+    def _stack_block(self, per_round):
+        """A block's per-round ``(stats, proportion)`` as one
+        :class:`~repro_torch.core.master.RebalanceStats` of ``(k, ...)``
+        leaves and the ``(k,)`` proportions, on the device."""
+        stacked = master_ops.RebalanceStats(*map(torch.stack, zip(
+            *stack_stats(self.lanes, [stats for stats, _ in per_round],
+                         pod_size=self.pod_size))))
+        return stacked, torch.stack([q for _, q in per_round])
+
+    def _graph_key(self, worker_fn, carry, k: int, until_drained: bool):
+        """The key of this block's captured graph
+        (:mod:`repro_torch.runtime.block_graph`): the worker body's
+        ``_graph_key`` and this runtime's geometry; None where the block
+        runs eager (no key, lanes not stacked on a CUDA device, the fault
+        layer, the sanitizer, an armed phase probe)."""
+        body = getattr(worker_fn, "_graph_key", None)
+        if (body is None or self.fault is not None or self._check
+                or not isinstance(self.lanes, StackedLanes)
+                or not block_graph.supported(self.device)
+                or (self._phase_probe is not None
+                    and self._phase_probe.enabled)):
+            return None
+        layout = _layout(carry)
+        if layout is None:
+            return None
+        config = self.controller.config if self.controller else None
+        return (body, self.device, self.n_workers, self.capacity,
+                _layout(self.item_spec), self.policy, config, self.pod_size,
+                type(self.ops), self.ops.name, layout, k, until_drained)
+
+    def _replay_block(self, entry, k: int, worker_fn, carry,
+                      until_drained: bool):
+        """The block as the replay of ``entry``'s graph, captured here on
+        its first use: the values the eager block reads at its start (the
+        queues, ``carry``, the proportion) written into the graph's static
+        inputs (a leaf already there is not copied), then one replay,
+        whose queues, carry and stats are copied off the static tensors,
+        which the entry's next holder overwrites, unless :meth:`run`
+        holds the entry.  Returns ``(carry, stats, read-back vector, its
+        layout)``, the last two static tensors of the graph, read while
+        ``entry`` is held."""
+        if not entry.captured:
+            with span("capture"):
+                entry.queues = tree_map(torch.clone, self.queues)
+                entry.carry = tree_map(torch.clone, carry)
+                entry.p = self._p()
+
+                def block():
+                    qs, out, per_round, ran, p = self._fused_rounds(
+                        k, worker_fn, entry.queues, entry.carry, entry.p,
+                        until_drained)
+                    stacked, props = self._stack_block(per_round)
+                    like = (ran, p, props, *stacked)
+                    flat = _pack(*like)
+                    # the block's outputs become its inputs: replays run
+                    # in place
+                    _assign(entry.queues, qs)
+                    _assign(entry.carry, out)
+                    _assign(entry.p, p)
+                    return stacked, flat, like
+
+                entry.capture(block, self.device)
+            self.graph_blocks["captures"] += 1
+        else:
+            _assign(entry.queues, self.queues)
+            _assign(entry.carry, carry)
+            entry.p.fill_(self.proportion)
+        with span("replay"):
+            stacked, flat, like = entry.replay()
+            if self._holding:
+                self.queues = entry.queues
+                carry = tree_map(lambda x: x, entry.carry)
+            else:
+                self.queues, carry, stacked = tree_map(
+                    torch.clone, (entry.queues, entry.carry, stacked))
+        self.graph_blocks["replays"] += 1
+        return carry, stacked, flat, like
+
+    def _fused_rounds(self, k: int, worker_fn, qs, carry, p: torch.Tensor,
+                      until_drained: bool, mark=None):
+        """The k rounds of :meth:`run_fused` from the queues ``qs``, the
+        carry and the 0-d proportion ``p``, on the device, no read-back:
+        ``(queues, carry, [(stats, proportion)] per round, rounds run,
+        final proportion)``.  ``mark``: the phase clock's boundary hook
+        (the splice ends once the round's carry is kept, the adaptive
+        update once the next proportion is), or None."""
         config = self.controller.config if self.controller else None
         ctx = self._ctx(k)
         active = torch.ones((), dtype=torch.bool, device=self.device)
@@ -887,8 +1028,7 @@ class StealRuntime:
                         p = torch.where(active, p_new, p)
                 if mark is not None:
                     mark("adaptive_update")
-        self.queues = qs
-        return carry, per_round, ran, p
+        return qs, carry, per_round, ran, p
 
     def run(self, worker_fn: Optional[WorkerFn] = None,
             carry: Optional[Pytree] = None, *,
@@ -899,8 +1039,23 @@ class StealRuntime:
 
         With ``fused > 1`` the loop advances up to ``fused`` rounds per
         :meth:`run_fused` block; when ``stop_when_empty`` the block stops
-        doing work the moment every lane drains.
+        doing work the moment every lane drains.  A block's CUDA graph,
+        once replayed, is held to the end of the run, so later blocks copy
+        nothing in or out of it; the end copies the results off it and
+        lets it go.
         """
+        self._holding = fused > 1
+        try:
+            return self._run(worker_fn, carry, max_rounds, stop_when_empty,
+                             fused)
+        finally:
+            self._holding = False
+            held, self._held = self._held, {}
+            for entry in held.values():
+                entry.release()
+
+    def _run(self, worker_fn, carry, max_rounds: int, stop_when_empty: bool,
+             fused: int) -> Pytree:
         rounds = 0
         while rounds < max_rounds:
             if fused > 1:
@@ -919,4 +1074,7 @@ class StealRuntime:
                 rounds += 1
                 if stop_when_empty and self.total_size() == 0:
                     break
+        if self._held:
+            # the last block's results, off the graphs' static tensors
+            self.queues, carry = tree_map(torch.clone, (self.queues, carry))
         return carry

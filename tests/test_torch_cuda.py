@@ -15,6 +15,7 @@ neither JAX nor the JAX package, so on a GPU machine it runs on its own:
 
 import dataclasses
 import importlib.util
+import threading
 from pathlib import Path
 
 import numpy as np
@@ -181,14 +182,148 @@ def test_kernel_backend_matches_reference_backend_on_the_card():
     assert all(fn.launches > 0 for fn in COUNTERS)
 
 
+GRAPH_STATS = ("graph_captures", "graph_replays", "graph_eager_blocks")
+
+
+def _without_graph_counts(stats: dict) -> dict:
+    return {k: v for k, v in stats.items() if k not in GRAPH_STATS}
+
+
 @pytest.mark.cuda
 def test_solver_on_the_card_matches_the_cpu():
+    """The same results on the card, whose blocks may replay as CUDA
+    graphs, as on the CPU, whose blocks run eager: only the counts of
+    blocks replayed and run eager differ, and they cover the same
+    blocks."""
     dev = _cuda()
     inst = random_instance(20, seed=0)
     kw = dict(n_workers=8, explore_width=8, batch=4)
-    on_gpu = parallel_solve(inst, device=dev, backend="cuda", **kw)
-    on_cpu = parallel_solve(inst, device="cpu", backend="cuda", **kw)
-    assert on_gpu == on_cpu
+    opt_gpu, on_gpu = parallel_solve(inst, device=dev, backend="cuda", **kw)
+    opt_cpu, on_cpu = parallel_solve(inst, device="cpu", backend="cuda", **kw)
+    assert opt_gpu == opt_cpu
+    assert _without_graph_counts(on_gpu) == _without_graph_counts(on_cpu)
+    assert (on_gpu["graph_replays"] + on_gpu["graph_eager_blocks"]
+            == on_cpu["graph_eager_blocks"])
+
+
+@pytest.mark.cuda
+def test_replayed_solver_blocks_on_the_card_equal_eager(monkeypatch):
+    """A series of one geometry at the cells' batch 512, width 16, 64
+    lanes and rings of 65,536 rows (n 30): each solve's blocks replayed
+    from one CUDA graph equal the same solves issued eager, bit for bit,
+    and launch each kernel as often; one capture serves the series."""
+    from repro_torch.core.policy import StealPolicy
+    from repro_torch.runtime import block_graph
+
+    dev = _cuda()
+    counters = (explore_fused, *COUNTERS)
+    policy = StealPolicy(proportion=0.5, high_watermark=4, low_watermark=0,
+                         max_steal=8192)
+    kw = dict(n_workers=64, explore_width=16, batch=512, capacity=65536,
+              policy=policy, backend="cuda", fused_rounds=8, device=dev)
+    insts = [random_instance(30, seed=s) for s in range(6)]
+    monkeypatch.setattr(block_graph, "_entries", {})
+    monkeypatch.setattr(block_graph, "_warm", set())
+
+    def series():
+        out = []
+        for inst in insts:
+            before = [fn.launches for fn in counters]
+            opt, st = parallel_solve(inst, **kw)
+            out.append((opt, st, [fn.launches - b
+                                  for fn, b in zip(counters, before)]))
+        return out
+
+    with monkeypatch.context() as m:
+        m.setattr(block_graph, "supported", lambda device: False)
+        eager = series()
+    replayed = series()
+    for (g_opt, g, g_n), (e_opt, e, e_n) in zip(replayed, eager):
+        assert g_opt == e_opt
+        assert _without_graph_counts(g) == _without_graph_counts(e)
+        assert g_n == e_n and all(n > 0 for n in g_n)
+        assert g["graph_replays"] + g["graph_eager_blocks"] == \
+            e["graph_eager_blocks"]
+    assert all(st["graph_replays"] == 0 for _, st, _ in eager)
+    assert sum(st["graph_captures"] for _, st, _ in replayed) == 1
+    assert replayed[0][1]["graph_eager_blocks"] == 1
+    assert all(st["graph_eager_blocks"] == 0 for _, st, _ in replayed[1:])
+
+
+def _threads(*jobs):
+    """Run the jobs at once, one thread each; their results in order."""
+    out, errors = [None] * len(jobs), []
+    start = threading.Barrier(len(jobs))
+
+    def run(i):
+        try:
+            start.wait()
+            out[i] = jobs[i]()
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(jobs))]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    assert not any(t.is_alive() for t in threads)
+    if errors:
+        raise errors[0]
+    return out
+
+
+@pytest.mark.cuda
+def test_concurrent_solves_on_the_card_equal_eager(monkeypatch):
+    """Solves on two threads at once equal the same solves issued eager
+    one by one: a series that captures and replays while the other thread
+    issues eager rounds (allocating, syncing, reading back), then two
+    series of one geometry that take turns at its graph."""
+    from repro_torch.runtime import block_graph
+
+    dev = _cuda()
+    kw = dict(n_workers=8, explore_width=8, batch=4, capacity=1024,
+              backend="cuda", device=dev)
+    graphed = [random_instance(24, seed=s) for s in range(4)]
+    eager_rounds = [random_instance(22, seed=s) for s in range(3)]
+    shared = [[random_instance(26, seed=s) for s in seeds]
+              for seeds in ((0, 1, 2), (3, 4, 5))]
+    monkeypatch.setattr(block_graph, "_entries", {})
+    monkeypatch.setattr(block_graph, "_warm", set())
+
+    def solve_all(insts, **more):
+        return [parallel_solve(x, **kw, **more) for x in insts]
+
+    with monkeypatch.context() as m:
+        m.setattr(block_graph, "supported", lambda device: False)
+        want = [solve_all(graphed), solve_all(eager_rounds, fused_rounds=1),
+                *(solve_all(s) for s in shared)]
+    done = threading.Event()
+
+    def graph_series():
+        try:
+            return solve_all(graphed)
+        finally:
+            done.set()
+
+    def eager_until_done():
+        out = []
+        while not done.is_set() or not out:
+            out = solve_all(eager_rounds, fused_rounds=1)
+        return out
+
+    got = [*_threads(graph_series, eager_until_done),
+           *_threads(*(lambda s=s: solve_all(s) for s in shared))]
+    for g_series, w_series in zip(got, want):
+        for (g_opt, g), (w_opt, w) in zip(g_series, w_series):
+            assert g_opt == w_opt
+            assert _without_graph_counts(g) == _without_graph_counts(w)
+    assert sum(st["graph_captures"] for _, st in got[0]) == 1
+    assert all(st["graph_replays"] == 0 for _, st in got[1])
+    shared_stats = [st for series in got[2:] for _, st in series]
+    assert sum(st["graph_captures"] for st in shared_stats) == 1
+    assert sum(st["graph_replays"] for st in shared_stats) > 0
 
 
 @pytest.mark.cuda

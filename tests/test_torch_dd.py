@@ -171,7 +171,8 @@ def test_ring_counters_equal_in_fused_and_single_rounds(capacity):
     """A fused block's gated rounds past the drain add nothing to the
     ring counters: blocks of 8 rounds count what single rounds count."""
     from repro_torch.core.dd.diagram import NEG
-    from repro_torch.core.dd.parallel import _item_spec, _make_worker_body
+    from repro_torch.core.dd.parallel import (_item_spec, _items_carry,
+                                              _make_worker_body)
     from repro_torch.core.policy import StealPolicy
     from repro_torch.distributed import launch_runtime
 
@@ -195,7 +196,9 @@ def test_ring_counters_equal_in_fused_and_single_rounds(capacity):
         carry = rt.run(body, {"incumbent": torch.full((4,), NEG,
                                                       dtype=torch.int32),
                               "explored": zero, "ring_refused": zero,
-                              "ring_peak": zero}, fused=fused)
+                              "ring_peak": zero,
+                              **_items_carry(inst, rt.lanes, rt.device)},
+                     fused=fused)
         return rt.rounds_run, {k: carry[k].tolist() for k in
                                ("explored", "ring_refused", "ring_peak")}
 

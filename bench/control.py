@@ -61,7 +61,7 @@ def main() -> int:
             report(seed, "program", run_cell(cell, seed, args.seconds, 0,
                                              t_start=time.perf_counter()))
         report(seed, "control", run_cell(cell, seed, args.seconds, 0,
-                                         solve=control,
+                                         program=control,
                                          t_start=time.perf_counter()))
         for name in filter(None, args.faults.split(",")):
             with plant(name, batch):

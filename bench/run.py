@@ -4,18 +4,20 @@
     python3 bench/run.py --workload <cell> --seed <n> --seconds <s> --trace <0|1>
 
 A cell (``BENCHMARK.json``'s ``workloads``) is a closed loop: one client
-submits the instances of its traffic one after another to
-``repro_torch.core.dd.parallel.parallel_solve``, each solve having the
-whole card, for ``--seconds`` seconds after a set-up that builds or loads
-the kernel library and solves one warm instance.  Once the window has
-closed, every solve's optimum is compared with the plain dynamic program
-in ``bench/reference``.  The last line of standard output is one JSON
-object: ``correct``, ``attempted``, ``failed``, ``metrics`` (with
-``--trace 0`` the cell's end-to-end metrics, with ``--trace 1`` its
-per-layer ones, from a run under ``torch.profiler`` with the benchmark's
-spans), ``device``, with ``--trace 1`` a ``breakdown``, and last the
-numbers compared beside their limits (``checks``), which also end
-standard error.
+calls the program on the items of its traffic one after another, each
+call having the whole card, for ``--seconds`` seconds after a set-up that
+builds or loads the kernel library and makes one warm call.  Once the
+window has closed, every call's output is checked against a plain
+reference.  What the program is, what its items are and how its outputs
+are checked is the cell's kind (its configuration's ``"kind"``): the
+module ``bench/kinds/<kind, '-' as '_'>.py``, which this file names
+nowhere.  The last line of standard output is one JSON object:
+``correct``, ``attempted``, ``failed``, ``metrics`` (with ``--trace 0``
+the cell's end-to-end metrics, with ``--trace 1`` its per-layer ones,
+from a run under ``torch.profiler`` with the benchmark's spans),
+``device``, with ``--trace 1`` a ``breakdown``, and last the numbers
+compared beside their limits (``checks``), which also end standard
+error.
 
 The run refuses, printing no result, without a CUDA device, with fewer
 devices than the cell asks for, and when JAX or the JAX package is
@@ -74,26 +76,6 @@ def forbidden_modules(names=None) -> list:
                   & set(FORBIDDEN_MODULES))
 
 
-def program_solver(config: dict, device):
-    """``parallel_solve`` with the configuration's solver settings: a
-    function of a Knapsack that returns ``(optimum, stats)``."""
-    from repro_torch.core.dd import parallel
-    from repro_torch.core.policy import StealPolicy
-
-    s = config["solver"]
-    policy = StealPolicy(**s["policy"])
-
-    def solve(inst):
-        return parallel.parallel_solve(
-            inst, n_workers=s["n_workers"], explore_width=s["explore_width"],
-            batch=s["batch"], capacity=s["capacity"], policy=policy,
-            max_supersteps=s["max_supersteps"], adaptive=s["adaptive"],
-            fused_rounds=s["fused_rounds"], execution=s["execution"],
-            device=device)
-
-    return solve
-
-
 def _card(torch, device) -> dict:
     if device.type != "cuda":
         return {"platform": "cpu", "kind": "cpu", "count": 1,
@@ -116,88 +98,64 @@ def _peak(kind: str):
     return json.loads((ROOT / "bench" / "peaks.json").read_text()).get(kind)
 
 
-def _solve_window(solve, stream, seconds: float, *, max_steps: int,
-                  max_solves=None, span=contextlib.nullcontext,
-                  on_solve=None) -> list:
-    """The closed loop: the next instance as soon as the last solve has
-    returned, until ``seconds`` have passed (or ``max_solves`` solves),
-    stopping at a solve that raised.  One record a solve."""
-    from repro_torch.core.dd.knapsack import Knapsack
-
-    solves = []
+def _window(kind, config, program, stream, seconds: float, *,
+            max_solves=None, span=contextlib.nullcontext,
+            on_call=None) -> list:
+    """The closed loop: the next item as soon as the last call has
+    returned, until ``seconds`` have passed (or ``max_solves`` calls),
+    stopping at a call that raised.  One record a call, made by the
+    kind."""
+    calls = []
     deadline = time.perf_counter() + seconds
-    while time.perf_counter() < deadline and len(solves) != max_solves:
-        inst = next(stream)
-        arg = Knapsack(inst.weights, inst.profits, inst.capacity)
+    while time.perf_counter() < deadline and len(calls) != max_solves:
+        item = next(stream)
+        arg = kind.argument(item)
         t = time.perf_counter()
         try:
             with span():
-                opt, stats = solve(arg)
+                out = program(arg)
             error = None
-        except Exception as exc:  # a solve that raised is a failed one
-            opt, stats, error = None, {}, repr(exc)
+        except Exception as exc:  # a call that raised is a failed one
+            out, error = None, repr(exc)
         ms = (time.perf_counter() - t) * 1e3
-        steps = stats.get("supersteps")
-        solves.append({
-            "inst": inst, "h": inst.h, "ms": ms, "optimum": opt,
-            "error": error, "supersteps": steps,
-            "transferred": stats.get("transferred"),
-            "ok": error is None and steps is not None and steps < max_steps})
-        if on_solve:
-            on_solve()
+        calls.append(kind.record(config, item, out, ms, error))
+        if on_call:
+            on_call()
         if error is not None:
             break
-    return solves
-
-
-def _check(solves: list) -> dict:
-    """Every solve's optimum against the plain dynamic program: the
-    numbers compared, each with its limit."""
-    from bench.reference.optimum import optimum
-
-    for s in solves:
-        i = s.pop("inst")
-        s["right"] = s["error"] is None and s["optimum"] == optimum(
-            i.weights, i.profits, i.capacity)
-    returned = [s for s in solves if s["error"] is None]
-    return {
-        "raised": {"value": len(solves) - len(returned), "limit": 0},
-        "unproven": {"value": sum(not s["ok"] for s in returned),
-                     "limit": 0},
-        "wrong_optimum": {"value": sum(not s["right"] for s in returned),
-                          "limit": 0},
-    }
+    return calls
 
 
 def run_cell(cell, seed: int, seconds: float, trace: int, *,
-             device="cuda", solve=None, max_solves=None,
+             device="cuda", program=None, max_solves=None,
              record_out=None, t_start: float = T_START) -> dict:
     """One run of ``cell`` (a :class:`bench.cell.Cell`): set-up, the
-    window, the check; returns the result line.  ``solve`` replaces the
-    program (the control); ``device="cpu"`` rehearses on the CPU's plain
-    versions; ``max_solves`` also closes the window after that many
-    solves, so that a rehearsal solves the same instances however fast
-    its host is.  ``record_out``, a dict, receives the run's record:
-    every solve's time, counts and verdict."""
+    window, the check; returns the result line.  What is run, on what,
+    and how it is checked comes from the cell's kind
+    (``bench/kinds/<kind>.py``: ``program``, ``items``, ``warm_item``,
+    ``argument``, ``record``, ``check``, ``Hooks``).  ``program``
+    replaces the kind's program (the control); ``device="cpu"`` rehearses
+    on the CPU's plain versions; ``max_solves`` also closes the window
+    after that many calls, so that a rehearsal calls on the same items
+    however fast its host is.  ``record_out``, a dict, receives the run's
+    record: every call's time, counts and verdict."""
     import torch
 
-    from bench import tracing, traffic
-    from repro_torch.core.dd import parallel
-    from repro_torch.core.dd.knapsack import Knapsack
+    from bench import tracing
 
     torch.set_num_threads(1)
     device = torch.device(device)
     cuda = device.type == "cuda"
-    config, tr = cell.config, cell.traffic
-    solve = solve or program_solver(config, device)
+    kind, config, tr = cell.kind, cell.config, cell.traffic
+    program = program or kind.program(config, device)
 
     def sync():
         if cuda:
             torch.cuda.synchronize(device)
 
     # -- set-up, each part timed: the device's context, the kernel
-    # library (built at a checkout's first run), the instances drawn, the
-    # warm solve (in a traced run under a first, thrown-away profile and
+    # library (built at a checkout's first run), the items drawn, the
+    # warm call (in a traced run under a first, thrown-away profile and
     # hooks: their start-up)
     parts = {"imports": time.perf_counter() - t_start}
     t = time.perf_counter()
@@ -211,10 +169,9 @@ def run_cell(cell, seed: int, seconds: float, trace: int, *,
         _lib.library()
     parts["kernel_library"] = time.perf_counter() - t
     t = time.perf_counter()
-    stream = traffic.instances(tr, config, seed)
-    warm = traffic.warm_instance(tr, config, seed)
-    warm = Knapsack(warm.weights, warm.profits, warm.capacity)
-    parts["instances"] = time.perf_counter() - t
+    stream = kind.items(tr, config, seed)
+    warm = kind.argument(kind.warm_item(tr, config, seed))
+    parts["items"] = time.perf_counter() - t
     t = time.perf_counter()
     hooks = None
     if trace:
@@ -222,21 +179,21 @@ def run_cell(cell, seed: int, seconds: float, trace: int, *,
         profiled = functools.partial(tracing.profiled, cuda)
         span = functools.partial(rf, tracing.SOLVE)
         window_span = functools.partial(rf, tracing.WINDOW)
-        hooks = tracing.Hooks(parallel, torch)
+        hooks = kind.Hooks(torch)
         hooks.install()
         with profiled():
-            solve(warm)
+            program(warm)
             sync()
         hooks.harvest()
         hooks.remove()
-        hooks = tracing.Hooks(parallel, torch)  # the window's own counts
+        hooks = kind.Hooks(torch)  # the window's own counts
         hooks.install()
     else:
         profiled = functools.partial(contextlib.nullcontext, {})
         span = window_span = contextlib.nullcontext
-        solve(warm)
+        program(warm)
     sync()
-    parts["warm_solve"] = time.perf_counter() - t
+    parts["warm_call"] = time.perf_counter() - t
     for name, sec in parts.items():
         print(f"setup {name} {sec:.4f} s", file=sys.stderr, flush=True)
 
@@ -244,38 +201,40 @@ def run_cell(cell, seed: int, seconds: float, trace: int, *,
     with profiled() as prof:
         with window_span():
             t0 = time.perf_counter()
-            solves = _solve_window(
-                solve, stream, seconds, max_solves=max_solves,
-                max_steps=config["solver"]["max_supersteps"], span=span,
-                on_solve=hooks and hooks.harvest)
+            calls = _window(kind, config, program, stream, seconds,
+                             max_solves=max_solves, span=span,
+                             on_call=hooks and hooks.harvest)
             sync()
             window_s = time.perf_counter() - t0
     stop_s = time.perf_counter() - t0 - window_s
     card = _card(torch, device)
 
     # -- the record the metrics read, the trace's reduction with it
+    # (every kind's records are under "solves", which the readers read)
     record = {"setup_s": t0 - t_start, "window_s": window_s,
-              "solves": solves}
+              "solves": calls}
     if hooks:
         hooks.remove()
         t = time.perf_counter()
-        record.update(rounds=hooks.rounds, counts=hooks.counts(),
-                      trace=tracing.reduce_trace(prof.pop("events")),
+        record.update(hooks.record(),
+                      trace=tracing.reduce_trace(
+                          prof.pop("events"), spans=hooks.SPANS,
+                          kernels=hooks.KERNELS),
                       peak=_peak(card["kind"]))
-        record["counts"].update(profile_stop_s=stop_s,
-                                trace_reduce_s=time.perf_counter() - t)
+        record.setdefault("counts", {}).update(
+            profile_stop_s=stop_s, trace_reduce_s=time.perf_counter() - t)
 
     # -- the check, once the window has closed
-    checks = _check(solves)
+    checks = kind.check(calls)
     metrics = {}
     for name, (unit, read) in cell.readers(trace).items():
         value = read(record)
         if value is not None:
             metrics[name] = {"value": value, "unit": unit}
-    line = {"correct": bool(solves) and all(c["value"] <= c["limit"]
-                                            for c in checks.values()),
-            "attempted": len(solves),
-            "failed": sum(not (s["ok"] and s["right"]) for s in solves),
+    line = {"correct": bool(calls) and all(c["value"] <= c["limit"]
+                                           for c in checks.values()),
+            "attempted": len(calls),
+            "failed": sum(not (c["ok"] and c["right"]) for c in calls),
             "metrics": metrics, "device": card}
     if hooks:
         t = record["trace"]
@@ -284,12 +243,12 @@ def run_cell(cell, seed: int, seconds: float, trace: int, *,
             card["window_s"] = window_s
             line["breakdown"] = {"device_ops": t["top_device_ops"],
                                  "idle_gaps": t["idle_by_host"]}
-        line["counts"] = {**record["counts"],
-                          "rounds": len(record["rounds"]),
-                          "unattributed_ops": t and t["unattributed_ops"],
-                          "instrument_host_s": t and t["instrument_host_s"],
-                          "explore_ops_by_name":
-                              t and t["explore_ops_by_name"]}
+        line["counts"] = {
+            **record["counts"], "rounds": len(record.get("rounds", ())),
+            "unattributed_ops": t and t["unattributed_ops"],
+            "instrument_host_s": t and t["instrument_host_s"],
+            **{f"{k}_ops_by_name": t and t[f"{k}_ops_by_name"]
+               for k in hooks.KERNELS}}
     line["checks"] = checks
     if record_out is not None:
         record_out.update(record)
@@ -302,17 +261,19 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, required=True)
     ap.add_argument("--seconds", type=float, required=True)
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
-    ap.add_argument("--pool-seed", type=int,
-                    help="draw the pool's items from this seed instead of "
-                    "the workload's own (a check of correctness on other "
-                    "instances; no measurement uses it)")
+    ap.add_argument("--traffic", action="append", default=[],
+                    metavar="KEY=VALUE",
+                    help="a traffic parameter of the workload replaced by "
+                    "a JSON value, e.g. pool_seed=7 (a check of correctness "
+                    "on other items; no measurement uses it)")
     args = ap.parse_args(argv)
     use_checkout()
     from bench.cell import load_cell
 
     cell = load_cell(args.workload)
-    if args.pool_seed is not None:
-        cell.traffic = dict(cell.traffic, pool_seed=args.pool_seed)
+    for kv in args.traffic:
+        key, _, value = kv.partition("=")
+        cell.traffic = dict(cell.traffic, **{key: json.loads(value)})
     import torch
 
     if not torch.cuda.is_available():

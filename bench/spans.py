@@ -189,13 +189,13 @@ def run(cell, seed: int, seconds: float, *, spans: bool, device="cuda",
     import torch
 
     from bench import tracing
-    from bench.run import program_solver, run_cell
+    from bench.run import run_cell
     from repro_torch.obs import phase
 
     from torch.autograd import DeviceType
 
     device = torch.device(device)
-    base = program_solver(cell.config, device)
+    base = cell.kind.program(cell.config, device)
     rings: list = []
 
     def solve(inst):
@@ -218,8 +218,9 @@ def run(cell, seed: int, seconds: float, *, spans: bool, device="cuda",
     prev = phase.enable_spans(spans)
     tracing.reduce_trace = reduce_both
     try:
-        line = run_cell(cell, seed, seconds, 1, device=device, solve=solve,
-                        max_solves=max_solves, record_out=record)
+        line = run_cell(cell, seed, seconds, 1, device=device,
+                        program=solve, max_solves=max_solves,
+                        record_out=record)
     finally:
         tracing.reduce_trace = reduce_trace
         phase.enable_spans(prev)

@@ -13,9 +13,11 @@ for _p in (ROOT / "src", ROOT):
     if str(_p) not in sys.path:
         sys.path.insert(0, str(_p))
 
-from bench.cell import load_cell  # noqa: E402
+from bench.cell import load_cell, load_kind  # noqa: E402
 
 BIG_SEED = 2 ** 31 + 977
+# the kind of every cell so far
+KNAPSACK = load_kind("dd-knapsack")
 
 
 def tiny_cell(name: str, n: int = 10):

@@ -47,7 +47,7 @@ def test_the_control_is_not_correct(name, torch_threads):  # noqa: F811
             {"supersteps": 0, "transferred": 0}
 
     line = run_cell(tiny_cell(name, n=20), BIG_SEED, 120, 0, device="cpu",
-                    solve=control, max_solves=100)
+                    program=control, max_solves=100)
     assert line["correct"] is False
     assert line["checks"]["wrong_optimum"]["value"] > 0
     assert line["checks"]["raised"]["value"] == 0

@@ -100,6 +100,18 @@ def test_every_part_is_a_file_found_by_name():
         assert (ROOT / "bench" / "metrics" / f"{m['name']}.py").is_file()
 
 
+def test_every_configuration_names_a_kind_with_a_module():
+    from bench.cell import load_kind
+
+    for c in MANIFEST["configs"]:
+        kind = json.loads((ROOT / c["file"]).read_text())["kind"]
+        assert NAME.match(kind)
+        module = load_kind(kind, ROOT)
+        for name in ("program", "items", "warm_item", "argument", "record",
+                     "check", "Hooks"):
+            assert hasattr(module, name), (kind, name)
+
+
 def test_each_metric_moves_what_its_cells_report():
     cells = {w["name"] for w in MANIFEST["workloads"]}
     e2e = {m["name"]: set(m.get("workloads", cells))
@@ -131,7 +143,7 @@ def test_a_run_loads_neither_jax_nor_the_jax_package():
     run on the CPU, then lists the forbidden top-level modules it holds."""
     code = (
         "import sys; sys.path[:0] = [sys.argv[1], sys.argv[1] + '/src']\n"
-        "import bench.run, bench.tracing, bench.traffic, bench.cell\n"
+        "import bench.run, bench.tracing, bench.cell\n"
         "import bench.reference.optimum, bench.reference.pisinger\n"
         "sys.path.insert(0, sys.argv[1] + '/bench/tests')\n"
         "from _bench_tiny import tiny_cell\n"

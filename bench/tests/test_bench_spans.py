@@ -9,9 +9,10 @@ from __future__ import annotations
 
 import pytest
 
-from _bench_tiny import BIG_SEED, tiny_cell, torch_threads  # noqa: F401
+from _bench_tiny import (BIG_SEED, KNAPSACK, tiny_cell,  # noqa: F401
+                         torch_threads)
 from bench import spans, tracing
-from test_bench_tracing import CUDA, Ev, events
+from test_bench_tracing import CUDA, Ev, events, knapsack_trace
 
 MS = 1_000_000
 
@@ -25,11 +26,11 @@ def nested_events():
         Ev(tracing.WINDOW, 0, 100 * MS, corr=1),
         Ev(tracing.SOLVE, 5 * MS, 95 * MS, corr=2),
         Ev("repro.solve", 6 * MS, 94 * MS, corr=3),
-        Ev(tracing.ROUNDS, 10 * MS, 90 * MS, corr=4),
+        Ev(KNAPSACK.ROUNDS, 10 * MS, 90 * MS, corr=4),
         Ev("repro.block", 10 * MS, 90 * MS, corr=5),
         Ev("repro.round", 12 * MS, 60 * MS, corr=6),
         Ev("repro.worker_body", 12 * MS, 30 * MS, corr=7),
-        Ev(tracing.WORKER_BODY, 13 * MS, 29 * MS, corr=8),
+        Ev(KNAPSACK.WORKER_BODY, 13 * MS, 29 * MS, corr=8),
         Ev("repro.explore", 15 * MS, 20 * MS, corr=9),
         Ev("aten::add", 16 * MS, 17 * MS, corr=10),
         Ev("repro.superstep", 32 * MS, 58 * MS, corr=11),
@@ -40,7 +41,7 @@ def nested_events():
         Ev("mul_kernel", 40 * MS, 50 * MS, CUDA, corr=91, linked=12),
         # the device's copies of spans are no operations
         Ev("repro.round", 18 * MS, 50 * MS, CUDA, corr=92, linked=6),
-        Ev(tracing.ROUNDS, 18 * MS, 50 * MS, CUDA, corr=93, linked=4),
+        Ev(KNAPSACK.ROUNDS, 18 * MS, 50 * MS, CUDA, corr=93, linked=4),
     ]
 
 
@@ -50,7 +51,7 @@ def test_idle_goes_to_the_innermost_span():
     # gaps start at 0 (no span), 21 (the explore's end: bench.worker_body
     # is innermost), 50 (repro.superstep)
     assert idle == pytest.approx({spans.NO_SPAN: 0.018,
-                                  tracing.WORKER_BODY: 0.019,
+                                  KNAPSACK.WORKER_BODY: 0.019,
                                   "repro.superstep": 0.050})
     assert out["idle_s"] == pytest.approx(0.087)
     assert out["idle_in_program_s"] == pytest.approx(0.050)
@@ -92,10 +93,9 @@ def test_reduce_trace_reads_the_same_with_program_spans():
              Ev("repro.explore", 20 * MS, 30 * MS, corr=201),
              Ev("repro.explore", 24 * MS, 29 * MS, CUDA, corr=202,
                 linked=201)]
-    want = tracing.reduce_trace(events(), device_type=CUDA)
-    got = tracing.reduce_trace(
-        spans.without_program_copies(events() + extra, CUDA),
-        device_type=CUDA)
+    want = knapsack_trace(events())
+    got = knapsack_trace(spans.without_program_copies(events() + extra,
+                                                      CUDA))
     assert got == want
 
 

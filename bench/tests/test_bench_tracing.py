@@ -7,7 +7,7 @@ from __future__ import annotations
 
 import pytest
 
-from _bench_tiny import ROOT, torch_threads  # noqa: F401
+from _bench_tiny import KNAPSACK, ROOT, torch_threads  # noqa: F401
 from bench import tracing
 
 CPU, CUDA = "cpu", "cuda"
@@ -41,7 +41,7 @@ def events():
     return [
         Ev(tracing.WINDOW, 0, 100 * ms, corr=1),
         Ev(tracing.SOLVE, 10 * ms, 60 * ms, corr=2),
-        Ev(tracing.EXPLORE, 20 * ms, 30 * ms, corr=3),
+        Ev(KNAPSACK.EXPLORE, 20 * ms, 30 * ms, corr=3),
         Ev("aten::empty", 21 * ms, 22 * ms, corr=4),
         Ev(tracing.INSTRUMENT, 31 * ms, 32 * ms, corr=5),
         Ev("aten::sum", 31 * ms, 32 * ms, corr=6),
@@ -59,12 +59,19 @@ def events():
         # its launch is not in the trace
         Ev("orphan_kernel", 70 * ms, 71 * ms, CUDA, corr=94, linked=999),
         # the device's copy of a span is no operation
-        Ev(tracing.EXPLORE, 24 * ms, 29 * ms, CUDA, corr=95, linked=3),
+        Ev(KNAPSACK.EXPLORE, 24 * ms, 29 * ms, CUDA, corr=95, linked=3),
     ]
 
 
+def knapsack_trace(events):
+    """``reduce_trace`` with the knapsack kind's spans."""
+    hooks = KNAPSACK.Hooks
+    return tracing.reduce_trace(events, spans=hooks.SPANS,
+                                kernels=hooks.KERNELS, device_type=CUDA)
+
+
 def test_reduction_of_made_up_events():
-    out = tracing.reduce_trace(events(), device_type=CUDA)
+    out = knapsack_trace(events())
     assert out["device_ops"] == 4 and out["unattributed_ops"] == 1
     assert out["window_trace_s"] == pytest.approx(0.1)
     assert out["instrument_host_s"] == pytest.approx(0.001)
@@ -77,13 +84,13 @@ def test_reduction_of_made_up_events():
     idle = dict(out["idle_by_host"])
     # gaps start at 0 (no span), 29 (explore), 44 (solve), 71 (none)
     assert idle == pytest.approx({"bench.between_solves": 0.024 + 0.029,
-                                  tracing.EXPLORE: 0.013,
+                                  KNAPSACK.EXPLORE: 0.013,
                                   tracing.SOLVE: 0.026})
     assert sum(idle.values()) + out["busy_s"] == pytest.approx(0.1)
 
 
 def test_no_window_no_reduction():
-    assert tracing.reduce_trace(events()[1:], device_type=CUDA) is None
+    assert knapsack_trace(events()[1:]) is None
 
 
 def test_union_of_intervals():
@@ -100,13 +107,11 @@ def test_harvest_lets_each_runtime_go(torch_threads):  # noqa: F811
     import torch
 
     from _bench_tiny import tiny_cell
-    from bench.run import program_solver
-    from repro_torch.core.dd import parallel
     from repro_torch.core.dd.knapsack import Knapsack
 
-    solve = program_solver(tiny_cell("ks-uncorr-series").config,
-                           torch.device("cpu"))
-    hooks = tracing.Hooks(parallel, torch)
+    solve = KNAPSACK.program(tiny_cell("ks-uncorr-series").config,
+                             torch.device("cpu"))
+    hooks = KNAPSACK.Hooks(torch)
     hooks.install()
     gc.disable()
     try:
